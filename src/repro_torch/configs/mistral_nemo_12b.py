@@ -1,0 +1,19 @@
+"""Mistral-Nemo-12B [hf:mistralai/Mistral-Nemo-Base-2407] - dense GQA, 128k ctx."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b",
+    family="dense",
+    num_layers=40,
+    d_model=5120,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=131072,
+    qkv_bias=False,
+    rope_theta=1e6,
+    act="swiglu",
+    norm="rmsnorm",
+    shard_2d=True,
+)

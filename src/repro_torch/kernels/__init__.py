@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions
+(counterparts of ``repro/kernels``)."""

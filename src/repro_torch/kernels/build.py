@@ -1,0 +1,129 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into shared libraries with a plain C interface, loaded with
+``ctypes`` (seconds to build; nothing includes PyTorch's headers).  A
+build happens at first use, into ``build/kernels/`` at the root of the
+checkout (listed in ``.gitignore``); the library name carries a hash of
+its source, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing here runs at import time: the CPU tests import every
+module of the port on a machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# exported C entry points of each source: name -> argtypes (all return int,
+# the cudaError_t of the launch)
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "nest_matmul.cu": {
+        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+        "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P,
+                             _I, _I, _I, _I, _P],
+        "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P,
+                             _I, _I, _I, _I, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# ptxas register / shared-memory / spill report of each build, by source
+build_logs: Dict[str, str] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise KernelBuildError("nvcc not found: the CUDA kernels build only on "
+                               "a machine with the CUDA toolkit")
+    return found
+
+
+def _start_build(source: str):
+    """Start nvcc on one source; returns (library path, process or None)."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if lib.exists():
+        return lib, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return lib, (proc, tmp)
+
+
+def build_all(sources=None) -> Dict[str, Path]:
+    """Compile every source (one nvcc each, all started together) and
+    return the library paths.  Already-built libraries are reused."""
+    sources = list(SIGNATURES) if sources is None else list(sources)
+    started = {s: _start_build(s) for s in sources}
+    paths = {}
+    for source, (lib, job) in started.items():
+        if job is not None:
+            proc, tmp = job
+            out, _ = proc.communicate()
+            build_logs[source] = out
+            if proc.returncode != 0:
+                raise KernelBuildError(f"nvcc failed on {source}:\n{out}")
+            os.replace(tmp, lib)
+        paths[source] = lib
+    return paths
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built at first use."""
+    with _lock:
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build_all([source])[source]))
+            for name, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+        return _libs[source]
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype):
+    """Output, split-K workspace (None with one pack block) and the current
+    stream handle for one stream-matmul launch.  The kernel allocates
+    nothing itself."""
+    import torch
+
+    M = x.shape[0]
+    nk = -(-K // block)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    partial = (torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
+               if nk > 1 else None)
+    return out, partial, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def ptr(t) -> int:
+    """Device address of a tensor (0 for None), for a ``c_void_p`` argument."""
+    return 0 if t is None else t.data_ptr()

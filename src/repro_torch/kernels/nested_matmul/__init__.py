@@ -1,0 +1,1 @@
+"""K2 and K3: matmuls recomposing the nesting ladder from 2..4 packed streams."""

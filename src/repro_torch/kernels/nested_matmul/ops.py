@@ -1,0 +1,55 @@
+"""Public wrappers of the dual-stream (K2) and ladder (K3) matmuls: device
+dispatch; counterpart of ``repro/kernels/nested_matmul/ops.py``."""
+from __future__ import annotations
+
+from .. import dispatch
+from . import kernel, ref
+
+DEFAULT_BLOCK_K = 512
+NESTED_COUNTER = dispatch.counter("nested_matmul")
+LADDER_COUNTER = dispatch.counter("ladder_matmul")
+
+
+def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
+                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None):
+    """y = x @ dequant(recompose(words_high, words_low)), x (..., K).  A
+    CUDA tensor launches the K2 kernel (or raises); a CPU tensor runs the
+    plain version."""
+    out_dtype = out_dtype or x.dtype
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if dispatch.takes_kernel(x2):
+        dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
+                                K=K, block=block_k, out_dtype=out_dtype)
+        y = kernel.nested_matmul(x2, words_high, words_low, scale, n=n, h=h,
+                                 K=K, block_k=block_k, out_dtype=out_dtype)
+        NESTED_COUNTER.launches += 1
+    else:
+        y = ref.nested_matmul_ref(x2, words_high, words_low, scale, n=n, h=h,
+                                  K=K, block_k=block_k, out_dtype=out_dtype)
+        NESTED_COUNTER.plain_launches += 1
+    return y.reshape(lead + (y.shape[-1],))
+
+
+def ladder_matmul(x, streams, scale, *, bits, K: int,
+                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None):
+    """y = x @ dequant(chain-recompose(streams)) for a rung with
+    ``len(streams)`` resident streams (bits ascending, one per stream;
+    scale = the rung scale).  A CUDA tensor launches the K3 kernel, which
+    takes up to 4 streams (a 4-rung ladder) and raises above; a CPU
+    tensor runs the plain version."""
+    out_dtype = out_dtype or x.dtype
+    streams, bits = tuple(streams), tuple(bits)
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    if dispatch.takes_kernel(x2):
+        dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
+                                out_dtype=out_dtype)
+        y = kernel.ladder_matmul(x2, streams, scale, bits=bits, K=K,
+                                 block_k=block_k, out_dtype=out_dtype)
+        LADDER_COUNTER.launches += 1
+    else:
+        y = ref.ladder_matmul_ref(x2, streams, scale, bits=bits, K=K,
+                                  block_k=block_k, out_dtype=out_dtype)
+        LADDER_COUNTER.plain_launches += 1
+    return y.reshape(lead + (y.shape[-1],))

@@ -1,0 +1,241 @@
+"""LM assembly, dense family; counterpart of ``repro/models/model.py``.
+
+Parameters keep the reference's layout: a nested dict with layer weights
+stacked on a leading L axis, so keystr paths, the recipe predicate (which
+screens the stacked shape), per-(L, 1, N) scales and byte accounting all
+match.  Where the reference scans layers with ``lax.scan``, the port
+loops over them in Python with a per-layer view of every leaf
+(:meth:`NestedTensor.layer` for nested ones).
+
+Public surface, built by :func:`make_model`:
+  init(seed)                          -> params
+  prefill(params, inputs)             -> (last_logits f32, cache)
+  decode_step(params, inputs, cache)  -> (logits f32, cache)  (cache updated in place)
+  make_cache(batch_size, max_len)     -> cache
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.nesting import NestedTensor
+from ..device import resolve_device, torch_dtype
+from .attention import blockwise_attention, decode_attention, full_attention
+from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
+
+SUPPORTED_FAMILIES = ("dense",)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, "
+                              f"item {item})")
+
+
+# ===========================================================================
+# Initialization (random; torch.Generator draws, not jax.random's)
+# ===========================================================================
+def _dense_init(gen, shape, dtype, scale=None):
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                generator: Optional[torch.Generator] = None) -> Dict:
+    """Random parameters of a dense config, drawn on ``device`` from a
+    seeded ``torch.Generator`` (or the one given)."""
+    if cfg.family not in SUPPORTED_FAMILIES:
+        _not_ported(f"family {cfg.family!r}", "14")
+    dev = resolve_device(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    dt = torch_dtype(cfg.dtype)
+    L, d = cfg.num_layers, cfg.d_model
+    qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def norm_init(shape):
+        p = {"scale": torch.ones(shape, dtype=torch.float32, device=dev)}
+        if cfg.norm == "layernorm":
+            p["bias"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return p
+
+    blocks = {"attn_norm": norm_init((L, d)), "mlp_norm": norm_init((L, d))}
+    for name, shape in (("q", (L, d, qd)), ("k", (L, d, kvd)),
+                        ("v", (L, d, kvd)), ("o", (L, qd, d))):
+        blocks[name] = {"w": _dense_init(gen, shape, dt)}
+    if cfg.qkv_bias:
+        for name, width in (("q", qd), ("k", kvd), ("v", kvd)):
+            blocks[name]["b"] = torch.zeros((L, width), dtype=torch.float32, device=dev)
+    mlp_p = {"w_up": {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)},
+             "w_down": {"w": _dense_init(gen, (L, cfg.d_ff, d), dt)}}
+    if cfg.act == "swiglu":
+        mlp_p["w_gate"] = {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)}
+    blocks["mlp"] = mlp_p
+    params: Dict[str, Any] = {"blocks": blocks}
+    if cfg.input_kind == "tokens":
+        params["embed"] = {"table": _dense_init(gen, (cfg.vocab_size, d), dt, scale=0.02)}
+    params["final_norm"] = norm_init((d,))
+    params["lm_head"] = {"w": _dense_init(gen, (d, cfg.vocab_size), dt, scale=0.02)}
+    return params
+
+
+def layer_params(blocks, i: int):
+    """Layer ``i`` of the stacked block parameters (views, no copies)."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    if isinstance(blocks, NestedTensor):
+        return blocks.layer(i)
+    return blocks[i]
+
+
+# ===========================================================================
+# Attention sub-block
+# ===========================================================================
+def _qkv(x, lp, cfg):
+    q = linear(x, lp["q"]["w"], lp["q"].get("b"))
+    k = linear(x, lp["k"]["w"], lp["k"].get("b"))
+    v = linear(x, lp["v"]["w"], lp["v"].get("b"))
+    B, S = x.shape[:2]
+    return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
+            k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
+
+
+def attn_seq(x, lp, cfg, kv_block: int = 512):
+    """Full-sequence causal attention. Returns (out, (k, v))."""
+    B, S = x.shape[:2]
+    q, k, v = _qkv(x, lp, cfg)
+    pos = torch.arange(S, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if S > 1024:
+        o = blockwise_attention(q, k, v, True, kv_block)
+    else:
+        o = full_attention(q, k, v, causal=True)
+    o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return linear(o, lp["o"]["w"]), (k, v)
+
+
+def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
+    """One-token attention against the cache, x: (B,1,d).  The new K/V
+    are written into ``k_cache``/``v_cache`` (B,Smax,Hkv,hd) IN PLACE at
+    ``pos`` - where the reference returns updated copies."""
+    B = x.shape[0]
+    q, k, v = _qkv(x, lp, cfg)
+    p = torch.full((1,), pos, device=x.device)
+    q = apply_rope(q, p, cfg.rope_theta)
+    k = apply_rope(k, p, cfg.rope_theta)
+    k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
+    v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, pos)
+    o = o.reshape(B, 1, cfg.num_heads * cfg.head_dim)
+    return linear(o, lp["o"]["w"])
+
+
+# ===========================================================================
+# Transformer forward (dense)
+# ===========================================================================
+def transformer_seq(params, x, cfg, want_cache: bool):
+    """x: (B,S,d) embedded input. Returns (h, cache or None)."""
+    h = x
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["blocks"], i)
+        a, (k, v) = attn_seq(norm(h, lp["attn_norm"], cfg.norm), lp, cfg)
+        h = h + a
+        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act)
+        if want_cache:
+            ks.append(k)
+            vs.append(v)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
+    return h, cache
+
+
+def transformer_decode(params, x, cfg, cache, pos: int):
+    """One decode step over every layer; ``cache`` (L,B,Smax,Hkv,hd) is
+    updated in place."""
+    h = x
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["blocks"], i)
+        h = h + attn_decode(norm(h, lp["attn_norm"], cfg.norm), lp, cfg,
+                            cache["k"][i], cache["v"][i], pos)
+        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act)
+    return h
+
+
+# ===========================================================================
+# Embedding / head
+# ===========================================================================
+def embed_inputs(params, inputs, cfg):
+    cdt = torch_dtype(cfg.compute_dtype)
+    if cfg.input_kind != "tokens":
+        _not_ported(f"input kind {cfg.input_kind!r}", "14")
+    tok = inputs["tokens"]
+    table = params["embed"]["table"]
+    if isinstance(table, NestedTensor):
+        # row gather straight from the packed words
+        h = table.gather_rows(tok, cdt)
+    else:
+        h = table[tok].to(cdt)
+    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(h.dtype)
+
+
+def lm_logits(params, h, cfg):
+    """Logits in f32."""
+    w = params["lm_head"]["w"]
+    if isinstance(w, NestedTensor):
+        return packed_linear(h, w, out_dtype=torch.float32)
+    return pdot(h, w.to(h.dtype), preferred=torch.float32)
+
+
+# ===========================================================================
+# Public model surface
+# ===========================================================================
+class Model(NamedTuple):
+    cfg: ModelConfig
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    make_cache: Callable
+    decode_chunk: Callable
+
+
+def make_model(cfg: ModelConfig, device="cuda") -> Model:
+    """The dense-family model on ``device``; other families raise."""
+    if cfg.family not in SUPPORTED_FAMILIES:
+        _not_ported(f"family {cfg.family!r}", "14")
+    dev = resolve_device(device)
+
+    def init(seed: int = 0):
+        return init_params(cfg, seed=seed, device=dev)
+
+    def prefill(params, inputs):
+        h = embed_inputs(params, inputs, cfg)
+        h, cache = transformer_seq(params, h, cfg, want_cache=True)
+        h = norm(h, params["final_norm"], cfg.norm)
+        last = lm_logits(params, h[:, -1:, :], cfg)
+        cache["pos"] = h.shape[1]
+        return last, cache
+
+    def decode_step(params, inputs, cache):
+        pos = int(cache["pos"])
+        h = embed_inputs(params, inputs, cfg)
+        h = transformer_decode(params, h, cfg, cache, pos)
+        h = norm(h, params["final_norm"], cfg.norm)
+        logits = lm_logits(params, h, cfg)
+        cache["pos"] = pos + 1
+        return logits, cache
+
+    def decode_chunk(params, inputs, cache):
+        _not_ported("decode_chunk (the speculative verify pass)", "9")
+
+    def make_cache(batch_size: int, max_len: int, dtype=None):
+        dt = torch_dtype(dtype or cfg.compute_dtype)
+        shp = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"pos": 0, "k": torch.zeros(shp, dtype=dt, device=dev),
+                "v": torch.zeros(shp, dtype=dt, device=dev)}
+
+    return Model(cfg, init, prefill, decode_step, make_cache, decode_chunk)
