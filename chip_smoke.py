@@ -23,9 +23,9 @@ Phases (each raises on failure; the script then exits non-zero):
 3. Run the same requests through the plain versions (the scoped
    ``reference_pass``) with ``compute_dtype="float32"`` as the reference:
    the f32 kernel path within 1e-4 of it (logits relative to max |logit|)
-   with greedy tokens identical, the bf16 kernel path's prefill logits
-   within 2e-2 of it (or 1.5x bf16's own error where that is larger);
-   bf16 kernel-vs-plain agreement is printed.
+   with greedy tokens identical; the bf16 kernel path's prefill logits
+   within 3e-2 of it and of the plain bf16 pass.  What a kernel that
+   drops one delta stream would read is printed beside them.
 
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
@@ -54,6 +54,10 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# bf16 end to end (prefill logits, relative to max |logit|): sound kernels
+# read 1.68-2.27e-2 against the f32 plain pass and 1.94-2.11e-2 against the
+# bf16 plain pass on this seeded model, the same in every run (see PERF.md)
+BF16_E2E_TOL = 3e-2
 BITS = (8, 6, 4)
 MS = (1, 4, 8, 32)
 L2_BYTES = 50e6
@@ -364,13 +368,16 @@ def phase_reference(cfg, store, phases):
 
     * f32 kernel path: prefill logits within 1e-4 of it (relative to max
       |logit|) and greedy tokens identical;
-    * bf16 kernel path: prefill logits within 2e-2 of it, or within 1.5x
-      the plain bf16 pass's own distance from it where bf16 rounding alone
-      exceeds 2e-2.  Also printed: kernel-vs-plain in bf16, logits and
-      greedy-token agreement - two independent bf16 rounding paths through
-      28 layers.
+    * bf16 kernel path: prefill logits within ``BF16_E2E_TOL`` of it and
+      of the plain bf16 pass.  bf16 rounding alone puts the plain bf16
+      pass 1.5-2.0e-2 from the f32 one through 28 layers, so the limit
+      sits above that floor.  Also printed: greedy-token agreement in bf16
+      and, for each rung above 0, the bf16 kernel path of the rung below
+      against this rung's reference - what a kernel that dropped the
+      finest delta stream would read.
 
     Every rung is measured before any failure is raised."""
+    from repro_torch.core.nesting import set_tree_rung
     from repro_torch.kernels import dispatch
     from repro_torch.serving import ServeEngine
 
@@ -402,20 +409,23 @@ def phase_reference(cfg, store, phases):
              "bf16_token_agreement": float((t["bf16", False] == t["bf16", True]).mean()),
              "max_abs_logit": p32.abs().max().item()}
         finite = all(bool(x.isfinite().all()) for x in (k16, k32, p16, p32))
-        # bf16's own error through 28 layers (the plain pass against the same
-        # reference) is itself 1.5-2e-2 of max |logit| on this random model,
-        # so the bf16 kernel path is held to 2e-2 or 1.5x that floor
-        r["bf16_tol"] = max(2e-2, 1.5 * r["bf16_plain_vs_f32_plain"])
+        r["bf16_tol"] = BF16_E2E_TOL
         r["ok"] = (finite and r["f32_kernel_vs_plain"] <= 1e-4 and r["f32_tokens_identical"]
-                   and r["bf16_kernel_vs_f32_plain"] <= r["bf16_tol"])
+                   and r["bf16_kernel_vs_f32_plain"] <= BF16_E2E_TOL
+                   and r["bf16_kernel_vs_bf16_plain"] <= BF16_E2E_TOL)
         out[f"rung{rung}"] = r
+        if rung > 0:
+            short, _ = e16.model.prefill(set_tree_rung(params, rung - 1), toks)
+            r["bf16_one_stream_short_vs_f32_plain"] = _rel(short, p32)
+            log(f"[reference] rung {rung}: a kernel one delta stream short (the bf16 "
+                f"kernel path at rung {rung - 1}) reads "
+                f"{r['bf16_one_stream_short_vs_f32_plain']:.3e} against the f32 plain pass")
         log(f"[reference] rung {rung}: f32 kernel vs plain {r['f32_kernel_vs_plain']:.3e} "
             f"(tol 1e-4), tokens identical {r['f32_tokens_identical']}; bf16 kernel vs "
-            f"f32 plain {r['bf16_kernel_vs_f32_plain']:.3e} (tol {r['bf16_tol']:.3e}), "
-            f"bf16 plain vs "
-            f"f32 plain {r['bf16_plain_vs_f32_plain']:.3e}, bf16 kernel vs bf16 plain "
-            f"{r['bf16_kernel_vs_bf16_plain']:.3e}, bf16 greedy token agreement "
-            f"{r['bf16_token_agreement']:.3f}")
+            f"f32 plain {r['bf16_kernel_vs_f32_plain']:.3e}, bf16 kernel vs bf16 plain "
+            f"{r['bf16_kernel_vs_bf16_plain']:.3e} (tol {BF16_E2E_TOL:.0e} each), bf16 "
+            f"plain vs f32 plain {r['bf16_plain_vs_f32_plain']:.3e}, bf16 greedy token "
+            f"agreement {r['bf16_token_agreement']:.3f}")
         if not r["ok"]:
             failures.append(rung)
     if failures:

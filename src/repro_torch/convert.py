@@ -20,6 +20,7 @@ import torch
 
 from . import tree
 from .core.nesting import NestedTensor
+from .device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -40,8 +41,9 @@ class NestedArrays:
     rung: int
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """A dense leaf, bit for bit."""
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """A dense leaf, bit for bit, on ``device`` (default: the card)."""
+    device = resolve_device(device)
     if isinstance(a, Bf16Array):
         raw = np.ascontiguousarray(a.bits16, dtype=np.uint16).view(np.int16)
         return torch.from_numpy(raw.copy()).view(torch.bfloat16).to(device)
@@ -51,7 +53,9 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def nested_from_numpy(na: NestedArrays, device="cpu") -> NestedTensor:
+def nested_from_numpy(na: NestedArrays, device=None) -> NestedTensor:
+    device = resolve_device(device)
+
     def words(a):
         a = np.asarray(a)
         if a.dtype != np.int32:
@@ -66,8 +70,10 @@ def nested_from_numpy(na: NestedArrays, device="cpu") -> NestedTensor:
         rung=int(na.rung))
 
 
-def params_from_numpy(params, device="cpu"):
+def params_from_numpy(params, device=None):
     """A whole tree: every leaf converted, structure and keys kept."""
+    device = resolve_device(device)
+
     def leaf(_, x):
         if isinstance(x, NestedArrays):
             return nested_from_numpy(x, device)

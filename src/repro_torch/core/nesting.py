@@ -185,10 +185,6 @@ class NestedTensor:
         rung = check_rung(rung, self.num_rungs)
         return dequantize(self.codes_at(rung), self.rung_scale(rung), dtype)
 
-    def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
-        """Dequantize according to the stamped serving ``rung``."""
-        return self.rung_weight(self.rung, dtype)
-
     def gather_rows(self, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantized logical rows ``idx`` along the packed K axis, read
         straight from the packed words (the embedding gather).  Returns

@@ -23,9 +23,13 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None) -> torch.Te
     """Matmul straight from the packed words, dispatched on the stamped
     rung: rung 0 -> packed_matmul on the base stream with the inflated
     scale s*2^(n-h); rung 1 -> the dual-stream nested_matmul; deeper rungs
-    -> the ladder_matmul.  Leaves with stacked leading dims dequantize."""
+    -> the ladder_matmul.  Takes one 2-D weight (a per-layer view); a leaf
+    with stacked leading dims (MoE expert stacks) raises rather than
+    leaving the kernels."""
     if nt.w_base.ndim != 2:
-        return pdot(x, nt.dequant(x.dtype), preferred=out_dtype)
+        raise NotImplementedError(
+            f"packed_linear takes a 2-D weight, got a stacked leaf of shape {nt.shape}; "
+            "expert stacks come with the MoE family (ROADMAP queue 1, item 14)")
     x = x.contiguous()
     r = nt.rung
     rung_scale = nt.rung_scale(r).reshape(1, -1)

@@ -84,20 +84,30 @@ def test_logits_and_greedy_tokens_match_at_every_rung(trees, source):
 
 
 def test_model_surface_raises_for_what_is_not_ported():
+    from repro_torch.models.layers import packed_linear
     with pytest.raises(NotImplementedError, match="item 14"):
         make_model(get_config("mamba2-780m").reduced(), device="cpu")
     model = make_model(get_config("qwen2-1.5b").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         model.decode_chunk({}, {}, {})
+    # a stacked leaf (an expert stack) raises instead of dequantizing
+    # around the kernels
+    stacked = tn.nest_quantize(torch.randn(2, 64, 32, generator=torch.Generator().manual_seed(0)),
+                               bits=(8, 4), rounding="rtn", block=64)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        packed_linear(torch.zeros(3, 64), stacked)
 
 
 def test_blockwise_attention_matches_full_attention():
     """The long-prefill path (S > 1024 in attn_seq) against direct
-    attention, at a small block so the test stays small."""
+    attention and against the JAX package's blockwise_attention on the
+    same inputs, at a small block so the test stays small."""
+    from repro.models.attention import blockwise_attention as jax_blockwise
     from repro_torch.models.attention import blockwise_attention, full_attention
-    g = torch.Generator().manual_seed(0)
-    q = torch.randn(1, 64, 4, 16, generator=g)
-    k = torch.randn(1, 64, 2, 16, generator=g)
-    v = torch.randn(1, 64, 2, 16, generator=g)
-    torch.testing.assert_close(blockwise_attention(q, k, v, True, kv_block=16),
-                               full_attention(q, k, v, causal=True), rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(1, 64, h, 16)).astype(np.float32) for h in (4, 2, 2))
+    got = blockwise_attention(*map(torch.from_numpy, (q, k, v)), True, kv_block=16)
+    torch.testing.assert_close(got, full_attention(*map(torch.from_numpy, (q, k, v)),
+                                                   causal=True), rtol=1e-5, atol=1e-5)
+    ref = jax_blockwise(*map(jnp.asarray, (q, k, v)), True, kv_block=16)
+    np.testing.assert_allclose(t2n(got), j2n(ref), rtol=1e-5, atol=1e-5)

@@ -99,6 +99,25 @@ def test_choose_block_matches_reference(K):
     assert tp.choose_block(K) == jp.choose_block(K)
 
 
+def test_convert_defaults_to_the_entry_points_device(monkeypatch):
+    """Converted trees land where every entry point defaults to (the card),
+    not on the CPU; "meta" stands in for the card here."""
+    from repro_torch import convert
+    from repro_torch import device as port_device
+    monkeypatch.setattr(port_device, "DEFAULT_DEVICE", "meta")
+    words = _codes(np.random.default_rng(0), 8, 4)
+    tree = {"w": convert.NestedArrays(w_base=words, deltas=(None,),
+                                      scale=np.ones((1, 8), np.float32), shape=(4, 8),
+                                      bits=(4, 8), block=4, rung=0),
+            "b": convert.Bf16Array(np.zeros(8, np.uint16)), "n": np.zeros(3, np.float32)}
+    out = convert.params_from_numpy(tree)
+    assert {out["w"].w_base.device.type, out["w"].scale.device.type,
+            out["b"].device.type, out["n"].device.type} == {"meta"}
+    assert out["b"].dtype == torch.bfloat16
+    assert convert.tensor_from_numpy(words).device.type == "meta"
+    assert convert.tensor_from_numpy(words, "cpu").device.type == "cpu"
+
+
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)

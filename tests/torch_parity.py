@@ -57,14 +57,19 @@ def j2n(x) -> np.ndarray:
 def reduced_qwen2(seed: int = 0):
     """Reduced qwen2-1.5b in the JAX package: (config, dense params, their
     rtn (8, 6, 4) nesting).  Cached: the model and engine tests share one
-    eager JAX quantization (the slowest step of either) in a process."""
+    JAX quantization in a process.  It runs under ``jax.jit`` (one compile
+    instead of hundreds of eager ones); XLA may round a few scales one ulp
+    away from the eager result, and the codes are the same.  The tree is
+    the input of both packages here, and eager quantization is held bit for
+    bit in tests/test_torch_quant.py."""
     from repro.configs import get_config
     from repro.core.recipe import QuantRecipe, quantize
     from repro.models import make_model
 
     cfg = get_config("qwen2-1.5b").reduced()
     dense = make_model(cfg).init(jax.random.PRNGKey(seed))
-    return cfg, dense, quantize(dense, QuantRecipe(bits=(8, 6, 4), rounding="rtn"))
+    recipe = QuantRecipe(bits=(8, 6, 4), rounding="rtn")
+    return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +105,7 @@ def activations(M, K, dtype, seed):
     """The same activations for both packages: (jax array, torch tensor)."""
     x = np.random.default_rng(seed).normal(size=(M, K)).astype(np.float32)
     xj = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
-    return xj, convert.tensor_from_numpy(to_numpy_leaf(xj))
+    return xj, convert.tensor_from_numpy(to_numpy_leaf(xj), "cpu")
 
 
 def assert_close(port: torch.Tensor, ref, dtype: str):
