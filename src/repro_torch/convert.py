@@ -53,14 +53,20 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
+def words_from_numpy(a, device=None) -> torch.Tensor:
+    """Packed int32 words (weight or KV streams, int32 codes) bit for bit;
+    any other dtype raises."""
+    a = np.asarray(a)
+    if a.dtype != np.int32:
+        raise TypeError(f"packed words must be int32, got {a.dtype}")
+    return tensor_from_numpy(a, device)
+
+
 def nested_from_numpy(na: NestedArrays, device=None) -> NestedTensor:
     device = resolve_device(device)
 
     def words(a):
-        a = np.asarray(a)
-        if a.dtype != np.int32:
-            raise TypeError(f"packed words must be int32, got {a.dtype}")
-        return tensor_from_numpy(a, device)
+        return words_from_numpy(a, device)
 
     return NestedTensor(
         w_base=words(na.w_base),

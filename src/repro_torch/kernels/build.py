@@ -37,6 +37,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P,
                              _I, _I, _I, _I, _P],
     },
+    "flash_attention.cu": {
+        "nq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P],
+    },
+    "nested_qk.cu": {
+        "nq_nested_qk": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "nest_recompose.cu": {
+        "nq_nest_recompose": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -91,10 +101,11 @@ def build_all(sources=None) -> Dict[str, Path]:
 
 
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built at first use."""
+    """The loaded library of ``source``.  The first use of any kernel
+    builds every source, in parallel; later uses reuse the libraries."""
     with _lock:
         if source not in _libs:
-            lib = ctypes.CDLL(str(build_all([source])[source]))
+            lib = ctypes.CDLL(str(build_all()[source]))
             for name, argtypes in SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -1,4 +1,5 @@
-"""Where a matmul wrapper runs its work, and the launch counters.
+"""Where a kernel wrapper runs its work, the launch counters, and the
+operand checks of the CUDA kernels.
 
 The rule is the tensor's device: a CPU tensor takes the kernel's plain
 PyTorch version, a CUDA tensor launches the hand-written kernel or raises
@@ -115,3 +116,82 @@ def check_operands(x: torch.Tensor, streams, bits, scale: torch.Tensor, *,
             or not scale.is_contiguous() or scale.device != x.device):
         raise ValueError(f"scale must be contiguous f32 with {N} elements on "
                          f"{x.device}, got {scale.dtype} {tuple(scale.shape)}")
+
+
+MAX_HEAD_DIM = 128
+MAX_QK_DIM = 256
+
+
+def check_flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything K5 does not take: q (B,S,Hq,hd), k/v (B,S,Hkv,hd)
+    contiguous, one dtype (bf16 or f32), one device; hd <= 128 and a
+    multiple of 8; Hq a multiple of Hkv."""
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes bf16 or f32 q/k/v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention needs q (B,S,Hq,hd) and k/v (B,S,Hkv,hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or Hq % Hkv:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a head dim that is a multiple of 8 "
+                         f"and <= {MAX_HEAD_DIM}, got {hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be contiguous on "
+                             f"{q.device}, got {t.device} contiguous={t.is_contiguous()}")
+
+
+def check_qk_operands(q_codes: torch.Tensor, streams, bits, page: int) -> None:
+    """Raise on anything K4 does not take: int32 contiguous queries
+    (BH, M, D <= 256); 1..4 int32 contiguous streams (BH, npages *
+    rows_i, D) on the queries' device, their widths following from the
+    resident ``bits`` (ascending, checked by the caller; <= 16); any page
+    >= 1."""
+    from ..core.packing import blocked_rows
+
+    if q_codes.dtype != torch.int32 or q_codes.ndim != 3 or not q_codes.is_contiguous():
+        raise TypeError(f"nested_qk takes contiguous int32 (BH, M, D) query codes, got "
+                        f"{q_codes.dtype} {tuple(q_codes.shape)}")
+    BH, M, D = q_codes.shape
+    if not 1 <= len(streams) <= MAX_STREAMS or len(bits) != len(streams):
+        raise ValueError(f"nested_qk takes 1..{MAX_STREAMS} streams with one "
+                         f"bitwidth each, got {len(streams)} streams, bits {bits}")
+    if bits[-1] > MAX_BITS or D > MAX_QK_DIM or page < 1 or M < 1:
+        raise ValueError(f"nested_qk takes bitwidths <= {MAX_BITS}, D <= {MAX_QK_DIM} "
+                         f"and page >= 1, got bits {bits}, D {D}, page {page}")
+    widths = (bits[0],) + tuple(c - b + 1 for b, c in zip(bits, bits[1:]))
+    npages = streams[0].shape[1] // blocked_rows(page, bits[0])
+    for s, w in zip(streams, widths):
+        want = (BH, npages * blocked_rows(page, w), D)
+        if (s.dtype != torch.int32 or tuple(s.shape) != want or npages < 1
+                or not s.is_contiguous() or s.device != q_codes.device):
+            raise ValueError(f"K stream of width {w} must be contiguous int32 {want} on "
+                             f"{q_codes.device}, got {s.dtype} {tuple(s.shape)} on "
+                             f"{s.device}")
+
+
+def check_recompose_operands(words_high: torch.Tensor, words_low: torch.Tensor, *,
+                             n: int, h: int, K: int, block_k: int) -> None:
+    """Raise on anything K6 does not take: 1 <= h < n <= 8 (int8 output);
+    contiguous int32 streams (nk * rows_h, N) and (nk * rows_l, N) on one
+    device, packed along K with ``block_k >= 1``."""
+    from ..core.packing import blocked_rows
+
+    if not 1 <= h < n <= 8:
+        raise ValueError(f"nest_recompose takes 1 <= h < n <= 8, got n={n} h={h}")
+    if block_k < 1 or K < 1:
+        raise ValueError(f"nest_recompose needs K >= 1 and block_k >= 1, got {K}, {block_k}")
+    nk = -(-K // block_k)
+    N = words_high.shape[-1]
+    for s, w in ((words_high, h), (words_low, n - h + 1)):
+        want = (nk * blocked_rows(block_k, w), N)
+        if (s.dtype != torch.int32 or tuple(s.shape) != want or not s.is_contiguous()
+                or s.device != words_high.device):
+            raise ValueError(f"word stream of width {w} must be contiguous int32 {want} "
+                             f"on {words_high.device}, got {s.dtype} {tuple(s.shape)} "
+                             f"on {s.device}")

@@ -2,9 +2,12 @@
 and the forward of the blockwise (flash-semantics) path used for long
 prefill; counterpart of ``repro/models/attention.py``.
 
-This is plain tensor code, as in the reference (its Pallas flash kernel,
-K5, is not on the serving path).  Scores and the softmax are f32; the
-probabilities are cast to v's dtype before the PV product.
+This is plain tensor code, as in the reference.  A prompt over 1024
+tokens goes from ``models/model.py::attn_seq`` to the flash-attention op
+(``kernels/flash_attention``): on the card it launches the hand-written
+kernel K5, and ``blockwise_attention`` is the op's plain version (CPU
+tensors and ``reference_pass``).  Scores and the softmax are
+f32; the probabilities are cast to v's dtype before the PV product.
 """
 from __future__ import annotations
 

@@ -23,7 +23,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.nesting import NestedTensor
 from ..device import resolve_device, torch_dtype
-from .attention import blockwise_attention, decode_attention, full_attention
+from ..kernels.flash_attention import ops as flash_ops
+from .attention import decode_attention, full_attention
 from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
 
 SUPPORTED_FAMILIES = ("dense",)
@@ -105,14 +106,18 @@ def _qkv(x, lp, cfg):
 
 
 def attn_seq(x, lp, cfg, kv_block: int = 512):
-    """Full-sequence causal attention. Returns (out, (k, v))."""
+    """Full-sequence causal attention. Returns (out, (k, v)).  A prompt
+    over 1024 tokens goes to the flash-attention op: K5 on a CUDA tensor
+    (or raises), its plain blockwise version on a CPU tensor or inside
+    ``reference_pass``."""
     B, S = x.shape[:2]
     q, k, v = _qkv(x, lp, cfg)
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     if S > 1024:
-        o = blockwise_attention(q, k, v, True, kv_block)
+        o = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      kv_block=kv_block)
     else:
         o = full_attention(q, k, v, causal=True)
     o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)

@@ -1,6 +1,7 @@
-"""Serving engine: batched requests, prefill/greedy decode, rung switching;
-the part of ``repro/serving/engine.py`` the main path runs (``Request``,
-``EngineStats``, ``ServeEngine.__init__``/``ensure_mode``/``generate``).
+"""Serving engine: batched requests, prefill/greedy decode, rung switching
+and the nested KV cache; the part of ``repro/serving/engine.py`` these
+paths run (``Request``, ``EngineStats``, ``ServeEngine.__init__``/
+``ensure_mode``/``generate`` and the KV hooks).
 
 At every request boundary the policy sees the memory budget and the
 recent switch history, and the store pages exactly the delta streams its
@@ -22,7 +23,10 @@ from ..core.switching import NestQuantStore
 from ..device import torch_dtype
 from ..models.model import Model, make_model
 from ..storage.pager import PagerError
-from .policies import BudgetPolicy, RungPolicy, SignalTracker
+from .kv_cache import (KVCacheConfig, NestedKVCache, dense_kv_bytes_per_token,
+                       kv_bytes_per_token)
+from .policies import BudgetPolicy, ResourceSignal, RungPolicy, SignalTracker, \
+    resolve_kv_decide
 
 # a failed rung switch rolls back in the store, so the engine keeps
 # serving at the rung it already has
@@ -48,6 +52,10 @@ class EngineStats:
     last_failure: str = ""
     mode_history: deque = field(default_factory=lambda: deque(maxlen=MODE_HISTORY_CAP))
     mode_counts: Dict[str, int] = field(default_factory=dict)
+    # nested KV cache
+    kv_switches: int = 0          # committed cache rung moves
+    kv_switch_failures: int = 0   # cache switch attempts rolled back
+    kv_pages: int = 0             # pages ingested over the engine's life
 
     def record_mode(self, mode: str):
         self.mode_history.append(mode)
@@ -56,15 +64,20 @@ class EngineStats:
 
 class ServeEngine:
     """Greedy batched serving of a nested model held by ``store``; runs
-    on the store's device."""
+    on the store's device.  ``kv``: None keeps the dense cache alone; a
+    :class:`KVCacheConfig` builds a fresh :class:`NestedKVCache`; an
+    existing cache is adopted as it is."""
 
     def __init__(self, cfg: ModelConfig, store: NestQuantStore,
                  max_batch: int = 8, max_len: int = 128,
                  policy: Optional[RungPolicy] = None, *,
                  model: Optional[Model] = None, kv=None):
-        if kv is not None:
-            raise NotImplementedError("the nested KV cache is not ported yet "
-                                      "(ROADMAP.md queue 1, item 10)")
+        if isinstance(kv, KVCacheConfig):
+            kv = NestedKVCache(kv)
+        if kv is not None and not isinstance(kv, NestedKVCache):
+            raise TypeError(f"kv must be a KVCacheConfig or a NestedKVCache, "
+                            f"got {type(kv).__name__}")
+        self.kv: Optional[NestedKVCache] = kv
         self.cfg = cfg
         self.store = store
         self.device = store.device
@@ -85,7 +98,11 @@ class ServeEngine:
         signal = self._tracker.signal(
             memory_budget_bytes=memory_budget_bytes, queue_depth=queue_depth,
             backlog_age_s=backlog_age_s,
-            available_rung=self.store.max_available_rung())
+            available_rung=self.store.max_available_rung(),
+            kv_rung=self.kv.rung if self.kv is not None else -1,
+            kv_num_rungs=self.kv.config.num_rungs if self.kv is not None else 0,
+            kv_resident_bytes=self.kv.resident_bytes() if self.kv is not None else 0)
+        self._ensure_kv_rung(signal)
         try:
             report = self.store.apply(self.policy.decide(self.store, signal))
         except SWITCH_FAILURES as e:
@@ -104,6 +121,75 @@ class ServeEngine:
             self._params = self.store.params()
         self.stats.record_mode(self.store.mode)
         return self.store.mode
+
+    # -- nested KV cache ---------------------------------------------------
+    def _ensure_kv_rung(self, signal: ResourceSignal) -> None:
+        """The cache half of the joint rung choice: the policy chain's
+        ``kv_decide``, clamped to what the pager can deliver, walked
+        through the ledgered adjacent steps.  A failed walk rolls back in
+        the cache; the dense decode cache is never touched."""
+        if self.kv is None:
+            return
+        want = resolve_kv_decide(self.policy, self.kv, signal)
+        if want is None:
+            return
+        want = min(max(int(want), 0), self.kv.max_available_rung())
+        if want == self.kv.rung:
+            return
+        try:
+            self.kv.to_rung(want)
+        except SWITCH_FAILURES as e:
+            self.stats.kv_switch_failures += 1
+            self.stats.last_failure = str(e)
+            return
+        self.stats.kv_switches += 1
+
+    def kv_bytes_per_seq(self, rung: Optional[int] = None) -> int:
+        """Cache bytes ONE sequence of ``max_len`` positions costs: the
+        nested cost at ``rung`` (default: the cache's rung) with a nested
+        cache, the dense compute-dtype cost otherwise (metadata only)."""
+        L = self.cfg.num_layers
+        if self.kv is None:
+            per_tok = dense_kv_bytes_per_token(
+                L, self.cfg.num_kv_heads, self.cfg.head_dim,
+                torch_dtype(self.cfg.compute_dtype).itemsize)
+        else:
+            per_tok = kv_bytes_per_token(
+                self.kv.config, self.kv.rung if rung is None else int(rung),
+                L, self.cfg.num_kv_heads, self.cfg.head_dim)
+        return per_tok * self.max_len
+
+    def kv_admissible_batch(self, memory_budget_bytes: Optional[int]) -> int:
+        """Largest batch whose cache fits beside the current weight
+        residency under the budget (at least 1; None = no constraint)."""
+        if memory_budget_bytes is None:
+            return self.max_batch
+        per_seq = self.kv_bytes_per_seq()
+        if per_seq <= 0:
+            return self.max_batch
+        free = memory_budget_bytes - self.store.resident_bytes()
+        return max(1, min(self.max_batch, free // per_seq))
+
+    def _kv_ingest(self, cache, S: int) -> None:
+        """Quantize the prompt region of a re-homed cache into nested pages
+        and render them back into it at the cache's rung (in place).  The
+        partial tail page and every decode position stay dense."""
+        if self.kv is None:
+            return
+        n = self.kv.ingest(cache["k"][:, :, :S], cache["v"][:, :, :S])
+        if not n:
+            return
+        self.stats.kv_pages += n
+        kq, vq = self.kv.render()
+        span = kq.shape[2]
+        cache["k"][:, :, :span] = kq.to(cache["k"].dtype)
+        cache["v"][:, :, :span] = vq.to(cache["v"].dtype)
+
+    def _kv_rewind(self, pos: int) -> None:
+        """Retire the nested pages a rewind to ``pos`` invalidates, fetching
+        nothing (no-op without a nested cache)."""
+        if self.kv is not None:
+            self.kv.rewind(pos)
 
     # -- serving -----------------------------------------------------------
     def generate(self, requests: List[Request],
@@ -143,6 +229,7 @@ class ServeEngine:
         full["v"][:, :, :S] = cache["v"]
         full["pos"] = cache["pos"]
         cache = full
+        self._kv_ingest(cache, S)
         next_tok = logits[:, -1, :].argmax(dim=-1)[:, None]
         for _ in range(n_steps):
             host = next_tok[:, 0].tolist()

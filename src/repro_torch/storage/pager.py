@@ -1,6 +1,7 @@
 """Delta pagers; the part of ``repro/storage/pager.py`` the serving path
 needs: the :class:`PagerError` family, the :class:`DeltaPager` protocol and
-:class:`InMemoryPager`.
+:class:`InMemoryPager` (with ``put``/``discard``, through which the nested
+KV cache deposits and retires its page deltas).
 
 A pager owns the NON-RESIDENT delta streams of one nested model.  Here
 they live in host memory; ``fetch`` copies a stream to the store's device
@@ -88,6 +89,22 @@ class InMemoryPager:
             raise KeyError(f"no delta stream (level {level}) for {path!r} in "
                            "the in-memory pager") from None
         return host.to(self.device)
+
+    def put(self, path: str, level: int, words: torch.Tensor) -> None:
+        """Register a stream produced at run time (reference
+        ``InMemoryPager.put``): the nested KV cache deposits each page's
+        delta streams here, so later rung upgrades fetch them through the
+        same protocol as weight deltas.  A device stream is kept as a
+        pinned host copy, and fetches go back to its device."""
+        if words.is_cuda:
+            self.device = words.device
+            words = words.to("cpu").pin_memory()
+        self._streams[(path, level)] = words
+
+    def discard(self, path: str, level: int) -> None:
+        """Forget a stream entirely (page retirement; unlike ``evict``,
+        which keeps the copy for a later fetch)."""
+        self._streams.pop((path, level), None)
 
     def evict(self, path: str, level: int) -> None:
         pass                        # the host copy stays for later fetches

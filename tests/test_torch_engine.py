@@ -62,7 +62,7 @@ def test_engine_refuses_what_is_not_ported(engines):
     _, peng = engines
     with pytest.raises(NotImplementedError, match="item 9"):
         peng.generate([Request(0, np.zeros(3, np.int32))], speculate=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="KVCacheConfig or a NestedKVCache"):
         ServeEngine(peng.cfg, peng.store, kv=object())
     with pytest.raises(ValueError):
         peng.generate([Request(i, np.zeros(3, np.int32)) for i in range(5)])

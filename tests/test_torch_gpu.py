@@ -1,5 +1,7 @@
-"""K1-K3 on the card: each CUDA kernel against its plain PyTorch version at
-the main-path shapes of qwen2-1.5b, and the kernel route's refusals.
+"""K1-K6 on the card: each CUDA kernel against its plain PyTorch version at
+the shapes qwen2-1.5b gives it (the weight matmuls K1-K3, the nested KV
+cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
+recompose K6), and the kernel routes' refusals.
 
 Marked ``gpu``: these need an NVIDIA H100 and nvcc, and skip elsewhere.
 Whether a card is present is decided inside the fixture, never at import,
@@ -102,3 +104,123 @@ def test_kernel_route_raises_instead_of_falling_back(cuda):
     five = (nt.w_base,) + nt.deltas + nt.deltas
     with pytest.raises(ValueError):
         nops.ladder_matmul(x, five, scale, bits=(2, 4, 6, 8, 10), K=512, block_k=nt.block)
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: the nested KV cache's integer QK^T, long-prefill flash attention and
+# the page-in recompose, each against its plain version
+# ---------------------------------------------------------------------------
+def _kv_streams(x, bits, page):
+    """(BH, S, D) values -> resident K streams packed along positions, the
+    per-position scale, as the nested KV cache makes them."""
+    from repro_torch.core.decompose import chain_decompose
+    from repro_torch.core.packing import pack_blocked
+    from repro_torch.serving.kv_cache import kv_stream_widths
+
+    hi = 2 ** (bits[-1] - 1) - 1
+    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) / hi
+    codes = torch.clamp(torch.round(x / scale), -hi - 1, hi).to(torch.int32)
+    base, deltas = chain_decompose(codes, bits, method="rtn", validate=False)
+    streams = tuple(pack_blocked(c, w, page, axis=1)
+                    for c, w in zip((base, *deltas), kv_stream_widths(bits)))
+    return streams, scale
+
+
+@pytest.mark.parametrize("bits,page", [((4, 6, 8), 16), ((3, 5, 6, 8), 16),
+                                       ((4, 6, 8), 4), ((2, 8), 1), ((4, 6, 8), 48)])
+def test_nested_qk_kernel_bit_exact_at_every_rung(cuda, bits, page):
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(page)
+    BH, S, D = 4, 2048 if page == 16 else 96 * page, 128
+    streams, _ = _kv_streams(torch.randn(BH, S, D, generator=g, device=cuda), bits, page)
+    for M in (6, 48):
+        qc, _ = qk.quantize_q(torch.randn(BH, M, D, generator=g, device=cuda), bits[-1])
+        for rung in range(len(bits)):
+            res = bits[:rung + 1]
+            before = qk.COUNTER.launches
+            got = qk.ladder_qk_scores(qc, streams[:rung + 1], bits=res, page=page)
+            assert qk.COUNTER.launches == before + 1
+            with dispatch.reference_pass():
+                want = qk.ladder_qk_scores(qc, streams[:rung + 1], bits=res, page=page)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and got.shape == (BH, M, S)
+            assert torch.equal(got, want), (bits, page, M, rung)
+
+
+def test_nested_qk_wraps_like_int32(cuda):
+    """Large query codes make the int32 sums wrap; the kernel wraps the
+    same way as the plain version (JAX's int32 dot_general)."""
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    streams, _ = _kv_streams(torch.randn(2, 64, 128, generator=g, device=cuda), (8, 16), 16)
+    qc = torch.randint(2 ** 20, 2 ** 30, (2, 3, 128), generator=g, device=cuda,
+                       dtype=torch.int32)
+    got = qk.ladder_qk_scores(qc, streams, bits=(8, 16), page=16)
+    with dispatch.reference_pass():
+        want = qk.ladder_qk_scores(qc, streams, bits=(8, 16), page=16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [(2, 2048, 12, 2, 128), (2, 1100, 12, 2, 128),
+                                           (1, 65, 4, 4, 64), (1, 1, 2, 1, 8),
+                                           (1, 300, 8, 2, 40)])
+def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, hd, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = fa.COUNTER.launches
+    got = fa.flash_attention(q, k, v)
+    assert fa.COUNTER.launches == before + 1
+    with dispatch.reference_pass():
+        want = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * want.float().abs().max().item(), err
+    # every output row against its own norm: a late row's |o| is far below
+    # max |o|, so the check above alone cannot see a fault in late rows
+    rows = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+    assert rows.max().item() <= TOL[dtype], rows.max().item()
+
+
+@pytest.mark.parametrize("n,h", [(6, 4), (8, 6), (8, 4)])
+@pytest.mark.parametrize("K,N", SHAPES + [(1000, 100)])
+def test_nest_recompose_kernel_bit_exact(cuda, K, N, n, h):
+    from repro_torch.kernels.nest_recompose import ops as nr
+
+    g = torch.Generator(device=cuda).manual_seed(K + n)
+    block = 256 if K == 8960 else 512
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda), bits=(n, h),
+                       rounding="rtn", block=block)
+    got = nr.nest_recompose(nt.w_base, nt.deltas[0], n=n, h=h, K=K, block_k=block)
+    with dispatch.reference_pass():
+        want = nr.nest_recompose(nt.w_base, nt.deltas[0], n=n, h=h, K=K, block_k=block)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(got.to(torch.int32), nt.codes_at(1))
+
+
+def test_new_kernel_routes_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.nest_recompose import ops as nr
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    q = torch.randn(1, 64, 4, 136, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    h16 = torch.randn(1, 64, 4, 64, device=cuda).half()
+    with pytest.raises(TypeError):
+        fa.flash_attention(h16, h16, h16)
+    streams, _ = _kv_streams(torch.randn(2, 32, 16, device=cuda), (4, 6, 8), 16)
+    qc = torch.zeros(2, 3, 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        qk.ladder_qk_scores(qc.float(), streams, bits=(4, 6, 8), page=16)
+    with pytest.raises(ValueError):
+        qk.ladder_qk_scores(qc, streams + streams[1:], bits=(4, 6, 8, 10, 12), page=16)
+    nt = nest_quantize(torch.randn(512, 64, device=cuda), bits=(8, 4), rounding="rtn")
+    with pytest.raises(ValueError):
+        nr.nest_recompose(nt.w_base, nt.deltas[0], n=9, h=4, K=512, block_k=nt.block)

@@ -111,3 +111,101 @@ def activations(M, K, dtype, seed):
 def assert_close(port: torch.Tensor, ref, dtype: str):
     tol = KERNEL_TOL[dtype]
     np.testing.assert_allclose(t2n(port), j2n(ref), rtol=tol, atol=tol * 20)
+
+
+def to_torch(x) -> torch.Tensor:
+    """A JAX array -> a CPU torch tensor, bit for bit (int32 words and codes
+    through ``convert.words_from_numpy``)."""
+    a = to_numpy_leaf(x)
+    if isinstance(a, np.ndarray) and a.dtype == np.int32:
+        return convert.words_from_numpy(a, "cpu")
+    return convert.tensor_from_numpy(a, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# K4-K6 cases: the JAX kernels in interpret mode, one compile per shape and
+# ladder in a process (the test files share these)
+# ---------------------------------------------------------------------------
+KV_PAGE = 4
+
+
+@functools.lru_cache(maxsize=None)
+def kv_values(shape, seed):
+    """(BH, S, D) f32 normal values from a numpy seed."""
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kv_streams(shape, bits, page, seed):
+    """Per-position INT-bits[-1] codes of ``kv_values`` split down the
+    ladder and packed along positions (block = page) by the JAX package,
+    as its kernel tests make them: (streams, scale) as numpy."""
+    from repro.core import packing as jp
+    from repro.core.decompose import chain_decompose, int_range
+    from repro.serving.kv_cache import kv_stream_widths
+
+    x = jnp.asarray(kv_values(shape, seed))
+    lo, hi = int_range(bits[-1])
+    scale = jnp.maximum(jnp.max(jnp.abs(x), axis=-1, keepdims=True), 1e-8) / hi
+    codes = jnp.clip(jnp.round(x / scale), lo, hi).astype(jnp.int32)
+    base, deltas = chain_decompose(codes, bits, "rtn")
+    streams = tuple(np.asarray(jp.pack_blocked(c, w, page, axis=1))
+                    for c, w in zip((base, *deltas), kv_stream_widths(bits)))
+    return streams, np.asarray(scale)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_nested_qk(q_shape, k_shape, bits, rung, page, seed):
+    """The JAX K4 kernel in interpret mode on seeded queries and K pages:
+    (query codes, raw int32 scores) as numpy."""
+    from repro.kernels.nested_attention.kernel import nested_qk
+    from repro.kernels.nested_attention.ops import quantize_q
+
+    streams, _ = jax_kv_streams(k_shape, bits, page, seed + 1)
+    qc, _ = quantize_q(jnp.asarray(kv_values(q_shape, seed)), bits[-1])
+    out = nested_qk(qc, tuple(jnp.asarray(s) for s in streams[:rung + 1]),
+                    bits=bits[:rung + 1], page=page, interpret=True)
+    return np.asarray(qc), np.asarray(out)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_inputs(dims, dtype, seed):
+    """Seeded q, k, v (B,S,H,hd) for both packages: JAX arrays and torch
+    tensors of the same values."""
+    B, S, Hq, Hkv, hd = dims
+    rng = np.random.default_rng(seed)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    out = []
+    for h in (Hq, Hkv, Hkv):
+        x = jnp.asarray(rng.normal(size=(B, S, h, hd)).astype(np.float32), jdt)
+        out.append((x, to_torch(x)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_flash(dims, dtype, seed, block):
+    """The JAX K5 kernel in interpret mode (``block`` = block_q = block_kv)."""
+    from repro.kernels.flash_attention import kernel as fa_kernel
+
+    (q, _), (k, _), (v, _) = flash_inputs(dims, dtype, seed)
+    return j2n(fa_kernel.flash_attention(q, k, v, block_q=block, block_kv=block,
+                                         interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_recompose(n, h, K, N, block, seed):
+    """Seeded INT-n codes split into (w_high, w_low), packed by the JAX
+    package, and the JAX K6 kernel's int8 output in interpret mode: numpy
+    (codes, words_high, words_low, out)."""
+    from repro.core import packing as jp
+    from repro.core.decompose import decompose, int_range
+    from repro.kernels.nest_recompose import kernel as nr_kernel
+
+    lo, hi = int_range(n)
+    w_int = jnp.asarray(np.random.default_rng(seed).integers(lo, hi + 1, size=(K, N)),
+                        jnp.int32)
+    wh, wl = decompose(w_int, n, h, method="adaptive")
+    wph = jp.pack_blocked(wh, h, block, axis=0)
+    wpl = jp.pack_blocked(wl, n - h + 1, block, axis=0)
+    out = nr_kernel.nest_recompose(wph, wpl, n=n, h=h, K=K, block_k=block, interpret=True)
+    return np.asarray(w_int), np.asarray(wph), np.asarray(wpl), np.asarray(out)
