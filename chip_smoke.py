@@ -13,7 +13,13 @@ Phases (each raises on failure; the script then exits non-zero):
    k/v, gate/up, down, lm_head) at M in {1, 4, 8, 32}, bf16 and f32, and
    time it (CUDA events, cold L2), its plain version and a dense bf16
    ``torch.matmul`` of the same shape (a yardstick only; the port never
-   calls it).
+   calls it).  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
+   ragged against the 256-row tile) and 4096 (2 x 2048) for q/o, k/v,
+   gate/up and down, each launched on the tensor-core body the route
+   picks (its counter must say so), held to 2e-2 of max(1, max |y|)
+   against the plain version and timed beside the same call on the
+   CUDA-core body (``route="cuda_core"``, the "before") and the dense
+   bf16 yardstick.
 2. Serve full-width qwen2-1.5b (random weights from a seeded generator,
    nested on the (8, 6, 4) ladder) through ``ServeEngine.generate``: four
    calls of 4 requests x 8 prompt tokens x 8 new tokens under budgets
@@ -38,7 +44,10 @@ Phases (each raises on failure; the script then exits non-zero):
    tokens x 8 new tokens, ``kv=KVCacheConfig((4, 6, 8), 16, "rtn")`` under
    a ``LoadAdaptivePolicy``, five calls whose queue depths walk the KV
    rung 2 -> 1 -> 0 -> 1 -> 2.  Each prefill launches K5 once per layer and
-   the plain blockwise version never; every KV ledger event equals its
+   the plain blockwise version never, and its 196 weight matmuls (28
+   layers x 7) on the tensor-core body, while every decode step and the
+   prefill's LM head (M = 2) take the CUDA-core body; every KV ledger
+   event equals its
    metadata-computed bytes; the top-rung rendering is within 0.02 of the
    dense prefill K/V; the wall time of each ``_kv_ingest`` is printed.
    Then ``nested_attention`` (K4) on the served cache's
@@ -86,6 +95,9 @@ ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BF16_E2E_TOL = 3e-2
 BITS = (8, 6, 4)
 MS = (1, 4, 8, 32)
+# prefill rows (bf16): the route's threshold, the ragged 2 x 1100 prefill
+# and the long-context path's 2 x 2048
+PREFILL_MS = (64, 2 * 1100, 2 * 2048)
 L2_BYTES = 50e6
 KERNELS = {  # name -> (rung it serves, source, TPU kernel it replaces)
     "packed_matmul": (0, "src/repro_torch/csrc/nest_matmul.cu",
@@ -177,9 +189,10 @@ def time_graph_ms(fn, iters: int, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def kernel_call(name, nt, x, copies, out_dtype):
+def kernel_call(name, nt, x, copies, out_dtype, route=None):
     """A closure launching kernel ``name`` on copy ``i % len(copies)`` of
-    the leaf's streams (copies exceed L2, as a decode step finds it)."""
+    the leaf's streams (copies exceed L2, as a decode step finds it), on
+    the body the route picks or on ``route``."""
     from repro_torch.kernels.nested_matmul import ops as nops
     from repro_torch.kernels.packed_matmul import ops as pops
 
@@ -191,13 +204,69 @@ def kernel_call(name, nt, x, copies, out_dtype):
         s = copies[i % len(copies)]
         if name == "packed_matmul":
             return pops.packed_matmul(x, s[0], scale, k=bits[0], K=nt.K,
-                                      block_k=nt.block, out_dtype=out_dtype)
+                                      block_k=nt.block, out_dtype=out_dtype, route=route)
         if name == "nested_matmul":
             return nops.nested_matmul(x, s[0], s[1], scale, n=bits[1], h=bits[0],
-                                      K=nt.K, block_k=nt.block, out_dtype=out_dtype)
+                                      K=nt.K, block_k=nt.block, out_dtype=out_dtype,
+                                      route=route)
         return nops.ladder_matmul(x, s[:rung + 1], scale, bits=bits, K=nt.K,
-                                  block_k=nt.block, out_dtype=out_dtype)
+                                  block_k=nt.block, out_dtype=out_dtype, route=route)
     return call
+
+
+def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
+    """bf16 rows at ``PREFILL_MS``: each kernel on the tensor-core body
+    the route picks (its counter must show it) against its plain version
+    within 2e-2 of max(1, max |y|), timed by CUDA-graph replay beside the
+    same call on the CUDA-core body (the "before") and the dense bf16
+    yardstick; bound by operations at these M."""
+    from repro_torch.kernels import dispatch
+
+    rows = []
+    for M in PREFILL_MS:
+        x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        if dispatch.matmul_route(M, x.dtype, x.device) != dispatch.TENSOR_CORE:
+            raise AssertionError(f"M={M} bf16 does not take the tensor-core body")
+        for name, (rung, _, _) in KERNELS.items():
+            counter = dispatch.COUNTERS[name]
+            call = kernel_call(name, nt, x, copies, torch.bfloat16)
+            before = (counter.launches, counter.tc_launches)
+            got = call(0)
+            if (counter.launches, counter.tc_launches) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"{name} {shape} M={M}: not launched on the tensor-core "
+                                     f"body ({before} -> {counter})")
+            with dispatch.reference_pass():
+                ref = call(0)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            tol = TOL[torch.bfloat16]
+            if not (math.isfinite(err) and err <= tol * max(1.0, peak)):
+                raise AssertionError(f"{name} {shape} M={M} tensor-core body: max |kernel - "
+                                     f"plain| = {err} > {tol} * max(1, {peak})")
+            del got, ref
+            ms = time_graph_ms(call, 5, reps=3)
+            cc_ms = time_graph_ms(kernel_call(name, nt, x, copies, torch.bfloat16,
+                                              route=dispatch.CUDA_CORE), 2, reps=2)
+            with dispatch.reference_pass():
+                plain_ms = time_ms(call, 1)
+            dense_ms = time_graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]), 5, reps=3)
+            nbytes = (x.numel() * 2 + sum(s.numel() * 4 for s in streams[:rung + 1])
+                      + N * 4 + M * N * 2)
+            flops = 2.0 * M * N * K
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            rows.append({
+                "kernel": name, "shape": shape, "K": K, "N": N, "M": M, "dtype": "bfloat16",
+                "route": dispatch.TENSOR_CORE, "uses_per_forward": uses,
+                "max_abs_err": err, "max_abs_ref": peak, "ms": ms, "cuda_core_ms": cc_ms,
+                "plain_ms": plain_ms, "dense_bf16_matmul_ms": dense_ms, "bytes": nbytes,
+                "flops": flops, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            log(f"[prefill] {name:13s} {shape:8s} M={M:4d} bf16 err={err:.2e} tensor-core "
+                f"ms={ms:.4f} cuda-core ms={cc_ms:.4f} ({cc_ms / ms:.1f}x) plain={plain_ms:.3f} "
+                f"dense_bf16={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
+    return rows
 
 
 def phase_kernels(cfg, gen):
@@ -251,6 +320,7 @@ def phase_kernels(cfg, gen):
                     rows.append({
                         "kernel": name, "shape": shape, "K": K, "N": N, "M": M,
                         "dtype": str(dtype).replace("torch.", ""), "uses_per_forward": uses,
+                        "route": dispatch.matmul_route(M, dtype, x.device),
                         "max_abs_err": err, "max_abs_ref": peak, "ms": ms,
                         "eager_call_ms": host_ms,
                         "plain_ms": plain_ms, "dense_bf16_matmul_ms": dense_ms,
@@ -260,6 +330,8 @@ def phase_kernels(cfg, gen):
                     log(f"[kernel] {name:13s} {shape:8s} M={M:2d} {rows[-1]['dtype']:8s} "
                         f"err={err:.2e} ms={ms:.4f} eager={host_ms:.4f} plain={plain_ms:.3f} "
                         f"dense_bf16={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
+        if not out_f32:           # a prefill's LM head sees only the last token
+            rows += prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen)
         del copies, dense, nt, streams
         torch.cuda.empty_cache()
     return rows
@@ -351,6 +423,8 @@ def phase_serve(cfg):
     launches = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
     if any(dispatch.COUNTERS[n].plain_launches for n in KERNELS):
         raise AssertionError("a plain version ran on the main path")
+    if any(dispatch.COUNTERS[n].tc_launches for n in KERNELS):
+        raise AssertionError(f"a {BATCH * PROMPT}-row prefill took the tensor-core body")
     return engine, store, phases, launches
 
 
@@ -702,8 +776,11 @@ def phase_long_serve(cfg, store, per_forward):
 
     engine._kv_ingest = timed_kv_ingest
     dispatch.reset_counters()                      # this path starts here
+    # a bf16 prefill's packed_linears but the LM head (M = 2) take the tensor cores
+    prefill_tc = per_forward - 1 if cfg.compute_dtype == "bfloat16" else 0
     for phase, depth in enumerate(LONG_QUEUE):
         before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
+        before_tc = {n: c.tc_launches for n, c in dispatch.COUNTERS.items()}
         reqs = long_requests(phase, cfg.vocab_size)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -718,6 +795,12 @@ def phase_long_serve(cfg, store, per_forward):
         want["flash_attention"] = (cfg.num_layers, 0)
         if delta != want:
             raise AssertionError(f"long phase {phase}: launches {delta}, want {want}")
+        # per body: the bf16 prefill's 196 on the tensor cores, the rest
+        # (decode steps, the LM head) on the CUDA cores
+        tc = {n: c.tc_launches - before_tc[n] for n, c in dispatch.COUNTERS.items()}
+        want_tc = {n: (prefill_tc if want[n][0] and n in KERNELS else 0) for n in tc}
+        if tc != want_tc:
+            raise AssertionError(f"long phase {phase}: tensor-core launches {tc}, want {want_tc}")
         for r in reqs:
             if len(r.out_tokens) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size
                                                           for t in r.out_tokens):
@@ -727,13 +810,15 @@ def phase_long_serve(cfg, store, per_forward):
                        "wall_s": wall, "kv_ingest_s": ingest_s[-1],
                        "kv_pages": len(engine.kv.pages),
                        "kv_resident_bytes": engine.kv.resident_bytes(), "launches": delta,
+                       "tc_launches": tc,
                        "tokens": [r.out_tokens for r in reqs]})
         log(f"[long] phase {phase}: queue {depth} -> kv rung {engine.kv.rung}, weight rung "
             f"{rung}; {BATCH_LONG}x{PROMPT_LONG} prompt + {NEW_TOKENS} tokens in {wall:.3f}s "
             f"(_kv_ingest {ingest_s[-1]:.3f}s); "
             f"{len(engine.kv.pages)} pages, kv resident {engine.kv.resident_bytes()} B; "
-            f"launches {delta}")
+            f"launches {delta}, on the tensor cores {tc}")
     launches = {n: c.launches for n, c in dispatch.COUNTERS.items()}
+    tc_launches = {n: c.tc_launches for n, c in dispatch.COUNTERS.items()}
     del engine._kv_ingest
     if len(ingest_s) != len(LONG_QUEUE):
         raise AssertionError(f"{len(ingest_s)} KV ingests in {len(LONG_QUEUE)} generates")
@@ -762,7 +847,8 @@ def phase_long_serve(cfg, store, per_forward):
     log(f"[long] rendered top-rung K/V vs dense prefill (relative norm): k "
         f"{render['k']:.3e} v {render['v']:.3e} (tol {RENDER_TOP_TOL})")
     return engine, dense, {"phases": phases, "kv_walk": walk, "kv_ledger": events,
-                           "render_top_rel": render, "launches": launches}
+                           "render_top_rel": render, "launches": launches,
+                           "tc_launches": tc_launches, "prefill_tc_launches": prefill_tc}
 
 
 def phase_long_f32(cfg, store):
@@ -812,14 +898,19 @@ def phase_long_profile(engine, cfg):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                  reverse=True)
     busy_ms = sum(d[0] for d in dev) / 1e3
+    body_ms = {body: sum(t for t, _, k in dev if any(p in k for p in pats)) / 1e3
+               for body, pats in (("tensor_core", ("stream_matmul_tc",)),
+                                  ("cuda_core", ("stream_matmul<", "reduce_partials")))}
     out = {"kv_rung": engine.kv.rung, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if busy_ms > 0 else None,
            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
+           "k1_k3_device_ms": body_ms,
            "top_kernels": [{"name": k[:90], "calls": c, "device_ms": t / 1e3}
                            for t, c, k in dev[:10]]}
     log(f"[long-profile] generate {BATCH_LONG}x{PROMPT_LONG} + {NEW_TOKENS}: wall "
         f"{wall_ms:.1f} ms, device busy "
-        f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms'}")
+        f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms'}; K1-K3 device ms "
+        f"by body {body_ms}")
     for k in out["top_kernels"]:
         log(f"[long-profile]   {k['device_ms']:9.3f} ms  x{k['calls']:5d}  {k['name']}")
     return out
@@ -917,9 +1008,31 @@ def phase_served_recompose(store):
     return {"slices": checked, "launches": nr.COUNTER.launches}
 
 
-def kernel_summary(rows, launches, M=4, dtype="bfloat16"):
+def prefill_summary(rows, name, tc_launches):
+    """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
+    M = 4096 bf16 on the tensor-core body (every main-path shape but the
+    LM head times its uses per forward), beside the same launches on the
+    CUDA-core body and the dense bf16 yardstick."""
+    M = PREFILL_MS[-1]
+    sel = [r for r in rows if r["kernel"] == name and r["M"] == M
+           and r.get("route") == "tensor_core"]
+    tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)  # noqa: E731
+    t_bytes = tot("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = tot("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return {"route": "tensor_core", "launches": tc_launches,
+            "per": f"one prefill: {sum(r['uses_per_forward'] for r in sel)} launches at "
+                   f"M={M} bf16",
+            "max_abs_err": max(r["max_abs_err"] for r in sel), "ms": tot("ms"),
+            "cuda_core_ms": tot("cuda_core_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "yardstick_dense_bf16_matmul_ms": tot("dense_bf16_matmul_ms")}
+
+
+def kernel_summary(rows, launches, tc_launches, M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
-    (every main-path shape times its uses per forward)."""
+    (every main-path shape times its uses per forward), with the long
+    prefill's tensor-core launches as its ``prefill`` entry."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
@@ -936,7 +1049,8 @@ def kernel_summary(rows, launches, M=4, dtype="bfloat16"):
             "library_ms": None,
             "yardstick_dense_bf16_matmul_ms": tot("dense_bf16_matmul_ms"),
             "per": f"one decode step: {sum(r['uses_per_forward'] for r in sel)} "
-                   f"launches at M={M} {dtype}"})
+                   f"launches at M={M} {dtype}",
+            "prefill": prefill_summary(rows, name, tc_launches[name])})
     return out
 
 
@@ -1004,8 +1118,13 @@ def main() -> int:
     profile_info = phase_profile(engine, store, cfg)
     reference = phase_reference(cfg, store, phases)
     del engine
+    peak_before_long = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     long_engine_, dense, long_info = phase_long_serve(cfg, store,
                                                       packed_linears_per_forward(store))
+    long_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[long] peak device memory over the five long generates "
+        f"{long_info['peak_mem_bytes'] / 1e9:.2f} GB")
     served_kv = phase_served_kv_attention(long_engine_, dense, cfg, gen)
     del dense
     long_profile = phase_long_profile(long_engine_, cfg)
@@ -1015,13 +1134,15 @@ def main() -> int:
     kv_launches = {"flash_attention": long_info["launches"]["flash_attention"],
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = kernel_summary(rows, launches) + kv_kernel_summary(kv_rows, kv_launches)
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"])
+               + kv_kernel_summary(kv_rows, kv_launches))
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
               "reference": reference, "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose,
-              "kernels": kernels, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "kernels": kernels,
+              "peak_mem_bytes": max(peak_before_long, torch.cuda.max_memory_allocated()),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))

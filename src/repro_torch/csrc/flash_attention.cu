@@ -15,13 +15,44 @@
 // What bounds it: 2 * B * Hq * S^2 * hd flops for the causal half (QK^T
 // and PV) over (3 + 1) * B * S * H * hd values read and written; at
 // S = 2048, hd = 128 that is ~3000 flops per byte, so the bound is the
-// tensor cores' bf16 rate.  This first kernel uses CUDA-core FMAs (a
-// simple kernel that is right first; wgmma and TMA come later), so it
-// runs far from that bound.  The design:
+// tensor cores' bf16 rate (989 TFLOP/s dense on an H100 SXM at 700 W).
+//
+// bf16 (flash_fwd_tc): both products on the tensor cores, FlashAttention-2
+// style.  What the design does about the bound:
+//   * one CTA of 8 warps per (128-row query tile, query head, batch);
+//     query head h reads kv head h / G; heaviest tiles (most key tiles
+//     under the diagonal) launched first.  Each warp owns 16 query rows,
+//     and the 8 warps share every K/V tile they copy;
+//   * Q K^T and P V are mma.sync m16n8k16 bf16 -> f32, their operands fed
+//     by ldmatrix (.trans for V, whose rows are the reduction dimension).
+//     The query fragments are loaded once and stay in registers;
+//   * P never leaves registers: the f32 score accumulators of two adjacent
+//     8-key tiles are exactly the A fragment of one 16-key step of the PV
+//     product, so each pair is rounded to bf16 (p.astype(v.dtype)) and
+//     re-packed in place.  The row max and row sum live in the quad of
+//     lanes that holds a row and are reduced with two xor shuffles;
+//   * K and V tiles of 64 rows are copied with cp.async (16-byte chunks,
+//     zero-filled past S and past hd) into a double buffer: the copy of
+//     tile t + 1 is issued before tile t is computed, so it overlaps the
+//     products; one __syncthreads per key tile;
+//   * shared-memory rows are padded by 16 bytes (stride hd_pad + 8
+//     elements): the 8 row addresses of every ldmatrix fall in 8 distinct
+//     16-byte bank groups, so ldmatrix has no bank conflicts;
+//   * hd is padded in shared memory to 64 or 128 (two instantiations); the
+//     zero columns add nothing to Q K^T and are never stored from P V.
+//   * a warp skips a key tile that lies wholly past its own last row (on
+//     the diagonal of a 128-row tile, up to half of them): its p would be
+//     exactly 0;
+//   Shared memory: (128 + 2 * 64 + 2 * 64) rows x (hd_pad + 8) bf16 =
+//   102 KB at hd 128, two CTAs (16 warps) per SM.  What still bounds it:
+//   every warp reads the whole K and V tile from shared memory through
+//   ldmatrix for its 16 rows (one 16-byte read per 2 products), mma.sync
+//   cannot reach wgmma's rate, and the softmax's exp and shuffles run
+//   between the two products.
+//
+// f32 (flash_fwd, unchanged from the first port): CUDA-core FMAs on f32
+// copies in shared memory (no TF32 anywhere):
 //   * one CTA of 256 threads per (64-row query tile, query head, batch);
-//     query head h reads kv head h / G.  Tiles are launched heaviest
-//     first (the last query tile has the most key tiles under the
-//     diagonal);
 //   * the query tile and ONE key-or-value tile of 64 rows live in shared
 //     memory as f32, rows padded by one word so the column reads of the
 //     score product fall in distinct banks.  K is staged, the 64 x 64
@@ -29,13 +60,14 @@
 //     of dynamic shared memory at hd = 128, two CTAs per SM;
 //   * each thread owns 4 query rows x 4 key columns of the score tile and
 //     4 rows x hd/16 output columns of the accumulator; the row max and
-//     row sum are reduced over the 16 threads of a row with shuffles;
-//   * key tiles wholly above the diagonal are skipped (their masked
-//     contribution is exactly 0); within the diagonal tile and past a
-//     ragged S the scores are masked to -1e30, whose exp underflows to 0
-//     against any unmasked max, and a row with nothing unmasked yet keeps
-//     m = -1e30 (exp(0) terms that the first unmasked tile rescales by
-//     exp(-1e30 - m) = 0).
+//     row sum are reduced over the 16 threads of a row with shuffles.
+//
+// Both: key tiles wholly above the diagonal are skipped (their masked
+// contribution is exactly 0); within the diagonal tile and past a ragged
+// S the scores are masked to -1e30, whose exp underflows to 0 against any
+// unmasked max, and a row with nothing unmasked yet keeps m = -1e30
+// (exp(0) terms that the first unmasked tile rescales by
+// exp(-1e30 - m) = 0).
 //
 // Limits (the Python wrapper checks them first): bf16 or f32, q/k/v of
 // one dtype, hd <= 128 and a multiple of 8, Hq a multiple of Hkv.
@@ -43,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -54,18 +88,11 @@ constexpr int kOutCols = kMaxHd / 16;  // accumulator columns per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // p rounded to v's dtype (p.astype(v.dtype) in the TPU kernel)
 __device__ __forceinline__ float round_as(float p, const float*) { return p; }
-__device__ __forceinline__ float round_as(float p, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(p));
-}
 
 __device__ __forceinline__ void store(float* o, size_t i, float v) { o[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* o, size_t i, float v) {
-  o[i] = __float2bfloat16_rn(v);
-}
 
 struct Args {
   const void* q;
@@ -76,6 +103,210 @@ struct Args {
   float scale;
 };
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core body
+// ---------------------------------------------------------------------------
+constexpr int kTcBQ = 128;    // query rows per CTA
+constexpr int kTcWarps = 8;   // 16 query rows each
+constexpr int kTcThreads = kTcWarps * 32;
+
+template <int HDP>  // head dim padded in shared memory: 64 or 128
+constexpr size_t tc_smem_bytes() {
+  return static_cast<size_t>(kTcBQ + 4 * kBK) * (HDP + 8) * sizeof(__nv_bfloat16);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
+  using nq_tc::ldmatrix_x4;
+  using nq_tc::mma_bf16;
+  using nq_tc::smem_u32;
+  constexpr int LD = HDP + 8;    // row stride (elements): 16 bytes of padding
+  constexpr int KS = HDP / 16;   // k16 steps over hd in Q K^T
+  constexpr int NT = HDP / 8;    // n8 tiles over hd in P V
+  constexpr int CH = HDP / 8;    // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // (128, LD)
+  __nv_bfloat16* ks = qs + kTcBQ * LD;                              // 2 x (64, LD)
+  __nv_bfloat16* vs = ks + 2 * kBK * LD;                            // 2 x (64, LD)
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = qt * kTcBQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
+  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  // rows [r0, r0 + rows) of head hh of a (B, S, H, hd) tensor -> (rows,
+  // LD); rows past S and columns past hd are zero-filled
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows, int hh,
+                       int H) {
+    for (int i = threadIdx.x; i < rows * CH; i += kTcThreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 8;
+      const bool ok = r0 + r < a.S && c < a.hd;
+      const __nv_bfloat16* p =
+          ok ? src + ((static_cast<size_t>(b) * a.S + r0 + r) * H + hh) * a.hd + c : src;
+      nq_tc::cp_async<16>(smem_u32(dst + r * LD + c), p, ok);
+    }
+  };
+
+  const int last_q = min(q0 + kTcBQ, a.S) - 1;
+  const int n_tiles = last_q / kBK + 1;  // tiles with a key <= the last query
+  load_tile(qs, q, q0, kTcBQ, h, a.Hq);
+  load_tile(ks, k, 0, kBK, hk, a.Hkv);
+  load_tile(vs, v, 0, kBK, hk, a.Hkv);
+  nq_tc::cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};               // this lane's part of the row sums
+  const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
+  // this warp's last query row that exists: key tiles past it are wholly
+  // masked for the warp (their p is exactly 0) and are skipped
+  const int warp_last = q0 + warp * 16 < a.S ? min(q0 + warp * 16 + 15, a.S - 1) : -1;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    nq_tc::cp_async_wait_all();
+    __syncthreads();                     // tile kt landed; tile kt - 1 consumed
+    if (kt + 1 < n_tiles) {              // prefetch tile kt + 1 into the other buffer
+      const int nb = (kt + 1) & 1;
+      load_tile(ks + nb * kBK * LD, k, (kt + 1) * kBK, kBK, hk, a.Hkv);
+      load_tile(vs + nb * kBK * LD, v, (kt + 1) * kBK, kBK, hk, a.Hkv);
+      nq_tc::cp_async_commit();
+    }
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        ldmatrix_x4(qf[kk], smem_u32(qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                     (lane >> 4) * 8));
+      }
+    }
+    const __nv_bfloat16* kb = ks + (kt & 1) * kBK * LD;
+    const __nv_bfloat16* vb = vs + (kt & 1) * kBK * LD;
+    const int k0 = kt * kBK;
+    if (k0 > warp_last) continue;        // still at the next tile's barrier
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {   // keys jp*16 .. +15: two n8 tiles
+        uint32_t bf[4];
+        ldmatrix_x4(bf, smem_u32(kb + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                                 kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * jp], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // online softmax over this tile: scale, mask, row max / sum in f32
+    const bool masked = k0 + kBK - 1 > q0 + warp * 16 || k0 + kBK > a.S;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = s[j][e] * a.scale;
+        if (masked) {
+          const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qpos = row0 + (e >> 1) * 8;
+          if (kpos > qpos || kpos >= a.S) val = kNegInf;
+        }
+        s[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = __expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+    // P, rounded to bf16, re-packed as the A fragments of 4 k16 steps
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = __expf(s[j][0] - m[0]);
+      const float p1 = __expf(s[j][1] - m[0]);
+      const float p2 = __expf(s[j][2] - m[1]);
+      const float p3 = __expf(s[j][3] - m[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = nq_tc::pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = nq_tc::pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // O += P V: V (keys x hd) row-major is the k-major B operand -> .trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bf[4];
+        nq_tc::ldmatrix_x4_trans(
+            bf, smem_u32(vb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + np * 16 +
+                         (lane >> 4) * 8));
+        mma_bf16(o[2 * np], pf[kk], bf[0], bf[1]);
+        mma_bf16(o[2 * np + 1], pf[kk], bf[2], bf[3]);
+      }
+    }
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qpos = row0 + r * 8;
+    if (qpos >= a.S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * a.S + qpos) * a.Hq + h) * a.hd;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (col < a.hd) {
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            nq_tc::pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int HDP>
+int launch_tc(const Args& a, cudaStream_t stream) {
+  // opt in above 48 KB once, before any graph capture
+  static cudaError_t opt_in =
+      cudaFuncSetAttribute(flash_fwd_tc<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(tc_smem_bytes<HDP>()));
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const dim3 grid((a.S + kTcBQ - 1) / kTcBQ, a.Hq, a.B);
+  flash_fwd_tc<HDP><<<grid, kTcThreads, tc_smem_bytes<HDP>(), stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core body
+// ---------------------------------------------------------------------------
 // rows [r0, r0 + 64) of one head of a (B, S, H, hd) tensor -> smem (64, hd + 1)
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0, int h,
@@ -242,7 +473,8 @@ int nq_flash_attention(const void* q, const void* k, const void* v, void* o,
   }
   const Args a = {q, k, v, o, B, S, Hq, Hkv, hd, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_t<__nv_bfloat16>(a, s) : launch_t<float>(a, s);
+  if (!is_bf16) return launch_t<float>(a, s);
+  return hd <= 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
 }
 
 }  // extern "C"

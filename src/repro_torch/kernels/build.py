@@ -5,8 +5,8 @@ The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``ctypes`` (seconds to build; nothing includes PyTorch's headers).  A
 build happens at first use, into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``); the library name carries a hash of
-its source, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import time: the CPU tests import every
+its source and of the shared ``csrc/*.cuh`` headers, so an edited source
+is rebuilt and a stale library is never loaded.  Nothing here runs at import time: the CPU tests import every
 module of the port on a machine without ``nvcc``.
 """
 from __future__ import annotations
@@ -31,11 +31,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the cudaError_t of the launch)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "nest_matmul.cu": {
-        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
         "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
         "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P,
-                             _I, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -70,7 +70,10 @@ def nvcc_path() -> str:
 def _start_build(source: str):
     """Start nvcc on one source; returns (library path, process or None)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # sources share these headers
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
         return lib, None
@@ -121,17 +124,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype):
-    """Output, split-K workspace (None with one pack block) and the current
-    stream handle for one stream-matmul launch.  The kernel allocates
-    nothing itself."""
+def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype,
+                          tensor_cores: bool):
+    """Output, split-K workspace and the current stream handle for one
+    stream-matmul launch.  Only the CUDA-core body splits K, and only over
+    more than one pack block; the tensor-core body takes no workspace
+    (None).  The kernel allocates nothing itself."""
     import torch
 
     M = x.shape[0]
     nk = -(-K // block)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = (torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
-               if nk > 1 else None)
+               if nk > 1 and not tensor_cores else None)
     return out, partial, torch.cuda.current_stream(x.device).cuda_stream
 
 

@@ -13,6 +13,12 @@ tensors through the plain versions, for a reference run on the card to
 hold the kernels against.  It is never read from the environment, never
 entered on an error, and shows in the counters: each wrapper counts its
 kernel launches in ``launches`` and its plain runs in ``plain_launches``.
+
+The weight matmuls (K1-K3) have two kernel bodies.  Which one a CUDA
+tensor takes is :func:`matmul_route`, a function of M and the dtype alone,
+decided before the launch: bf16 with M >= ``TC_MIN_M`` takes the
+tensor-core body, everything else the CUDA-core body.  A launch that the
+chosen body refuses raises; it never runs the other body.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ class LaunchCounter:
     name: str
     launches: int = 0
     plain_launches: int = 0
+    tc_launches: int = 0       # of ``launches``: those on the tensor-core body
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -43,6 +50,7 @@ def reset_counters() -> None:
     for c in COUNTERS.values():
         c.launches = 0
         c.plain_launches = 0
+        c.tc_launches = 0
 
 
 class _Route:
@@ -70,6 +78,47 @@ def takes_kernel(x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"no kernel or plain route for device {x.device}")
     return not _route.reference
+
+
+PLAIN, CUDA_CORE, TENSOR_CORE = "plain", "cuda_core", "tensor_core"
+# Smallest M that takes the K1-K3 tensor-core body in bf16: decode (M 1-8)
+# and the short prefill (M 32) stay on the CUDA-core body.  At M = 64 the
+# tensor-core body takes less time than the CUDA-core body summed over a
+# qwen2-1.5b layer's seven matmuls at every rung on the H100 (k/v and down
+# alone are still faster on the CUDA cores there); chip_smoke.py times
+# both bodies at M = 64 and PERF.md keeps the crossover.
+TC_MIN_M = 64
+
+
+def matmul_route(M: int, dtype: torch.dtype, device) -> str:
+    """The body a K1-K3 wrapper runs for an (M, K) activation of ``dtype``
+    on ``device``: ``"plain"`` on the CPU, else ``"tensor_core"`` for bf16
+    with M >= ``TC_MIN_M`` and ``"cuda_core"`` for the rest."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return PLAIN
+    if kind != "cuda":
+        raise ValueError(f"no kernel or plain route for device {device}")
+    return TENSOR_CORE if dtype == torch.bfloat16 and M >= TC_MIN_M else CUDA_CORE
+
+
+def kernel_route(x: torch.Tensor, route) -> str:
+    """The kernel body a K1-K3 wrapper launches for ``x`` (a CUDA tensor
+    outside ``reference_pass``): ``route`` where the caller names one (the
+    chip check and the tests compare the bodies at one shape), else
+    :func:`matmul_route`.  A named tensor-core route takes bf16 only."""
+    if route is None:
+        return matmul_route(x.shape[0], x.dtype, x.device)
+    if route not in (CUDA_CORE, TENSOR_CORE):
+        raise ValueError(f"route must be {CUDA_CORE!r} or {TENSOR_CORE!r}, got {route!r}")
+    if route == TENSOR_CORE and x.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core body takes bf16 activations, got {x.dtype}")
+    return route
+
+
+def count_launch(counter: LaunchCounter, route: str) -> None:
+    counter.launches += 1
+    counter.tc_launches += int(route == TENSOR_CORE)
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)

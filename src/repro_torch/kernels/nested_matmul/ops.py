@@ -11,19 +11,22 @@ LADDER_COUNTER = dispatch.counter("ladder_matmul")
 
 
 def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
-                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None):
+                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None, route=None):
     """y = x @ dequant(recompose(words_high, words_low)), x (..., K).  A
-    CUDA tensor launches the K2 kernel (or raises); a CPU tensor runs the
-    plain version."""
+    CUDA tensor launches the K2 kernel (or raises) on the body
+    ``dispatch.kernel_route`` picks (``route`` as in K1's wrapper); a CPU
+    tensor runs the plain version."""
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
     if dispatch.takes_kernel(x2):
+        route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
                                 K=K, block=block_k, out_dtype=out_dtype)
         y = kernel.nested_matmul(x2, words_high, words_low, scale, n=n, h=h,
-                                 K=K, block_k=block_k, out_dtype=out_dtype)
-        NESTED_COUNTER.launches += 1
+                                 K=K, block_k=block_k, out_dtype=out_dtype,
+                                 tensor_cores=route == dispatch.TENSOR_CORE)
+        dispatch.count_launch(NESTED_COUNTER, route)
     else:
         y = ref.nested_matmul_ref(x2, words_high, words_low, scale, n=n, h=h,
                                   K=K, block_k=block_k, out_dtype=out_dtype)
@@ -32,22 +35,25 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
 
 
 def ladder_matmul(x, streams, scale, *, bits, K: int,
-                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None):
+                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None, route=None):
     """y = x @ dequant(chain-recompose(streams)) for a rung with
     ``len(streams)`` resident streams (bits ascending, one per stream;
     scale = the rung scale).  A CUDA tensor launches the K3 kernel, which
-    takes up to 4 streams (a 4-rung ladder) and raises above; a CPU
+    takes up to 4 streams (a 4-rung ladder) and raises above, on the body
+    ``dispatch.kernel_route`` picks (``route`` as in K1's wrapper); a CPU
     tensor runs the plain version."""
     out_dtype = out_dtype or x.dtype
     streams, bits = tuple(streams), tuple(bits)
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
     if dispatch.takes_kernel(x2):
+        route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
         y = kernel.ladder_matmul(x2, streams, scale, bits=bits, K=K,
-                                 block_k=block_k, out_dtype=out_dtype)
-        LADDER_COUNTER.launches += 1
+                                 block_k=block_k, out_dtype=out_dtype,
+                                 tensor_cores=route == dispatch.TENSOR_CORE)
+        dispatch.count_launch(LADDER_COUNTER, route)
     else:
         y = ref.ladder_matmul_ref(x2, streams, scale, bits=bits, K=K,
                                   block_k=block_k, out_dtype=out_dtype)

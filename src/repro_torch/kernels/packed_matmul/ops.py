@@ -35,19 +35,23 @@ def prepare(nt: NestedTensor, mode: str = "full",
 
 
 def packed_matmul(x, words, scale, *, k: int, K: int,
-                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None):
+                  block_k: int = DEFAULT_BLOCK_K, out_dtype=None, route=None):
     """y = x @ dequant(words), x (..., K).  A CUDA tensor launches the K1
-    kernel (or raises on operands it does not take); a CPU tensor runs
-    the plain version."""
+    kernel (or raises on operands it does not take) on the body
+    ``dispatch.kernel_route`` picks - by M and dtype, or ``route`` where
+    the chip check or a test names one; a CPU tensor runs the plain
+    version."""
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
     if dispatch.takes_kernel(x2):
+        route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
         y = kernel.packed_matmul(x2, words, scale, k=k, K=K, block_k=block_k,
-                                 out_dtype=out_dtype)
-        COUNTER.launches += 1
+                                 out_dtype=out_dtype,
+                                 tensor_cores=route == dispatch.TENSOR_CORE)
+        dispatch.count_launch(COUNTER, route)
     else:
         y = ref.packed_matmul_ref(x2, words, scale, k=k, K=K, block_k=block_k,
                                   out_dtype=out_dtype)

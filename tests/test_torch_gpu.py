@@ -1,5 +1,6 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version at
-the shapes qwen2-1.5b gives it (the weight matmuls K1-K3, the nested KV
+the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on both their
+bodies - CUDA cores at decode, tensor cores at prefill M - the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
 recompose K6), and the kernel routes' refusals.
 
@@ -107,6 +108,121 @@ def test_kernel_route_raises_instead_of_falling_back(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K1-K3 tensor-core body (bf16 at M >= TC_MIN_M)
+# ---------------------------------------------------------------------------
+COUNTERS = {"packed_matmul": pops.COUNTER, "nested_matmul": nops.NESTED_COUNTER,
+            "ladder_matmul": nops.LADDER_COUNTER}
+
+
+def _run_rung(nt, rung, x, route=None, out_dtype=None):
+    """The wrapper of rung ``rung`` of ``nt``'s ladder (K1 at 0, K2 at 1, K3
+    above) with ``rung + 1`` resident streams; returns (output, counter)."""
+    scale = nt.rung_scale(rung).reshape(1, -1).contiguous()
+    streams, bits = ((nt.w_base,) + nt.deltas)[:rung + 1], nt.bits[:rung + 1]
+    if rung == 0:
+        return pops.packed_matmul(x, streams[0], scale, k=bits[0], K=nt.K, block_k=nt.block,
+                                  route=route, out_dtype=out_dtype), pops.COUNTER
+    if rung == 1:
+        return nops.nested_matmul(x, streams[0], streams[1], scale, n=bits[1], h=bits[0],
+                                  K=nt.K, block_k=nt.block, route=route,
+                                  out_dtype=out_dtype), nops.NESTED_COUNTER
+    return nops.ladder_matmul(x, streams, scale, bits=bits, K=nt.K, block_k=nt.block,
+                              route=route, out_dtype=out_dtype), nops.LADDER_COUNTER
+
+
+def _check_tensor_core_rungs(nt, x, out_dtype=None):
+    """Every rung of ``nt`` on the tensor-core body (chosen by the route)
+    within 2e-2 of max(1, max |y|) of the plain version, counted as a
+    tensor-core launch."""
+    for rung in range(len(nt.bits)):
+        counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[min(rung, 2)]]
+        before = (counter.launches, counter.tc_launches)
+        got, _ = _run_rung(nt, rung, x, out_dtype=out_dtype)
+        assert (counter.launches, counter.tc_launches) == (before[0] + 1, before[1] + 1)
+        with dispatch.reference_pass():
+            want, _ = _run_rung(nt, rung, x, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == (out_dtype or x.dtype) and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        assert err <= TOL[torch.bfloat16] * max(1.0, peak), (nt.bits, rung, err, peak)
+
+
+@pytest.mark.parametrize("M", [64, 65, 2200, 4096])
+@pytest.mark.parametrize("bits", [(8, 6, 4), (3, 5, 6, 8)])
+def test_tensor_core_body_matches_plain_at_every_rung(cuda, bits, M):
+    """1-4 streams (rungs 0-3) at prefill M, ragged M included."""
+    g = torch.Generator(device=cuda).manual_seed(M + len(bits))
+    K, N = 1536, 1536
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn")
+    _check_tensor_core_rungs(nt, torch.randn(M, K, generator=g, device=cuda).bfloat16())
+
+
+@pytest.mark.parametrize("K,N,block,bits", [
+    (1000, 200, 64, (12, 16)),       # codes over 8 bits: the bf16 cast rounds
+    (1536, 200, 512, (8, 6, 4)),     # N = 200: a ragged column tile
+    (8960, 1536, 512, (8, 6, 4)),    # K = 8960 with block 512: a 256-element tail
+    (8960, 256, 256, (8, 6, 4)),     # down's block, k/v's width (64-column tiles)
+    (96, 100, 32, (2, 4, 6, 8)),     # block 32: 32-code steps, 4-byte x copies
+    (999, 130, 64, (4, 8)),          # odd K: element-wise x loads; 8-byte word copies
+])
+def test_tensor_core_body_ragged_shapes_and_wide_codes(cuda, K, N, block, bits):
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn", block=block)
+    for M in (70, 300):
+        _check_tensor_core_rungs(nt, torch.randn(M, K, generator=g, device=cuda).bfloat16())
+
+
+def test_tensor_core_body_f32_output(cuda):
+    """The LM head's f32 output through the tensor-core body."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    nt = nest_quantize(torch.randn(1536, 4096, generator=g, device=cuda) / 40, bits=(8, 6, 4),
+                       rounding="rtn")
+    _check_tensor_core_rungs(nt, torch.randn(130, 1536, generator=g, device=cuda).bfloat16(),
+                             out_dtype=torch.float32)
+
+
+def test_route_counter_shows_which_body_ran(cuda):
+    """bf16 below TC_MIN_M and every f32 call take the CUDA-core body;
+    bf16 at TC_MIN_M the tensor-core one; a named route is honoured."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    nt = nest_quantize(torch.randn(512, 256, generator=g, device=cuda), bits=(8, 6, 4),
+                       rounding="rtn")
+    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0),
+             (dispatch.TC_MIN_M, torch.bfloat16, None, 1),
+             (dispatch.TC_MIN_M, torch.float32, None, 0),
+             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1),
+             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0)]
+    for M, dtype, route, tc in cases:
+        x = torch.randn(M, 512, generator=g, device=cuda).to(dtype)
+        for rung, counter in enumerate(COUNTERS.values()):
+            before = (counter.launches, counter.tc_launches)
+            got, _ = _run_rung(nt, rung, x, route=route)
+            assert (counter.launches, counter.tc_launches) == (before[0] + 1, before[1] + tc)
+            with dispatch.reference_pass():
+                want = _run_rung(nt, rung, x)[0]
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), (M, route)
+
+
+def test_tensor_core_route_raises_on_what_it_refuses(cuda):
+    """The tensor-core body takes bf16 only: an f32 activation on a named
+    tensor-core route raises instead of running the CUDA-core body, and
+    counts no launch."""
+    nt = nest_quantize(torch.randn(512, 256, device=cuda), bits=(8, 6, 4), rounding="rtn")
+    x = torch.randn(128, 512, device=cuda)
+    before = {n: (c.launches, c.tc_launches) for n, c in COUNTERS.items()}
+    for rung in range(3):
+        with pytest.raises(TypeError):
+            _run_rung(nt, rung, x, route=dispatch.TENSOR_CORE)
+    with pytest.raises(ValueError):
+        _run_rung(nt, 2, x.bfloat16(), route="tensor")
+    assert {n: (c.launches, c.tc_launches) for n, c in COUNTERS.items()} == before
+
+
+# ---------------------------------------------------------------------------
 # K4-K6: the nested KV cache's integer QK^T, long-prefill flash attention and
 # the page-in recompose, each against its plain version
 # ---------------------------------------------------------------------------
@@ -186,6 +302,31 @@ def test_flash_attention_kernel_matches_plain(cuda, B, S, Hq, Hkv, hd, dtype):
     # max |o|, so the check above alone cannot see a fault in late rows
     rows = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
     assert rows.max().item() <= TOL[dtype], rows.max().item()
+
+
+@pytest.mark.parametrize("groups", [1, 6])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 65, 1100, 2048])
+def test_flash_attention_tensor_core_body_bf16(cuda, S, hd, groups):
+    """K5's bf16 body (mma.sync) against the plain version at ragged and
+    tile-multiple S, both padded head widths and GQA groups 1 and 6, by
+    max |o| and by every output row's own norm."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    g = torch.Generator(device=cuda).manual_seed(S + hd + groups)
+    B, Hkv = 2, 2
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda).bfloat16()
+               for h in (Hkv * groups, Hkv, Hkv))
+    got = fa.flash_attention(q, k, v)
+    with dispatch.reference_pass():
+        want = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    tol = TOL[torch.bfloat16]
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item(), err
+    rows = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+    assert rows.max().item() <= tol, rows.max().item()
 
 
 @pytest.mark.parametrize("n,h", [(6, 4), (8, 6), (8, 4)])

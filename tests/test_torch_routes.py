@@ -1,0 +1,97 @@
+"""The K1-K3 route choice (plain, CUDA-core body or tensor-core body) as a
+pure function of M, dtype and device; the per-route launch counters; and
+the plain route at prefill-like M against the JAX package (its Pallas
+kernels in interpret mode, its flash op at a ragged S)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash_op
+from repro.kernels.nested_matmul import ops as jax_ops
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.nested_matmul import ops
+from torch_parity import activations, assert_close, flash_inputs, j2n, stream_operands, t2n
+
+TC, CC, PLAIN = dispatch.TENSOR_CORE, dispatch.CUDA_CORE, dispatch.PLAIN
+
+
+@pytest.mark.parametrize("M,dtype,device,want", [
+    (1, torch.bfloat16, "cuda", CC),
+    (32, torch.bfloat16, "cuda", CC),                      # the short prefill
+    (dispatch.TC_MIN_M - 1, torch.bfloat16, "cuda", CC),
+    (dispatch.TC_MIN_M, torch.bfloat16, "cuda", TC),
+    (4096, torch.bfloat16, "cuda:0", TC),                   # the long prefill
+    (4096, torch.float32, "cuda", CC),                      # f32: no TF32, CUDA cores
+    (4096, torch.bfloat16, "cpu", PLAIN),
+    (1, torch.float32, "cpu", PLAIN),
+])
+def test_matmul_route_is_a_function_of_m_dtype_and_device(M, dtype, device, want):
+    assert dispatch.matmul_route(M, dtype, device) == want
+    assert dispatch.matmul_route(M, dtype, torch.device(device)) == want
+
+
+def test_matmul_route_refuses_other_devices():
+    with pytest.raises(ValueError):
+        dispatch.matmul_route(128, torch.bfloat16, "meta")
+
+
+def test_kernel_route_names_and_refusals():
+    """A named route is taken as named; the tensor-core body takes bf16
+    only, and an unknown name raises - neither falls back to another."""
+    x16 = torch.zeros(4, 8, dtype=torch.bfloat16)
+    assert dispatch.kernel_route(x16, TC) == TC
+    assert dispatch.kernel_route(x16, CC) == CC
+    assert dispatch.kernel_route(x16, None) == PLAIN         # a CPU tensor
+    with pytest.raises(TypeError):
+        dispatch.kernel_route(x16.float(), TC)
+    for bad in ("tensor", PLAIN):
+        with pytest.raises(ValueError):
+            dispatch.kernel_route(x16, bad)
+
+
+def test_launch_counts_per_route_and_reset():
+    c = dispatch.LaunchCounter("probe")
+    dispatch.count_launch(c, CC)
+    dispatch.count_launch(c, TC)
+    dispatch.count_launch(c, TC)
+    assert (c.launches, c.tc_launches, c.plain_launches) == (3, 2, 0)
+    probe = dispatch.counter("route_probe")
+    dispatch.count_launch(probe, TC)
+    dispatch.reset_counters()
+    assert (probe.launches, probe.tc_launches) == (0, 0)
+    del dispatch.COUNTERS["route_probe"]
+
+
+@pytest.mark.parametrize("bits,rung", [((4, 6, 8), 2), ((2, 4, 6, 8), 3)])
+def test_prefill_m_plain_route_matches_interpret_ladder(bits, rung):
+    """bf16 at a prefill-like M (130 >= TC_MIN_M) on a CPU tensor: the
+    wrapper runs its plain version (no kernel launch of either body) and
+    equals the JAX ladder kernel in interpret mode."""
+    M, K = 130, 512
+    assert dispatch.matmul_route(M, torch.bfloat16, "cpu") == PLAIN
+    b, words, scale, block = stream_operands(bits, rung, K, seed=41 + rung)
+    xj, xt = activations(M, K, "bfloat16", seed=M)
+    ref = jax_ops.ladder_matmul(xj, tuple(jnp.asarray(w) for w in words), jnp.asarray(scale),
+                                bits=b, K=K, block_k=block, interpret=True)
+    c = ops.LADDER_COUNTER
+    before = (c.launches, c.tc_launches, c.plain_launches)
+    got = ops.ladder_matmul(xt, tuple(torch.from_numpy(w) for w in words),
+                            torch.from_numpy(scale), bits=b, K=K, block_k=block)
+    assert (c.launches, c.tc_launches, c.plain_launches) == (before[0], before[1], before[2] + 1)
+    assert got.dtype == torch.bfloat16
+    assert_close(got, ref, "bfloat16")
+
+
+@pytest.mark.parametrize("S", [77, 1100])
+def test_flash_plain_route_matches_jax_op_at_ragged_s_bf16(S):
+    """bf16 q/k/v at an S that is no multiple of any block: the port's op
+    (its plain route on the CPU) against the JAX op (its reference route
+    there), at K5's bf16 limit of 2e-2."""
+    dims = (1, S, 4, 2, 32)
+    (qj, q), (kj, k), (vj, v) = flash_inputs(dims, "bfloat16", S)
+    want = j2n(jax_flash_op(qj, kj, vj, interpret=True))
+    got = fa.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(t2n(got), want, rtol=2e-2, atol=2e-2)
