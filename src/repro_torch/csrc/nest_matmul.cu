@@ -116,6 +116,9 @@ struct Stream {
   int first;            // index of component 0 among every stream's components
   int cs[kMaxComps];    // bit position of each component in the stream's code
   int rdiv[kMaxComps];  // ceil(2^20 / R[c]): r / R[c] == (r * rdiv) >> 20, r < 512
+  // decode route only
+  int glog[kMaxComps];  // log2(R[c] / R_min): word rows of this component per unit
+  int cbase[kMaxComps]; // first word row of this component in a unit (units of G rows)
 };
 
 struct Args {
@@ -135,6 +138,18 @@ struct Args {
   int ncomp_all;        // components of every stream together
   int vx_shift;         // log2 of the x elements per async copy (1..8)
   int vw_shift;         // log2 of the words per async copy of a word row (1..4)
+  // decode route only
+  int wmax;             // widest component's width: bits to a code's next slot
+  int rmin;             // word rows of the narrowest component in a block: units per block
+  int umax;             // rmax / rmin: widest-component rows per unit
+  int wpu;              // words per column in one unit, every component together
+  int g_log;            // log2 of the units per chunk (a chunk is one ring stage)
+  int cpc;              // chunks per CTA
+  int sp;               // CTAs per pack block (split-K inside a block)
+  int nsplit;           // nk * sp: CTAs adding into one column tile
+  int round_codes;      // bf16 x with codes over 9 bits: round each code to bf16
+  int x_bf16;
+  int* counters;        // per column tile arrival counts, 0 between launches
   Stream s[kMaxStreams];
   int gap[kMaxStreams];  // level i >= 1: codes = clip(codes * 2^gap + delta)
   int lo[kMaxStreams];
@@ -599,6 +614,355 @@ int launch_tc(Args a, int ns, cudaStream_t stream) {
                    : launch_tc_ns<64>(a, ns, smem, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Decode route: M <= 8, bf16 or f32 activations
+// ---------------------------------------------------------------------------
+constexpr int kDecBN = 128;                // output columns per CTA: 4 per lane
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecStageBytes = 20 * 1024;  // words of one chunk (one ring stage)
+constexpr int kDecMaxM = 8;
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One widest-component word row r of a unit, every slot, four columns:
+// unpack, chain-recompose, cast as code_as does, and add code * x to acc.
+template <int NS, int MB, bool ROUND>
+__device__ __forceinline__ void dec_row(const Args& a, const uint32_t* wb, const float* xs,
+                                        int lane, int rp, int t, int r,
+                                        float (&acc)[MB][4]) {
+  uint32_t wd[NS][kMaxComps][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+#pragma unroll
+    for (int c = 0; c < kMaxComps; ++c) {
+      if (c < a.s[s].ncomp) {
+        const int glog = a.s[s].glog[c];
+        const int row = ((a.s[s].cbase[c] + (t & ((1 << glog) - 1))) << a.g_log) + rp;
+        const uint4 v = *reinterpret_cast<const uint4*>(wb + row * kDecBN + 4 * lane);
+        const int sh = (t >> glog) * a.s[s].w[c];   // bit of slot 0 for this row
+        wd[s][c][0] = v.x >> sh;
+        wd[s][c][1] = v.y >> sh;
+        wd[s][c][2] = v.z >> sh;
+        wd[s][c][3] = v.w >> sh;
+      }
+    }
+  }
+  const float* xp = xs + r * MB;
+  const int xstep = a.rmax * MB;
+  for (int j = 0; j < a.slots; ++j, xp += xstep) {
+    int code[4];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      uint32_t u[4] = {0u, 0u, 0u, 0u};
+      int cs = 0;
+#pragma unroll
+      for (int c = 0; c < kMaxComps; ++c) {
+        if (c < a.s[s].ncomp) {
+          const uint32_t mask = (1u << a.s[s].w[c]) - 1u;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            u[k] |= (wd[s][c][k] & mask) << cs;
+            wd[s][c][k] >>= a.wmax;                 // every component: wmax bits a slot
+          }
+          cs += a.s[s].w[c];
+        }
+      }
+      const int up = 32 - a.s[s].code_bits;        // sign-extend the field
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int v = static_cast<int>(u[k] << up) >> up;
+        code[k] = (s == 0) ? v : min(max(code[k] * (1 << a.gap[s]) + v, a.lo[s]), a.hi[s]);
+      }
+    }
+    float cf[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      cf[k] = code_f32(code[k]);
+      if (ROUND) cf[k] = __bfloat162float(__float2bfloat16_rn(cf[k]));
+    }
+    float xv[MB];
+    if constexpr (MB >= 4) {
+#pragma unroll
+      for (int m = 0; m < MB; m += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(xp + m);
+        xv[m] = q.x;
+        xv[m + 1] = q.y;
+        xv[m + 2] = q.z;
+        xv[m + 3] = q.w;
+      }
+    } else if constexpr (MB == 2) {
+      const float2 q = *reinterpret_cast<const float2*>(xp);
+      xv[0] = q.x;
+      xv[1] = q.y;
+    } else {
+      xv[0] = *xp;
+    }
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[m][k] = fmaf(cf[k], xv[m], acc[m][k]);
+    }
+  }
+}
+
+// Grid (column tiles of 128, nsplit = nk * sp).  CTA z works on pack block
+// z / sp, chunks (z % sp) * cpc .. + cpc - 1 of it; a chunk is 2^g_log
+// units, a unit the widest-component rows r = rho + t * rmin (t < umax) of
+// one rho < rmin together with every word that any component holds for
+// those rows, each copied once.
+template <int NS, int MB>
+__global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);                  // (block, MB) f32
+  uint32_t* ring = reinterpret_cast<uint32_t*>(xs + a.block * MB);  // 2 x (wpu * G, 128)
+  int* last = reinterpret_cast<int*>(smem_raw);  // after the products, in x's place
+  const int G = 1 << a.g_log;
+  const int stage_words = a.wpu * G * kDecBN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int n0 = tile * kDecBN;
+  const int z = blockIdx.y;
+  const int kb = z / a.sp;
+  const int chunk0 = (z - kb * a.sp) * a.cpc;
+
+  auto stage = [&](int chunk, int buf) {
+    const int rho0 = chunk << a.g_log;
+    uint32_t* dst = ring + buf * stage_words;
+    const int cshift = 7 - a.vw_shift;                          // copies per word row
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+      for (int c = 0; c < kMaxComps; ++c) {
+        if (c < a.s[s].ncomp) {
+          const int rows = 1 << (a.s[s].glog[c] + a.g_log);
+          const uint32_t* base = a.s[s].words +
+              (static_cast<size_t>(kb) * a.s[s].rows_pb + a.s[s].off[c] + rho0) * a.N + n0;
+          uint32_t* d = dst + (a.s[s].cbase[c] << a.g_log) * kDecBN;
+          for (int i = threadIdx.x; i < (rows << cshift); i += kDecThreads) {
+            const int row = i >> cshift;                        // (t mod g) * G + rho'
+            const int col = (i - (row << cshift)) << a.vw_shift;
+            const int grow = (row >> a.g_log) * a.rmin + (row & (G - 1));
+            const bool ok = n0 + col < a.N;
+            const uint32_t* src = ok ? base + static_cast<size_t>(grow) * a.N + col
+                                     : a.s[s].words;
+            const uint32_t sd = nq_tc::smem_u32(d + row * kDecBN + col);
+            switch (a.vw_shift) {
+              case 2: nq_tc::cp_async<16>(sd, src, ok); break;
+              case 1: nq_tc::cp_async<8>(sd, src, ok); break;
+              default: nq_tc::cp_async<4>(sd, src, ok); break;
+            }
+          }
+        }
+      }
+    }
+  };
+
+  stage(chunk0, 0);
+  nq_tc::cp_async_commit();
+  if (a.cpc > 1) stage(chunk0 + 1, 1);
+  nq_tc::cp_async_commit();
+
+  // x of this pack block as f32, (p, m) with m fastest; rows past M and
+  // elements past K are 0
+  const size_t k0 = static_cast<size_t>(kb) * a.block;
+  for (int i = threadIdx.x; i < MB * a.block; i += kDecThreads) {
+    const int m = i / a.block;
+    const int p = i - m * a.block;
+    float v = 0.f;
+    if (m < a.M && k0 + p < static_cast<size_t>(a.K)) {
+      const size_t xi = static_cast<size_t>(m) * a.K + k0 + p;
+      v = a.x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[xi])
+                   : static_cast<const float*>(a.x)[xi];
+    }
+    xs[p * MB + m] = v;
+  }
+
+  float acc[MB][4];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+
+  const int rows = a.umax << a.g_log;                            // widest rows per chunk
+  for (int i = 0; i < a.cpc; ++i) {
+    if (i + 1 < a.cpc) {
+      cp_async_wait_one();
+    } else {
+      nq_tc::cp_async_wait_all();
+    }
+    __syncthreads();                                             // chunk i (and x) landed
+    const uint32_t* wb = ring + (i & 1) * stage_words;
+    const int rho0 = (chunk0 + i) << a.g_log;
+    for (int idx = warp; idx < rows; idx += kDecWarps) {
+      const int rp = idx & (G - 1);
+      const int t = idx >> a.g_log;
+      const int r = rho0 + rp + t * a.rmin;
+      if (a.round_codes) {
+        dec_row<NS, MB, true>(a, wb, xs, lane, rp, t, r, acc);
+      } else {
+        dec_row<NS, MB, false>(a, wb, xs, lane, rp, t, r, acc);
+      }
+    }
+    __syncthreads();                                             // stage i & 1 is free
+    if (i + 2 < a.cpc) stage(chunk0 + i + 2, i & 1);
+    nq_tc::cp_async_commit();
+  }
+
+  // the 8 warps' sums of one column, added in warp order
+  float* red = reinterpret_cast<float*>(ring);                   // (warps, MB, 128)
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+    *reinterpret_cast<float4*>(red + (warp * MB + m) * kDecBN + 4 * lane) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < MB * kDecBN; i += kDecThreads) {
+    const int m = i >> 7;
+    const int col = i & (kDecBN - 1);
+    const int n = n0 + col;
+    if (m >= a.M || n >= a.N) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) sum += red[(w * MB + m) * kDecBN + col];
+    if (a.nsplit == 1) {
+      store_out(a, m, n, sum * a.scale[n]);
+    } else {
+      a.partial[(static_cast<size_t>(z) * a.M + m) * a.N + n] = sum;
+    }
+  }
+  if (a.nsplit == 1) return;
+
+  // the last CTA of this column tile to arrive adds every split in split
+  // order (deterministic), applies the scale and resets the counter
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(a.counters + tile, 1) == a.nsplit - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  const size_t mn = static_cast<size_t>(a.M) * a.N;
+  for (int i = threadIdx.x; i < MB * kDecBN; i += kDecThreads) {
+    const int m = i >> 7;
+    const int n = n0 + (i & (kDecBN - 1));
+    if (m >= a.M || n >= a.N) continue;
+    const float* p = a.partial + static_cast<size_t>(m) * a.N + n;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int zz = 0; zz < a.nsplit; ++zz) sum += __ldcg(p + zz * mn);
+    store_out(a, m, n, sum * a.scale[n]);
+  }
+  if (threadIdx.x == 0) a.counters[tile] = 0;
+}
+
+size_t dec_smem_bytes(const Args& a, int mb) {
+  const size_t ring = 2ull * a.wpu * (1 << a.g_log) * kDecBN * sizeof(uint32_t);
+  const size_t red = static_cast<size_t>(kDecWarps) * mb * kDecBN * sizeof(float);
+  return static_cast<size_t>(a.block) * mb * sizeof(float) + (ring > red ? ring : red);
+}
+
+template <int NS, int MB>
+int launch_dec_body(const Args& a, size_t smem, cudaStream_t stream) {
+  // opt in above 48 KB once per instantiation, before any graph capture (the
+  // body has no static shared memory, so all 227 KB may be dynamic)
+  static cudaError_t opt_in = cudaFuncSetAttribute(
+      stream_matmul_dec<NS, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const dim3 grid((a.N + kDecBN - 1) / kDecBN, a.nsplit);
+  stream_matmul_dec<NS, MB><<<grid, kDecThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MB>
+int launch_dec_ns(const Args& a, int ns, size_t smem, cudaStream_t stream) {
+  switch (ns) {
+    case 1: return launch_dec_body<1, MB>(a, smem, stream);
+    case 2: return launch_dec_body<2, MB>(a, smem, stream);
+    case 3: return launch_dec_body<3, MB>(a, smem, stream);
+    default: return launch_dec_body<4, MB>(a, smem, stream);
+  }
+}
+
+// Decode route: the chunk, split and load-width plan of one launch, from
+// Args filled by make_args().  nq_dec_splits() reads the same plan, so the
+// wrapper allocates exactly the partials the launch writes.
+void dec_plan(Args& a, int ns) {
+  static int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess) {
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return n;
+  }();
+  a.wmax = 32 / a.slots;
+  int wmin = a.wmax;
+  for (int s = 0; s < ns; ++s) {
+    for (int c = 0; c < a.s[s].ncomp; ++c) wmin = a.s[s].w[c] < wmin ? a.s[s].w[c] : wmin;
+  }
+  a.rmin = a.block * wmin / 32;
+  a.umax = a.rmax / a.rmin;
+  a.wpu = 0;
+  for (int s = 0; s < ns; ++s) {
+    Stream& st = a.s[s];
+    for (int c = 0; c < st.ncomp; ++c) {
+      st.glog[c] = log2_exact(st.w[c] / wmin);
+      st.cbase[c] = a.wpu;
+      a.wpu += st.w[c] / wmin;
+    }
+  }
+  // a chunk: the most units (a power of two dividing rmin) whose words fit
+  // one ring stage
+  a.g_log = 0;
+  while (a.rmin % (2 << a.g_log) == 0 &&
+         static_cast<size_t>(a.wpu) * (2 << a.g_log) * kDecBN * 4 <= kDecStageBytes) {
+    ++a.g_log;
+  }
+  const int cpb = a.rmin >> a.g_log;                 // chunks per pack block
+  // split a pack block over sp CTAs (a divisor of cpb) until the grid
+  // covers the SMs twice, or every CTA holds one chunk
+  const long tiles = (a.N + kDecBN - 1) / kDecBN;
+  a.sp = 1;
+  while (a.sp < cpb && tiles * a.nk * a.sp < 2L * sms) {
+    int next = a.sp + 1;
+    while (cpb % next) ++next;
+    a.sp = next;
+  }
+  a.cpc = cpb / a.sp;
+  a.nsplit = a.nk * a.sp;
+  int vw = 4;                                        // 16-byte copies unless misaligned
+  for (bool fits = false; !fits && vw > 1;) {
+    fits = a.N % vw == 0;
+    for (int s = 0; s < ns; ++s) {
+      fits = fits && reinterpret_cast<uintptr_t>(a.s[s].words) % (4 * vw) == 0;
+    }
+    if (!fits) vw /= 2;
+  }
+  a.vw_shift = log2_exact(vw);
+}
+
+int launch_dec(Args a, int ns, int x_bf16, int top_bits, int* counters, int ncounters,
+               cudaStream_t stream) {
+  if (a.M > kDecMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  dec_plan(a, ns);
+  const int mb = a.M == 1 ? 1 : a.M == 2 ? 2 : a.M <= 4 ? 4 : 8;
+  a.x_bf16 = x_bf16;
+  a.round_codes = x_bf16 && top_bits > 9;            // |code| > 256: bf16 rounds it
+  a.counters = counters;
+  const long tiles = (a.N + kDecBN - 1) / kDecBN;
+  const size_t smem = dec_smem_bytes(a, mb);
+  if (smem > static_cast<size_t>(kTcMaxSmem) || a.nsplit > 65535 ||
+      (a.nsplit > 1 && (a.partial == nullptr || counters == nullptr || ncounters < tiles))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (mb) {
+    case 1: return launch_dec_ns<1>(a, ns, smem, stream);
+    case 2: return launch_dec_ns<2>(a, ns, smem, stream);
+    case 4: return launch_dec_ns<4>(a, ns, smem, stream);
+    default: return launch_dec_ns<8>(a, ns, smem, stream);
+  }
+}
+
 int split_components(int k, int* w) {
   int n = 0;
   for (int i = 4; i >= 0; --i) {
@@ -618,31 +982,25 @@ void launch_body(const Args& a, int x_bf16, dim3 grid, cudaStream_t stream) {
 
 // bits: ascending ladder bitwidths of the resident streams (one per
 // stream).  Stream 0 holds bits[0]-bit codes, stream i the
-// (bits[i] - bits[i-1] + 1)-bit compensated delta of level i.
-int launch(const void* x, int x_bf16, const void* const* words, const int* bits,
-           int ns, const void* scale, void* out, int out_f32, void* partial,
-           int M, int N, int K, int block, int tensor_cores, cudaStream_t stream) {
+// (bits[i] - bits[i-1] + 1)-bit compensated delta of level i.  Fills the
+// fields every body reads; returns a cudaError_t.
+int make_args(Args& a, const void* const* words, const int* bits, int ns, int M, int N,
+              int K, int block) {
   if (ns < 1 || ns > kMaxStreams || M < 1 || N < 1 || K < 1 || block < 32 ||
       block > kMaxBlock || block % 32 != 0 || bits[0] < 1 || bits[ns - 1] > 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a = {};
-  a.x = x;
-  a.out = out;
-  a.scale = static_cast<const float*>(scale);
-  a.partial = static_cast<float*>(partial);
   a.M = M;
   a.N = N;
   a.K = K;
   a.block = block;
   a.nk = (K + block - 1) / block;
-  a.out_f32 = out_f32;
   int wmax = 1;
   int first = 0;
   for (int s = 0; s < ns; ++s) {
     if (s > 0 && bits[s] <= bits[s - 1]) return static_cast<int>(cudaErrorInvalidValue);
     Stream& st = a.s[s];
-    st.words = static_cast<const uint32_t*>(words[s]);
+    st.words = words == nullptr ? nullptr : static_cast<const uint32_t*>(words[s]);
     st.code_bits = (s == 0) ? bits[0] : bits[s] - bits[s - 1] + 1;
     st.ncomp = split_components(st.code_bits, st.w);
     int off = 0;
@@ -666,9 +1024,31 @@ int launch(const void* x, int x_bf16, const void* const* words, const int* bits,
   for (int s = 0; s < ns; ++s) {
     for (int c = 0; c < a.s[s].ncomp; ++c) a.s[s].q[c] = a.rmax / a.s[s].R[c];
   }
-  if (tensor_cores) {  // bf16 only: f32 keeps its CUDA-core body (no TF32)
+  return 0;
+}
+
+// body: 0 = CUDA cores, 1 = tensor cores (bf16 only), 2 = decode (M <= 8).
+// counters: ncounters int32 arrival counts, 0 between launches (decode only).
+int launch(const void* x, int x_bf16, const void* const* words, const int* bits,
+           int ns, const void* scale, void* out, int out_f32, void* partial,
+           void* counters, int ncounters, int M, int N, int K, int block, int body,
+           cudaStream_t stream) {
+  Args a = {};
+  const int err = make_args(a, words, bits, ns, M, N, K, block);
+  if (err != 0) return err;
+  a.x = x;
+  a.out = out;
+  a.scale = static_cast<const float*>(scale);
+  a.partial = static_cast<float*>(partial);
+  a.out_f32 = out_f32;
+  if (body == 2) {
+    return launch_dec(a, ns, x_bf16, bits[ns - 1], static_cast<int*>(counters), ncounters,
+                      stream);
+  }
+  if (body == 1) {  // bf16 only: f32 keeps its CUDA-core body (no TF32)
     return x_bf16 ? launch_tc(a, ns, stream) : static_cast<int>(cudaErrorInvalidValue);
   }
+  if (body != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, a.nk);
   if (grid.y > 65535 || grid.z > 65535 || (a.nk > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -694,32 +1074,43 @@ extern "C" {
 // K1: rung 0, the k-bit base stream alone.
 int nq_packed_matmul(const void* x, int x_bf16, const void* words, int k,
                      const void* scale, void* out, int out_f32, void* partial,
-                     int M, int N, int K, int block, int tensor_cores, void* stream) {
+                     void* counters, int ncounters, int M, int N, int K, int block,
+                     int body, void* stream) {
   const void* streams[1] = {words};
   const int bits[1] = {k};
-  return launch(x, x_bf16, streams, bits, 1, scale, out, out_f32, partial, M, N,
-                K, block, tensor_cores, static_cast<cudaStream_t>(stream));
+  return launch(x, x_bf16, streams, bits, 1, scale, out, out_f32, partial, counters,
+                ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
 }
 
 // K2: rung 1, the h-bit base and the (n - h + 1)-bit delta.
 int nq_nested_matmul(const void* x, int x_bf16, const void* words_high,
                      const void* words_low, int n, int h, const void* scale,
-                     void* out, int out_f32, void* partial, int M, int N, int K,
-                     int block, int tensor_cores, void* stream) {
+                     void* out, int out_f32, void* partial, void* counters, int ncounters,
+                     int M, int N, int K, int block, int body, void* stream) {
   const void* streams[2] = {words_high, words_low};
   const int bits[2] = {h, n};
-  return launch(x, x_bf16, streams, bits, 2, scale, out, out_f32, partial, M, N,
-                K, block, tensor_cores, static_cast<cudaStream_t>(stream));
+  return launch(x, x_bf16, streams, bits, 2, scale, out, out_f32, partial, counters,
+                ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
 }
 
 // K3: rungs >= 2, the base and every resident delta (2..4 streams here;
 // the 2-stream case is accepted too and computes what K2 does).
 int nq_ladder_matmul(const void* x, int x_bf16, const void* const* streams,
                      const int* bits, int nstreams, const void* scale, void* out,
-                     int out_f32, void* partial, int M, int N, int K, int block,
-                     int tensor_cores, void* stream) {
+                     int out_f32, void* partial, void* counters, int ncounters, int M,
+                     int N, int K, int block, int body, void* stream) {
   return launch(x, x_bf16, streams, bits, nstreams, scale, out, out_f32, partial,
-                M, N, K, block, tensor_cores, static_cast<cudaStream_t>(stream));
+                counters, ncounters, M, N, K, block, body,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The decode body's K splits for these operands (its partials are
+// (splits, M, N) f32 when splits > 1), or -1 where it refuses them.
+int nq_dec_splits(const int* bits, int nstreams, int M, int N, int K, int block) {
+  Args a = {};
+  if (make_args(a, nullptr, bits, nstreams, M, N, K, block) != 0 || M > kDecMaxM) return -1;
+  dec_plan(a, nstreams);
+  return a.nsplit;
 }
 
 }  // extern "C"

@@ -31,11 +31,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the cudaError_t of the launch)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "nest_matmul.cu": {
-        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-        "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P,
+        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I,
                              _I, _I, _I, _I, _I, _P],
-        "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P,
+        "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
                              _I, _I, _I, _I, _I, _P],
+        "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _P],
+        "nq_dec_splits": [_P, _I, _I, _I, _I, _I],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -124,22 +126,76 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype,
-                          tensor_cores: bool):
-    """Output, split-K workspace and the current stream handle for one
-    stream-matmul launch.  Only the CUDA-core body splits K, and only over
-    more than one pack block; the tensor-core body takes no workspace
-    (None).  The kernel allocates nothing itself."""
+# the decode body's K splits per (device, bits, M, N, K, block), and its
+# per-column-tile arrival counters per device (int32, 0 between launches:
+# the last CTA of a tile resets its own)
+_dec_splits: Dict[tuple, int] = {}
+_dec_counters: Dict[int, "object"] = {}
+DEC_COUNTERS_MIN = 4096
+
+
+def dec_splits(device, bits, M: int, N: int, K: int, block: int) -> int:
+    """K splits of one decode-body launch (``nq_dec_splits``, the plan the
+    launch itself follows); cached per shape."""
+    key = (device.index, tuple(bits), M, N, K, block)
+    if key not in _dec_splits:
+        arr = (ctypes.c_int * len(bits))(*bits)
+        n = library("nest_matmul.cu").nq_dec_splits(ctypes.addressof(arr), len(bits),
+                                                     M, N, K, block)
+        if n < 1:
+            raise ValueError(f"the decode body refuses bits {tuple(bits)}, M={M}, N={N}, "
+                             f"K={K}, block={block}")
+        _dec_splits[key] = n
+    return _dec_splits[key]
+
+
+def dec_counters(device, tiles: int):
+    """The device's arrival counters, at least ``tiles`` of them.  They
+    are shared by every decode launch on the device: launches on one
+    stream run one after another, and each leaves them at 0."""
+    import torch
+
+    buf = _dec_counters.get(device.index)
+    if buf is None or buf.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the decode body's counters must be allocated before "
+                               "a CUDA graph capture: launch once outside it first")
+        buf = torch.zeros(max(tiles, DEC_COUNTERS_MIN), dtype=torch.int32, device=device)
+        _dec_counters[device.index] = buf
+    return buf
+
+
+DEC_BN = 128    # output columns per decode-body CTA (csrc/nest_matmul.cu kDecBN)
+
+
+def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits):
+    """Output, f32 split-K partials, arrival counters and the current
+    stream handle for one stream-matmul launch on ``body`` (0 CUDA cores,
+    1 tensor cores, 2 decode; ``dispatch.BODY``).  The CUDA-core body
+    splits K over every pack block, (nk, M, N) partials added by a second
+    pass; the decode body over ``dec_splits`` CTAs per column tile,
+    (splits, M, N) partials added by the tile's last CTA; the tensor-core
+    body takes no workspace (None).  The kernel allocates nothing itself."""
     import torch
 
     M = x.shape[0]
-    nk = -(-K // block)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    partial = (torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
-               if nk > 1 and not tensor_cores else None)
-    return out, partial, torch.cuda.current_stream(x.device).cuda_stream
+    partial = counters = None
+    splits = -(-K // block) if body == 0 else 1
+    if body == 2:
+        splits = dec_splits(x.device, bits, M, N, K, block)
+        if splits > 1:
+            counters = dec_counters(x.device, -(-N // DEC_BN))
+    if splits > 1 and body != 1:
+        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    return out, partial, counters, torch.cuda.current_stream(x.device).cuda_stream
 
 
 def ptr(t) -> int:
     """Device address of a tensor (0 for None), for a ``c_void_p`` argument."""
     return 0 if t is None else t.data_ptr()
+
+
+def numel(t) -> int:
+    """Elements of a tensor (0 for None), for a ``c_int`` argument."""
+    return 0 if t is None else t.numel()

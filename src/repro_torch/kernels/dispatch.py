@@ -14,11 +14,12 @@ hold the kernels against.  It is never read from the environment, never
 entered on an error, and shows in the counters: each wrapper counts its
 kernel launches in ``launches`` and its plain runs in ``plain_launches``.
 
-The weight matmuls (K1-K3) have two kernel bodies.  Which one a CUDA
+The weight matmuls (K1-K3) have three kernel bodies.  Which one a CUDA
 tensor takes is :func:`matmul_route`, a function of M and the dtype alone,
-decided before the launch: bf16 with M >= ``TC_MIN_M`` takes the
-tensor-core body, everything else the CUDA-core body.  A launch that the
-chosen body refuses raises; it never runs the other body.
+decided before the launch: M <= ``DEC_MAX_M`` (decode) takes the decode
+body in bf16 and f32, bf16 with M >= ``TC_MIN_M`` the tensor-core body,
+and everything else (bf16 at M 9-63, f32 above M 8) the CUDA-core body.
+A launch that the chosen body refuses raises; it never runs another body.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ class LaunchCounter:
     launches: int = 0
     plain_launches: int = 0
     tc_launches: int = 0       # of ``launches``: those on the tensor-core body
+    dec_launches: int = 0      # of ``launches``: those on the decode body
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -51,6 +53,7 @@ def reset_counters() -> None:
         c.launches = 0
         c.plain_launches = 0
         c.tc_launches = 0
+        c.dec_launches = 0
 
 
 class _Route:
@@ -80,9 +83,14 @@ def takes_kernel(x: torch.Tensor) -> bool:
     return not _route.reference
 
 
-PLAIN, CUDA_CORE, TENSOR_CORE = "plain", "cuda_core", "tensor_core"
-# Smallest M that takes the K1-K3 tensor-core body in bf16: decode (M 1-8)
-# and the short prefill (M 32) stay on the CUDA-core body.  At M = 64 the
+PLAIN, CUDA_CORE, TENSOR_CORE, DECODE = "plain", "cuda_core", "tensor_core", "decode"
+# the C entry points' ``body`` argument of each kernel route
+BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2}
+# Largest M the K1-K3 decode body takes (bf16 and f32): one 8-row x tile
+# per CTA, each packed word unpacked once for all rows.
+DEC_MAX_M = 8
+# Smallest M that takes the K1-K3 tensor-core body in bf16: the short
+# prefill (M 32) stays on the CUDA-core body.  At M = 64 the
 # tensor-core body takes less time than the CUDA-core body summed over a
 # qwen2-1.5b layer's seven matmuls at every rung on the H100 (k/v and down
 # alone are still faster on the CUDA cores there); chip_smoke.py times
@@ -92,13 +100,16 @@ TC_MIN_M = 64
 
 def matmul_route(M: int, dtype: torch.dtype, device) -> str:
     """The body a K1-K3 wrapper runs for an (M, K) activation of ``dtype``
-    on ``device``: ``"plain"`` on the CPU, else ``"tensor_core"`` for bf16
-    with M >= ``TC_MIN_M`` and ``"cuda_core"`` for the rest."""
+    on ``device``: ``"plain"`` on the CPU, else ``"decode"`` for M <=
+    ``DEC_MAX_M`` (bf16 or f32), ``"tensor_core"`` for bf16 with M >=
+    ``TC_MIN_M`` and ``"cuda_core"`` for the rest."""
     kind = torch.device(device).type
     if kind == "cpu":
         return PLAIN
     if kind != "cuda":
         raise ValueError(f"no kernel or plain route for device {device}")
+    if M <= DEC_MAX_M and dtype in KERNEL_DTYPES:
+        return DECODE
     return TENSOR_CORE if dtype == torch.bfloat16 and M >= TC_MIN_M else CUDA_CORE
 
 
@@ -106,19 +117,23 @@ def kernel_route(x: torch.Tensor, route) -> str:
     """The kernel body a K1-K3 wrapper launches for ``x`` (a CUDA tensor
     outside ``reference_pass``): ``route`` where the caller names one (the
     chip check and the tests compare the bodies at one shape), else
-    :func:`matmul_route`.  A named tensor-core route takes bf16 only."""
+    :func:`matmul_route`.  A named tensor-core route takes bf16 only, a
+    named decode route M <= ``DEC_MAX_M`` only."""
     if route is None:
         return matmul_route(x.shape[0], x.dtype, x.device)
-    if route not in (CUDA_CORE, TENSOR_CORE):
-        raise ValueError(f"route must be {CUDA_CORE!r} or {TENSOR_CORE!r}, got {route!r}")
+    if route not in BODY:
+        raise ValueError(f"route must be one of {sorted(BODY)}, got {route!r}")
     if route == TENSOR_CORE and x.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core body takes bf16 activations, got {x.dtype}")
+    if route == DECODE and x.shape[0] > DEC_MAX_M:
+        raise ValueError(f"the decode body takes M <= {DEC_MAX_M}, got M={x.shape[0]}")
     return route
 
 
 def count_launch(counter: LaunchCounter, route: str) -> None:
     counter.launches += 1
     counter.tc_launches += int(route == TENSOR_CORE)
+    counter.dec_launches += int(route == DECODE)
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)

@@ -25,7 +25,7 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
                                 K=K, block=block_k, out_dtype=out_dtype)
         y = kernel.nested_matmul(x2, words_high, words_low, scale, n=n, h=h,
                                  K=K, block_k=block_k, out_dtype=out_dtype,
-                                 tensor_cores=route == dispatch.TENSOR_CORE)
+                                 body=dispatch.BODY[route])
         dispatch.count_launch(NESTED_COUNTER, route)
     else:
         y = ref.nested_matmul_ref(x2, words_high, words_low, scale, n=n, h=h,
@@ -52,7 +52,7 @@ def ladder_matmul(x, streams, scale, *, bits, K: int,
                                 out_dtype=out_dtype)
         y = kernel.ladder_matmul(x2, streams, scale, bits=bits, K=K,
                                  block_k=block_k, out_dtype=out_dtype,
-                                 tensor_cores=route == dispatch.TENSOR_CORE)
+                                 body=dispatch.BODY[route])
         dispatch.count_launch(LADDER_COUNTER, route)
     else:
         y = ref.ladder_matmul_ref(x2, streams, scale, bits=bits, K=K,

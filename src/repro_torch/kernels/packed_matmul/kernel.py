@@ -2,10 +2,13 @@
 ``nq_packed_matmul``), which replaces the TPU kernel
 ``repro/kernels/packed_matmul/kernel.py:48 packed_matmul``.
 
-Bound by the packed words' bytes at decode shapes and by the tensor cores'
-bf16 rate at prefill M (``tensor_cores=True``, the second body); see the
-note at the top of the CUDA source for what each design does about it.  Operands are checked
-by the wrapper in ``ops.py`` before this is called.
+Three bodies, picked by the caller (``body``, ``dispatch.BODY``): the
+decode body (M <= 8, bound by the packed words' bytes and in practice by
+the unpack's integer instructions), the tensor-core body (bf16 at prefill
+M, bound by the tensor cores' bf16 rate) and the CUDA-core body (every
+other M); see the note at the top of the CUDA source for what each design
+does about its bound.  Operands are checked by the wrapper in ``ops.py``
+before this is called.
 """
 from __future__ import annotations
 
@@ -17,14 +20,14 @@ SOURCE = "nest_matmul.cu"
 
 
 def packed_matmul(x: torch.Tensor, words: torch.Tensor, scale: torch.Tensor, *,
-                  k: int, K: int, block_k: int, out_dtype,
-                  tensor_cores: bool) -> torch.Tensor:
+                  k: int, K: int, block_k: int, out_dtype, body: int) -> torch.Tensor:
     N = words.shape[1]
-    out, partial, stream = build.stream_matmul_buffers(x, N, K, block_k, out_dtype,
-                                                       tensor_cores)
+    out, partial, counters, stream = build.stream_matmul_buffers(
+        x, N, K, block_k, out_dtype, body, (k,))
     err = build.library(SOURCE).nq_packed_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), build.ptr(words), k,
         build.ptr(scale), build.ptr(out), int(out_dtype == torch.float32),
-        build.ptr(partial), x.shape[0], N, K, block_k, int(tensor_cores), stream)
+        build.ptr(partial), build.ptr(counters), build.numel(counters), x.shape[0], N, K,
+        block_k, body, stream)
     build.check(err, "packed_matmul")
     return out

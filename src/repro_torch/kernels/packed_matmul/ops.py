@@ -50,7 +50,7 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
                                 out_dtype=out_dtype)
         y = kernel.packed_matmul(x2, words, scale, k=k, K=K, block_k=block_k,
                                  out_dtype=out_dtype,
-                                 tensor_cores=route == dispatch.TENSOR_CORE)
+                                 body=dispatch.BODY[route])
         dispatch.count_launch(COUNTER, route)
     else:
         y = ref.packed_matmul_ref(x2, words, scale, k=k, K=K, block_k=block_k,

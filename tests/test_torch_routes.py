@@ -1,5 +1,5 @@
-"""The K1-K3 route choice (plain, CUDA-core body or tensor-core body) as a
-pure function of M, dtype and device; the per-route launch counters; and
+"""The K1-K3 route choice (plain, decode body, CUDA-core body or
+tensor-core body) as a pure function of M, dtype and device; the per-route launch counters; and
 the plain route at prefill-like M against the JAX package (its Pallas
 kernels in interpret mode, its flash op at a ragged S)."""
 import jax.numpy as jnp
@@ -15,10 +15,18 @@ from repro_torch.kernels.nested_matmul import ops
 from torch_parity import activations, assert_close, flash_inputs, j2n, stream_operands, t2n
 
 TC, CC, PLAIN = dispatch.TENSOR_CORE, dispatch.CUDA_CORE, dispatch.PLAIN
+DEC = dispatch.DECODE
 
 
 @pytest.mark.parametrize("M,dtype,device,want", [
-    (1, torch.bfloat16, "cuda", CC),
+    (1, torch.bfloat16, "cuda", DEC),                      # decode, both dtypes
+    (4, torch.bfloat16, "cuda", DEC),
+    (dispatch.DEC_MAX_M, torch.bfloat16, "cuda", DEC),
+    (1, torch.float32, "cuda", DEC),
+    (4, torch.float32, "cuda:0", DEC),
+    (dispatch.DEC_MAX_M, torch.float32, "cuda", DEC),
+    (dispatch.DEC_MAX_M + 1, torch.bfloat16, "cuda", CC),  # M 9-63 in bf16
+    (dispatch.DEC_MAX_M + 1, torch.float32, "cuda", CC),   # f32 above M 8
     (32, torch.bfloat16, "cuda", CC),                      # the short prefill
     (dispatch.TC_MIN_M - 1, torch.bfloat16, "cuda", CC),
     (dispatch.TC_MIN_M, torch.bfloat16, "cuda", TC),
@@ -26,6 +34,7 @@ TC, CC, PLAIN = dispatch.TENSOR_CORE, dispatch.CUDA_CORE, dispatch.PLAIN
     (4096, torch.float32, "cuda", CC),                      # f32: no TF32, CUDA cores
     (4096, torch.bfloat16, "cpu", PLAIN),
     (1, torch.float32, "cpu", PLAIN),
+    (4, torch.bfloat16, "cpu", PLAIN),
 ])
 def test_matmul_route_is_a_function_of_m_dtype_and_device(M, dtype, device, want):
     assert dispatch.matmul_route(M, dtype, device) == want
@@ -39,13 +48,21 @@ def test_matmul_route_refuses_other_devices():
 
 def test_kernel_route_names_and_refusals():
     """A named route is taken as named; the tensor-core body takes bf16
-    only, and an unknown name raises - neither falls back to another."""
+    only, the decode body M <= DEC_MAX_M only, and an unknown name raises -
+    none falls back to another."""
     x16 = torch.zeros(4, 8, dtype=torch.bfloat16)
     assert dispatch.kernel_route(x16, TC) == TC
     assert dispatch.kernel_route(x16, CC) == CC
+    assert dispatch.kernel_route(x16, DEC) == DEC
+    assert dispatch.kernel_route(x16.float(), DEC) == DEC
     assert dispatch.kernel_route(x16, None) == PLAIN         # a CPU tensor
     with pytest.raises(TypeError):
         dispatch.kernel_route(x16.float(), TC)
+    for x in (torch.zeros(dispatch.DEC_MAX_M + 1, 8), torch.zeros(64, 8, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError):
+            dispatch.kernel_route(x, DEC)
+    assert dispatch.kernel_route(torch.zeros(dispatch.DEC_MAX_M, 8), DEC) == DEC
+    assert [dispatch.BODY[r] for r in (CC, TC, DEC)] == [0, 1, 2]
     for bad in ("tensor", PLAIN):
         with pytest.raises(ValueError):
             dispatch.kernel_route(x16, bad)
@@ -56,11 +73,13 @@ def test_launch_counts_per_route_and_reset():
     dispatch.count_launch(c, CC)
     dispatch.count_launch(c, TC)
     dispatch.count_launch(c, TC)
-    assert (c.launches, c.tc_launches, c.plain_launches) == (3, 2, 0)
+    dispatch.count_launch(c, DEC)
+    assert (c.launches, c.tc_launches, c.dec_launches, c.plain_launches) == (4, 2, 1, 0)
     probe = dispatch.counter("route_probe")
     dispatch.count_launch(probe, TC)
+    dispatch.count_launch(probe, DEC)
     dispatch.reset_counters()
-    assert (probe.launches, probe.tc_launches) == (0, 0)
+    assert (probe.launches, probe.tc_launches, probe.dec_launches) == (0, 0, 0)
     del dispatch.COUNTERS["route_probe"]
 
 
