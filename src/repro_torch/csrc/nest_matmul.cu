@@ -119,6 +119,10 @@ struct Stream {
   // decode route only
   int glog[kMaxComps];  // log2(R[c] / R_min): word rows of this component per unit
   int cbase[kMaxComps]; // first word row of this component in a unit (units of G rows)
+  uint32_t spread[kMaxComps];  // the component's field mask repeated every wmax bits
+  uint32_t fbias;       // 0x4B000000 | 2^(code_bits - 1): the code as an f32 2^23 + ...
+  float foff;           // ... minus this is the signed code
+  float fmul, flo;      // 2^gap and lo of this level as f32
 };
 
 struct Args {
@@ -140,14 +144,18 @@ struct Args {
   int vw_shift;         // log2 of the words per async copy of a word row (1..4)
   // decode route only
   int wmax;             // widest component's width: bits to a code's next slot
+  int bn_log;           // log2 of the output columns per CTA (5..7)
   int rmin;             // word rows of the narrowest component in a block: units per block
   int umax;             // rmax / rmin: widest-component rows per unit
   int wpu;              // words per column in one unit, every component together
   int g_log;            // log2 of the units per chunk (a chunk is one ring stage)
-  int cpc;              // chunks per CTA
-  int sp;               // CTAs per pack block (split-K inside a block)
-  int nsplit;           // nk * sp: CTAs adding into one column tile
+  int cpb;              // chunks per pack block
+  int tiles;            // column tiles of 2^bn_log
+  long nitems;          // nk * tiles * cpb work items
+  int nctas;            // CTAs, each taking an equal run of items
   int round_codes;      // bf16 x with codes over 9 bits: round each code to bf16
+  int spread;           // every stream's code fits wmax bits (and no rounding): the
+                        // packed-field path of the decode body
   int x_bf16;
   int* counters;        // per column tile arrival counts, 0 between launches
   Stream s[kMaxStreams];
@@ -617,122 +625,217 @@ int launch_tc(Args a, int ns, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // Decode route: M <= 8, bf16 or f32 activations
 // ---------------------------------------------------------------------------
-constexpr int kDecBN = 128;                // output columns per CTA: 4 per lane
 constexpr int kDecWarps = 8;
 constexpr int kDecThreads = kDecWarps * 32;
 constexpr int kDecStageBytes = 20 * 1024;  // words of one chunk (one ring stage)
 constexpr int kDecMaxM = 8;
+constexpr int kDecItems = 4;               // work items per SM the plan aims for
+constexpr int kDecPersist = 4;             // above this many items per resident CTA,
+                                           // CTAs loop over items (else one item each)
 
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// One widest-component word row r of a unit, every slot, four columns:
-// unpack, chain-recompose, cast as code_as does, and add code * x to acc.
-template <int NS, int MB, bool ROUND>
-__device__ __forceinline__ void dec_row(const Args& a, const uint32_t* wb, const float* xs,
-                                        int lane, int rp, int t, int r,
-                                        float (&acc)[MB][4]) {
-  uint32_t wd[NS][kMaxComps][4];
+// x rows 0..MB-1 of element p: one broadcast shared-memory read per 4 rows
+template <int MB>
+__device__ __forceinline__ void dec_x(const float* xp, float (&xv)[MB]) {
+  if constexpr (MB >= 4) {
+#pragma unroll
+    for (int m = 0; m < MB; m += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(xp + m);
+      xv[m] = q.x;
+      xv[m + 1] = q.y;
+      xv[m + 2] = q.z;
+      xv[m + 3] = q.w;
+    }
+  } else if constexpr (MB == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(xp);
+    xv[0] = q.x;
+    xv[1] = q.y;
+  } else {
+    xv[0] = *xp;
+  }
+}
+
+// One widest-component word row r of a unit, every slot, four columns, on
+// the packed-field path (every stream's code fits wmax bits, codes <= 9
+// bits).  Per row, each stream's components are merged into one word per
+// column holding that stream's code of every slot, wmax bits apart.  Per
+// slot and stream, one LOP3 turns the low field into the f32 2^23 + code +
+// 2^(b-1) (offset binary in the mantissa), one FADD into the signed code,
+// and the chain recompose runs on exact f32 integers (FFMA, FMNMX): two
+// integer instructions per stream and code, the rest on the FP32 pipe.
+template <int NS, int MB>
+__device__ __forceinline__ void dec_row_spread(const Args& a, const uint32_t* wb,
+                                               const float* xs, int q, int rp, int t,
+                                               int r, float (&acc)[MB][4]) {
+  const int bn = 1 << a.bn_log;
+  uint32_t u[NS][4];
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
+    u[s][0] = u[s][1] = u[s][2] = u[s][3] = 0u;
 #pragma unroll
     for (int c = 0; c < kMaxComps; ++c) {
       if (c < a.s[s].ncomp) {
         const int glog = a.s[s].glog[c];
         const int row = ((a.s[s].cbase[c] + (t & ((1 << glog) - 1))) << a.g_log) + rp;
-        const uint4 v = *reinterpret_cast<const uint4*>(wb + row * kDecBN + 4 * lane);
+        const uint4 v = *reinterpret_cast<const uint4*>(wb + row * bn + 4 * q);
         const int sh = (t >> glog) * a.s[s].w[c];   // bit of slot 0 for this row
-        wd[s][c][0] = v.x >> sh;
-        wd[s][c][1] = v.y >> sh;
-        wd[s][c][2] = v.z >> sh;
-        wd[s][c][3] = v.w >> sh;
+        const uint32_t m = a.s[s].spread[c];
+        const int cs = a.s[s].cs[c];
+        u[s][0] |= ((v.x >> sh) & m) << cs;
+        u[s][1] |= ((v.y >> sh) & m) << cs;
+        u[s][2] |= ((v.z >> sh) & m) << cs;
+        u[s][3] |= ((v.w >> sh) & m) << cs;
       }
     }
   }
   const float* xp = xs + r * MB;
   const int xstep = a.rmax * MB;
   for (int j = 0; j < a.slots; ++j, xp += xstep) {
-    int code[4];
+    float code[4];
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      uint32_t u[4] = {0u, 0u, 0u, 0u};
-      int cs = 0;
-#pragma unroll
-      for (int c = 0; c < kMaxComps; ++c) {
-        if (c < a.s[s].ncomp) {
-          const uint32_t mask = (1u << a.s[s].w[c]) - 1u;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            u[k] |= (wd[s][c][k] & mask) << cs;
-            wd[s][c][k] >>= a.wmax;                 // every component: wmax bits a slot
-          }
-          cs += a.s[s].w[c];
-        }
-      }
-      const int up = 32 - a.s[s].code_bits;        // sign-extend the field
+      const Stream& st = a.s[s];
+      const uint32_t field = (1u << st.code_bits) - 1u;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int v = static_cast<int>(u[k] << up) >> up;
-        code[k] = (s == 0) ? v : min(max(code[k] * (1 << a.gap[s]) + v, a.lo[s]), a.hi[s]);
+        const float v = __uint_as_float((u[s][k] & field) ^ st.fbias) - st.foff;
+        u[s][k] >>= a.wmax;
+        code[k] = (s == 0) ? v : fmaxf(fmaf(code[k], st.fmul, v), st.flo);
       }
-    }
-    float cf[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      cf[k] = code_f32(code[k]);
-      if (ROUND) cf[k] = __bfloat162float(__float2bfloat16_rn(cf[k]));
     }
     float xv[MB];
-    if constexpr (MB >= 4) {
-#pragma unroll
-      for (int m = 0; m < MB; m += 4) {
-        const float4 q = *reinterpret_cast<const float4*>(xp + m);
-        xv[m] = q.x;
-        xv[m + 1] = q.y;
-        xv[m + 2] = q.z;
-        xv[m + 3] = q.w;
-      }
-    } else if constexpr (MB == 2) {
-      const float2 q = *reinterpret_cast<const float2*>(xp);
-      xv[0] = q.x;
-      xv[1] = q.y;
-    } else {
-      xv[0] = *xp;
-    }
+    dec_x<MB>(xp, xv);
 #pragma unroll
     for (int m = 0; m < MB; ++m) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[m][k] = fmaf(cf[k], xv[m], acc[m][k]);
+      for (int k = 0; k < 4; ++k) acc[m][k] = fmaf(code[k], xv[m], acc[m][k]);
     }
   }
 }
 
-// Grid (column tiles of 128, nsplit = nk * sp).  CTA z works on pack block
-// z / sp, chunks (z % sp) * cpc .. + cpc - 1 of it; a chunk is 2^g_log
-// units, a unit the widest-component rows r = rho + t * rmin (t < umax) of
-// one rho < rmin together with every word that any component holds for
-// those rows, each copied once.
+// The same on the general path (a stream's code wider than wmax, or codes
+// over 9 bits in bf16): each code assembled from its components' fields,
+// one column at a time (few registers: this path must not set the
+// packed-field path's occupancy).
+template <int NS, int MB>
+__device__ __forceinline__ void dec_row(const Args& a, const uint32_t* wb, const float* xs,
+                                        int q, int rp, int t, int r, float (&acc)[MB][4]) {
+  const int bn = 1 << a.bn_log;
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) {
+    uint32_t wd[NS][kMaxComps];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+#pragma unroll
+      for (int c = 0; c < kMaxComps; ++c) {
+        if (c < a.s[s].ncomp) {
+          const int glog = a.s[s].glog[c];
+          const int row = ((a.s[s].cbase[c] + (t & ((1 << glog) - 1))) << a.g_log) + rp;
+          wd[s][c] = wb[row * bn + 4 * q + k] >> ((t >> glog) * a.s[s].w[c]);
+        }
+      }
+    }
+    float part[MB];
+#pragma unroll
+    for (int m = 0; m < MB; ++m) part[m] = 0.f;
+    const float* xp = xs + r * MB;
+    for (int j = 0; j < a.slots; ++j, xp += a.rmax * MB) {
+      int code = 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        uint32_t u = 0u;
+        int cs = 0;
+#pragma unroll
+        for (int c = 0; c < kMaxComps; ++c) {
+          if (c < a.s[s].ncomp) {
+            u |= (wd[s][c] & ((1u << a.s[s].w[c]) - 1u)) << cs;
+            wd[s][c] >>= a.wmax;                    // every component: wmax bits a slot
+            cs += a.s[s].w[c];
+          }
+        }
+        const int up = 32 - a.s[s].code_bits;      // sign-extend the field
+        const int v = static_cast<int>(u << up) >> up;
+        code = (s == 0) ? v : min(max(code * (1 << a.gap[s]) + v, a.lo[s]), a.hi[s]);
+      }
+      float cf = code_f32(code);
+      if (a.round_codes) cf = __bfloat162float(__float2bfloat16_rn(cf));
+      float xv[MB];
+      dec_x<MB>(xp, xv);
+#pragma unroll
+      for (int m = 0; m < MB; ++m) part[m] = fmaf(cf, xv[m], part[m]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk == k) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) acc[m][kk] += part[m];
+      }
+    }
+  }
+}
+
+// Stream-K over work items.  An item is one chunk of one column tile (bn =
+// 32, 64 or 128 columns) in one pack block, numbered block-major: item I
+// is block b = I / (tiles * cpb), tile T = (I / cpb) mod tiles, chunk
+// I mod cpb, so a CTA's run of items seldom changes block (x is staged
+// again only then).  A chunk is 2^g_log units; a unit the widest-component
+// rows r = rho + t * rmin (t < umax) of one rho < rmin together with every
+// word that any component holds for those rows, each copied once.  CTA p
+// of P takes items [p W / P, (p + 1) W / P): every CTA the same work
+// (+-1 item), all of them resident at once, the words of item i + 1 in
+// flight while item i is unpacked.  A run of items of one (block, tile)
+// is a segment: its sums go to partial slot b * tiles + T + p, and the
+// last segment of a tile to arrive adds the tile's slots in (block, CTA)
+// order (deterministic whoever arrives last), scales, casts and resets
+// the tile's counter.  Thread i owns the 4 columns of quad i mod (bn / 4)
+// and takes every (1024 / bn)-th widest-component row of a chunk.
+__host__ __device__ __forceinline__ int dec_owner(long item, long W, long P) {
+  return static_cast<int>(((item + 1) * P - 1) / W);  // the CTA whose run holds item
+}
+
+// (pack block, column tile, chunk) of an item, advanced without division
+struct DecItem {
+  int b, T, c;
+  __device__ __forceinline__ void next(const Args& a) {
+    if (++c == a.cpb) {
+      c = 0;
+      if (++T == a.tiles) {
+        T = 0;
+        ++b;
+      }
+    }
+  }
+};
+
 template <int NS, int MB>
 __global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);                  // (block, MB) f32
-  uint32_t* ring = reinterpret_cast<uint32_t*>(xs + a.block * MB);  // 2 x (wpu * G, 128)
-  int* last = reinterpret_cast<int*>(smem_raw);  // after the products, in x's place
   const int G = 1 << a.g_log;
-  const int stage_words = a.wpu * G * kDecBN;
-  const int lane = threadIdx.x & 31;
+  const int bn = 1 << a.bn_log;
+  const int stage_words = a.wpu * G * bn;
+  float* xs = reinterpret_cast<float*>(smem_raw);                  // (block, MB) f32
+  float* red = xs + a.block * MB;                                   // (warps, MB, bn)
+  uint32_t* ring = reinterpret_cast<uint32_t*>(red + kDecWarps * MB * bn);  // 2 stages
+  int* flag = reinterpret_cast<int*>(ring + 2 * stage_words);
+  int* segs = flag + 4;                       // (nk * cpb) partial slots of one tile
+  const int q = threadIdx.x & ((bn >> 2) - 1);                      // column quad
+  const int rg = threadIdx.x >> (a.bn_log - 2);                     // row group
+  const int nrg = kDecThreads >> (a.bn_log - 2);
   const int warp = threadIdx.x >> 5;
-  const int tile = blockIdx.x;
-  const int n0 = tile * kDecBN;
-  const int z = blockIdx.y;
-  const int kb = z / a.sp;
-  const int chunk0 = (z - kb * a.sp) * a.cpc;
+  const long W = a.nitems;
+  const long P = gridDim.x;
+  const int start = static_cast<int>(blockIdx.x * W / P);
+  const int end = static_cast<int>((blockIdx.x + 1) * W / P);
+  const int per_b = a.tiles * a.cpb;
 
-  auto stage = [&](int chunk, int buf) {
-    const int rho0 = chunk << a.g_log;
+  auto stage = [&](const DecItem& it, int buf) {
+    const int n0 = it.T << a.bn_log;
+    const int rho0 = it.c << a.g_log;
     uint32_t* dst = ring + buf * stage_words;
-    const int cshift = 7 - a.vw_shift;                          // copies per word row
+    const int cshift = a.bn_log - a.vw_shift;                   // copies per word row
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
 #pragma unroll
@@ -740,8 +843,8 @@ __global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
         if (c < a.s[s].ncomp) {
           const int rows = 1 << (a.s[s].glog[c] + a.g_log);
           const uint32_t* base = a.s[s].words +
-              (static_cast<size_t>(kb) * a.s[s].rows_pb + a.s[s].off[c] + rho0) * a.N + n0;
-          uint32_t* d = dst + (a.s[s].cbase[c] << a.g_log) * kDecBN;
+              (static_cast<size_t>(it.b) * a.s[s].rows_pb + a.s[s].off[c] + rho0) * a.N + n0;
+          uint32_t* d = dst + (a.s[s].cbase[c] << a.g_log) * bn;
           for (int i = threadIdx.x; i < (rows << cshift); i += kDecThreads) {
             const int row = i >> cshift;                        // (t mod g) * G + rho'
             const int col = (i - (row << cshift)) << a.vw_shift;
@@ -749,7 +852,7 @@ __global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
             const bool ok = n0 + col < a.N;
             const uint32_t* src = ok ? base + static_cast<size_t>(grow) * a.N + col
                                      : a.s[s].words;
-            const uint32_t sd = nq_tc::smem_u32(d + row * kDecBN + col);
+            const uint32_t sd = nq_tc::smem_u32(d + row * bn + col);
             switch (a.vw_shift) {
               case 2: nq_tc::cp_async<16>(sd, src, ok); break;
               case 1: nq_tc::cp_async<8>(sd, src, ok); break;
@@ -761,116 +864,185 @@ __global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
     }
   };
 
-  stage(chunk0, 0);
-  nq_tc::cp_async_commit();
-  if (a.cpc > 1) stage(chunk0 + 1, 1);
-  nq_tc::cp_async_commit();
-
-  // x of this pack block as f32, (p, m) with m fastest; rows past M and
-  // elements past K are 0
-  const size_t k0 = static_cast<size_t>(kb) * a.block;
-  for (int i = threadIdx.x; i < MB * a.block; i += kDecThreads) {
-    const int m = i / a.block;
-    const int p = i - m * a.block;
-    float v = 0.f;
-    if (m < a.M && k0 + p < static_cast<size_t>(a.K)) {
-      const size_t xi = static_cast<size_t>(m) * a.K + k0 + p;
-      v = a.x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[xi])
-                   : static_cast<const float*>(a.x)[xi];
-    }
-    xs[p * MB + m] = v;
-  }
-
   float acc[MB][4];
 #pragma unroll
   for (int m = 0; m < MB; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
 
+  DecItem cur;                                                   // the item unpacked now
+  cur.b = start / per_b;
+  cur.T = (start - cur.b * per_b) / a.cpb;
+  cur.c = start - cur.b * per_b - cur.T * a.cpb;
+  DecItem ahead = cur;                                           // the next to stage
+  stage(ahead, 0);
+  nq_tc::cp_async_commit();
+  ahead.next(a);
+  if (start + 1 < end) stage(ahead, 1);
+  nq_tc::cp_async_commit();
+  ahead.next(a);
+
   const int rows = a.umax << a.g_log;                            // widest rows per chunk
-  for (int i = 0; i < a.cpc; ++i) {
-    if (i + 1 < a.cpc) {
+  int xb = -1;
+  int seg_items = 0;
+  for (int item = start; item < end; ++item, cur.next(a)) {
+    const int it = item - start;
+    if (cur.b != xb) {
+      // x of pack block b as f32, (p, m) with m fastest; rows past M and
+      // elements past K are 0 (every thread is past the previous item)
+      const size_t k0 = static_cast<size_t>(cur.b) * a.block;
+      for (int i = threadIdx.x; i < MB * a.block; i += kDecThreads) {
+        const int m = i / a.block;
+        const int p = i - m * a.block;
+        float v = 0.f;
+        if (m < a.M && k0 + p < static_cast<size_t>(a.K)) {
+          const size_t xi = static_cast<size_t>(m) * a.K + k0 + p;
+          v = a.x_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[xi])
+                       : static_cast<const float*>(a.x)[xi];
+        }
+        xs[p * MB + m] = v;
+      }
+      xb = cur.b;
+    }
+    if (item + 1 < end) {
       cp_async_wait_one();
     } else {
       nq_tc::cp_async_wait_all();
     }
-    __syncthreads();                                             // chunk i (and x) landed
-    const uint32_t* wb = ring + (i & 1) * stage_words;
-    const int rho0 = (chunk0 + i) << a.g_log;
-    for (int idx = warp; idx < rows; idx += kDecWarps) {
+    __syncthreads();                                             // item (and x) landed
+    const uint32_t* wb = ring + (it & 1) * stage_words;
+    const int rho0 = cur.c << a.g_log;
+    for (int idx = rg; idx < rows; idx += nrg) {
       const int rp = idx & (G - 1);
       const int t = idx >> a.g_log;
       const int r = rho0 + rp + t * a.rmin;
-      if (a.round_codes) {
-        dec_row<NS, MB, true>(a, wb, xs, lane, rp, t, r, acc);
+      if (a.spread) {
+        dec_row_spread<NS, MB>(a, wb, xs, q, rp, t, r, acc);
       } else {
-        dec_row<NS, MB, false>(a, wb, xs, lane, rp, t, r, acc);
+        dec_row<NS, MB>(a, wb, xs, q, rp, t, r, acc);
       }
     }
-    __syncthreads();                                             // stage i & 1 is free
-    if (i + 2 < a.cpc) stage(chunk0 + i + 2, i & 1);
-    nq_tc::cp_async_commit();
-  }
+    ++seg_items;
 
-  // the 8 warps' sums of one column, added in warp order
-  float* red = reinterpret_cast<float*>(ring);                   // (warps, MB, 128)
+    if (item + 1 == end || cur.c + 1 == a.cpb) {                 // the segment ends
+      // row groups of a warp (lanes bn/4 apart), then the warps in order
+      for (int off = bn >> 2; off < 32; off <<= 1) {
 #pragma unroll
-  for (int m = 0; m < MB; ++m) {
-    *reinterpret_cast<float4*>(red + (warp * MB + m) * kDecBN + 4 * lane) =
-        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < MB * kDecBN; i += kDecThreads) {
-    const int m = i >> 7;
-    const int col = i & (kDecBN - 1);
-    const int n = n0 + col;
-    if (m >= a.M || n >= a.N) continue;
-    float sum = 0.f;
+        for (int m = 0; m < MB; ++m) {
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) sum += red[(w * MB + m) * kDecBN + col];
-    if (a.nsplit == 1) {
-      store_out(a, m, n, sum * a.scale[n]);
-    } else {
-      a.partial[(static_cast<size_t>(z) * a.M + m) * a.N + n] = sum;
-    }
-  }
-  if (a.nsplit == 1) return;
-
-  // the last CTA of this column tile to arrive adds every split in split
-  // order (deterministic), applies the scale and resets the counter
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) *last = atomicAdd(a.counters + tile, 1) == a.nsplit - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  const size_t mn = static_cast<size_t>(a.M) * a.N;
-  for (int i = threadIdx.x; i < MB * kDecBN; i += kDecThreads) {
-    const int m = i >> 7;
-    const int n = n0 + (i & (kDecBN - 1));
-    if (m >= a.M || n >= a.N) continue;
-    const float* p = a.partial + static_cast<size_t>(m) * a.N + n;
-    float sum = 0.f;
+          for (int k = 0; k < 4; ++k) acc[m][k] += __shfl_xor_sync(0xffffffffu, acc[m][k], off);
+        }
+      }
+      if ((threadIdx.x & 31) < (bn >> 2)) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+          *reinterpret_cast<float4*>(red + (warp * MB + m) * bn + 4 * q) =
+              make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MB; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+      __syncthreads();
+      const int n0 = cur.T << a.bn_log;
+      const bool whole = a.nk == 1 && seg_items == a.cpb;       // the tile in one run
+      const long slot = static_cast<long>(cur.b) * a.tiles + cur.T + blockIdx.x;
+      for (int i = threadIdx.x; i < (MB << a.bn_log); i += kDecThreads) {
+        const int m = i >> a.bn_log;
+        const int col = i & (bn - 1);
+        if (m >= a.M || n0 + col >= a.N) continue;
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kDecWarps; ++w) sum += red[(w * MB + m) * bn + col];
+        if (whole) {
+          store_out(a, m, n0 + col, sum * a.scale[n0 + col]);
+        } else {
+          a.partial[(slot * a.M + m) * bn + col] = sum;
+        }
+      }
+      if (!whole) {
+        // arrivals count items: the run that brings the tile's count to
+        // nk * cpb is the last
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          *flag = atomicAdd(a.counters + cur.T, seg_items) + seg_items == a.nk * a.cpb;
+        }
+        __syncthreads();
+        if (*flag) {
+          __threadfence();
+          if (threadIdx.x == 0) {                                  // the tile's runs
+            int n = 0;
+            for (int b = 0; b < a.nk; ++b) {
+              const long i0 = (static_cast<long>(b) * a.tiles + cur.T) * a.cpb;
+              const int p0 = dec_owner(i0, W, P);
+              const int p1 = dec_owner(i0 + a.cpb - 1, W, P);
+              for (int p = p0; p <= p1; ++p) segs[n++] = b * a.tiles + cur.T + p;
+            }
+            flag[1] = n;
+          }
+          __syncthreads();
+          const int nseg = flag[1];
+          for (int i = threadIdx.x; i < (MB << a.bn_log); i += kDecThreads) {
+            const int m = i >> a.bn_log;
+            const int col = i & (bn - 1);
+            if (m >= a.M || n0 + col >= a.N) continue;
+            const float* pm = a.partial + static_cast<long>(m) * bn + col;
+            const long stride = static_cast<long>(a.M) * bn;
+            float sum = 0.f;
 #pragma unroll 8
-    for (int zz = 0; zz < a.nsplit; ++zz) sum += __ldcg(p + zz * mn);
-    store_out(a, m, n, sum * a.scale[n]);
+            for (int k = 0; k < nseg; ++k) sum += __ldcg(pm + segs[k] * stride);
+            store_out(a, m, n0 + col, sum * a.scale[n0 + col]);
+          }
+          if (threadIdx.x == 0) a.counters[cur.T] = 0;
+        }
+      }
+      seg_items = 0;
+    }
+    __syncthreads();                                             // stage it & 1 is free
+    if (item + 2 < end) stage(ahead, it & 1);
+    nq_tc::cp_async_commit();
+    ahead.next(a);
   }
-  if (threadIdx.x == 0) a.counters[tile] = 0;
 }
 
 size_t dec_smem_bytes(const Args& a, int mb) {
-  const size_t ring = 2ull * a.wpu * (1 << a.g_log) * kDecBN * sizeof(uint32_t);
-  const size_t red = static_cast<size_t>(kDecWarps) * mb * kDecBN * sizeof(float);
-  return static_cast<size_t>(a.block) * mb * sizeof(float) + (ring > red ? ring : red);
+  const size_t bn = static_cast<size_t>(1) << a.bn_log;
+  return static_cast<size_t>(a.block) * mb * sizeof(float)                    // x
+         + static_cast<size_t>(kDecWarps) * mb * bn * sizeof(float)          // red
+         + 2ull * a.wpu * (1 << a.g_log) * bn * sizeof(uint32_t)             // ring
+         + (4ull + static_cast<size_t>(a.nk) * a.cpb) * sizeof(int);        // flag, slots
 }
+
+// CTAs of one instantiation that fit an SM at this shared memory; the
+// opt-in above 48 KB happens once per instantiation, before any graph
+// capture (the body has no static shared memory, so all 227 KB may be
+// dynamic)
+template <int NS, int MB>
+int dec_occupancy_body(size_t smem) {
+  static cudaError_t opt_in = cudaFuncSetAttribute(
+      stream_matmul_dec<NS, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
+  int n = 0;
+  if (opt_in != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stream_matmul_dec<NS, MB>, kDecThreads,
+                                                    smem) != cudaSuccess) {
+    return 1;
+  }
+  return n > 0 ? n : 1;
+}
+
+template <int MB>
+int dec_occupancy_ns(int ns, size_t smem) {
+  switch (ns) {
+    case 1: return dec_occupancy_body<1, MB>(smem);
+    case 2: return dec_occupancy_body<2, MB>(smem);
+    case 3: return dec_occupancy_body<3, MB>(smem);
+    default: return dec_occupancy_body<4, MB>(smem);
+  }
+}
+
+int dec_mb(int M) { return M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8; }
 
 template <int NS, int MB>
 int launch_dec_body(const Args& a, size_t smem, cudaStream_t stream) {
-  // opt in above 48 KB once per instantiation, before any graph capture (the
-  // body has no static shared memory, so all 227 KB may be dynamic)
-  static cudaError_t opt_in = cudaFuncSetAttribute(
-      stream_matmul_dec<NS, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const dim3 grid((a.N + kDecBN - 1) / kDecBN, a.nsplit);
-  stream_matmul_dec<NS, MB><<<grid, kDecThreads, smem, stream>>>(a);
+  stream_matmul_dec<NS, MB><<<a.nctas, kDecThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -884,9 +1056,9 @@ int launch_dec_ns(const Args& a, int ns, size_t smem, cudaStream_t stream) {
   }
 }
 
-// Decode route: the chunk, split and load-width plan of one launch, from
-// Args filled by make_args().  nq_dec_splits() reads the same plan, so the
-// wrapper allocates exactly the partials the launch writes.
+// Decode route: the tile, chunk, item and grid plan of one launch, from
+// Args filled by make_args().  nq_dec_workspace() reads the same plan, so
+// the wrapper allocates exactly the partials the launch writes.
 void dec_plan(Args& a, int ns) {
   static int sms = [] {
     int dev = 0, n = 132;
@@ -903,33 +1075,55 @@ void dec_plan(Args& a, int ns) {
   a.rmin = a.block * wmin / 32;
   a.umax = a.rmax / a.rmin;
   a.wpu = 0;
+  a.spread = 1;
   for (int s = 0; s < ns; ++s) {
     Stream& st = a.s[s];
+    a.spread = a.spread && st.code_bits <= a.wmax;
+    int cs = 0;
     for (int c = 0; c < st.ncomp; ++c) {
       st.glog[c] = log2_exact(st.w[c] / wmin);
       st.cbase[c] = a.wpu;
       a.wpu += st.w[c] / wmin;
+      st.cs[c] = cs;
+      cs += st.w[c];
+      st.spread[c] = 0u;
+      for (int j = 0; j < a.slots; ++j) st.spread[c] |= ((1u << st.w[c]) - 1u) << (j * a.wmax);
     }
+    st.fbias = 0x4B000000u | (1u << (st.code_bits - 1));
+    st.foff = 8388608.f + static_cast<float>(1 << (st.code_bits - 1));
+    st.fmul = static_cast<float>(1 << a.gap[s]);
+    st.flo = static_cast<float>(a.lo[s]);
   }
-  // a chunk: the most units (a power of two dividing rmin) whose words fit
-  // one ring stage
+  // the widest column tile (128, 64, 32) whose tiles times pack blocks
+  // reach kDecItems per SM; the largest chunk (a power of two of units
+  // dividing rmin) whose words fit one ring stage; then smaller chunks
+  // until the items reach kDecItems per SM, while a chunk still holds a
+  // row for every row group
+  const long want = static_cast<long>(kDecItems) * sms;
+  a.bn_log = 7;
+  while (a.bn_log > 5 && ((a.N + (1 << a.bn_log) - 1) >> a.bn_log) * a.nk < want) --a.bn_log;
+  auto items = [&] {
+    return static_cast<long>((a.N + (1 << a.bn_log) - 1) >> a.bn_log) * a.nk *
+           (a.rmin >> a.g_log);
+  };
   a.g_log = 0;
   while (a.rmin % (2 << a.g_log) == 0 &&
-         static_cast<size_t>(a.wpu) * (2 << a.g_log) * kDecBN * 4 <= kDecStageBytes) {
+         static_cast<long>(a.wpu) * (2 << a.g_log) * (4 << a.bn_log) <= kDecStageBytes) {
     ++a.g_log;
   }
-  const int cpb = a.rmin >> a.g_log;                 // chunks per pack block
-  // split a pack block over sp CTAs (a divisor of cpb) until the grid
-  // covers the SMs twice, or every CTA holds one chunk
-  const long tiles = (a.N + kDecBN - 1) / kDecBN;
-  a.sp = 1;
-  while (a.sp < cpb && tiles * a.nk * a.sp < 2L * sms) {
-    int next = a.sp + 1;
-    while (cpb % next) ++next;
-    a.sp = next;
-  }
-  a.cpc = cpb / a.sp;
-  a.nsplit = a.nk * a.sp;
+  const int nrg = (kDecThreads * 4) >> a.bn_log;
+  while (a.g_log > 0 && items() < want && (a.umax << (a.g_log - 1)) >= nrg) --a.g_log;
+  a.tiles = (a.N + (1 << a.bn_log) - 1) >> a.bn_log;
+  a.cpb = a.rmin >> a.g_log;
+  a.nitems = items();
+  // one CTA per item, or, above kDecPersist items per resident CTA, as many
+  // CTAs as fit the SMs at once, each looping over an equal run of items
+  const long fit = static_cast<long>(sms) *
+      (dec_mb(a.M) == 1 ? dec_occupancy_ns<1>(ns, dec_smem_bytes(a, 1))
+       : dec_mb(a.M) == 2 ? dec_occupancy_ns<2>(ns, dec_smem_bytes(a, 2))
+       : dec_mb(a.M) == 4 ? dec_occupancy_ns<4>(ns, dec_smem_bytes(a, 4))
+                          : dec_occupancy_ns<8>(ns, dec_smem_bytes(a, 8)));
+  a.nctas = static_cast<int>(a.nitems > kDecPersist * fit ? fit : a.nitems);
   int vw = 4;                                        // 16-byte copies unless misaligned
   for (bool fits = false; !fits && vw > 1;) {
     fits = a.N % vw == 0;
@@ -941,18 +1135,23 @@ void dec_plan(Args& a, int ns) {
   a.vw_shift = log2_exact(vw);
 }
 
+// f32 partial floats per activation row: one (bn)-wide slot per segment
+long dec_workspace(const Args& a) {
+  return (static_cast<long>(a.nk) * a.tiles + a.nctas) << a.bn_log;
+}
+
 int launch_dec(Args a, int ns, int x_bf16, int top_bits, int* counters, int ncounters,
-               cudaStream_t stream) {
+               long nworkspace, cudaStream_t stream) {
   if (a.M > kDecMaxM) return static_cast<int>(cudaErrorInvalidValue);
   dec_plan(a, ns);
-  const int mb = a.M == 1 ? 1 : a.M == 2 ? 2 : a.M <= 4 ? 4 : 8;
+  const int mb = dec_mb(a.M);
   a.x_bf16 = x_bf16;
   a.round_codes = x_bf16 && top_bits > 9;            // |code| > 256: bf16 rounds it
+  a.spread = a.spread && !a.round_codes;
   a.counters = counters;
-  const long tiles = (a.N + kDecBN - 1) / kDecBN;
   const size_t smem = dec_smem_bytes(a, mb);
-  if (smem > static_cast<size_t>(kTcMaxSmem) || a.nsplit > 65535 ||
-      (a.nsplit > 1 && (a.partial == nullptr || counters == nullptr || ncounters < tiles))) {
+  if (smem > static_cast<size_t>(kTcMaxSmem) || a.partial == nullptr ||
+      nworkspace < dec_workspace(a) * a.M || counters == nullptr || ncounters < a.tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (mb) {
@@ -1028,9 +1227,11 @@ int make_args(Args& a, const void* const* words, const int* bits, int ns, int M,
 }
 
 // body: 0 = CUDA cores, 1 = tensor cores (bf16 only), 2 = decode (M <= 8).
-// counters: ncounters int32 arrival counts, 0 between launches (decode only).
+// partial: npartial f32 (the CUDA-core body: (nk, M, N) when nk > 1; the
+// decode body: nq_dec_workspace() * M); counters: ncounters int32 arrival
+// counts, 0 between launches (decode only).
 int launch(const void* x, int x_bf16, const void* const* words, const int* bits,
-           int ns, const void* scale, void* out, int out_f32, void* partial,
+           int ns, const void* scale, void* out, int out_f32, void* partial, int npartial,
            void* counters, int ncounters, int M, int N, int K, int block, int body,
            cudaStream_t stream) {
   Args a = {};
@@ -1043,7 +1244,7 @@ int launch(const void* x, int x_bf16, const void* const* words, const int* bits,
   a.out_f32 = out_f32;
   if (body == 2) {
     return launch_dec(a, ns, x_bf16, bits[ns - 1], static_cast<int*>(counters), ncounters,
-                      stream);
+                      npartial, stream);
   }
   if (body == 1) {  // bf16 only: f32 keeps its CUDA-core body (no TF32)
     return x_bf16 ? launch_tc(a, ns, stream) : static_cast<int>(cudaErrorInvalidValue);
@@ -1073,44 +1274,46 @@ extern "C" {
 
 // K1: rung 0, the k-bit base stream alone.
 int nq_packed_matmul(const void* x, int x_bf16, const void* words, int k,
-                     const void* scale, void* out, int out_f32, void* partial,
+                     const void* scale, void* out, int out_f32, void* partial, int npartial,
                      void* counters, int ncounters, int M, int N, int K, int block,
                      int body, void* stream) {
   const void* streams[1] = {words};
   const int bits[1] = {k};
-  return launch(x, x_bf16, streams, bits, 1, scale, out, out_f32, partial, counters,
-                ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
+  return launch(x, x_bf16, streams, bits, 1, scale, out, out_f32, partial, npartial,
+                counters, ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
 }
 
 // K2: rung 1, the h-bit base and the (n - h + 1)-bit delta.
 int nq_nested_matmul(const void* x, int x_bf16, const void* words_high,
                      const void* words_low, int n, int h, const void* scale,
-                     void* out, int out_f32, void* partial, void* counters, int ncounters,
-                     int M, int N, int K, int block, int body, void* stream) {
+                     void* out, int out_f32, void* partial, int npartial, void* counters,
+                     int ncounters, int M, int N, int K, int block, int body, void* stream) {
   const void* streams[2] = {words_high, words_low};
   const int bits[2] = {h, n};
-  return launch(x, x_bf16, streams, bits, 2, scale, out, out_f32, partial, counters,
-                ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
+  return launch(x, x_bf16, streams, bits, 2, scale, out, out_f32, partial, npartial,
+                counters, ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
 }
 
 // K3: rungs >= 2, the base and every resident delta (2..4 streams here;
 // the 2-stream case is accepted too and computes what K2 does).
 int nq_ladder_matmul(const void* x, int x_bf16, const void* const* streams,
                      const int* bits, int nstreams, const void* scale, void* out,
-                     int out_f32, void* partial, void* counters, int ncounters, int M,
-                     int N, int K, int block, int body, void* stream) {
-  return launch(x, x_bf16, streams, bits, nstreams, scale, out, out_f32, partial,
-                counters, ncounters, M, N, K, block, body,
-                static_cast<cudaStream_t>(stream));
+                     int out_f32, void* partial, int npartial, void* counters, int ncounters,
+                     int M, int N, int K, int block, int body, void* stream) {
+  return launch(x, x_bf16, streams, bits, nstreams, scale, out, out_f32, partial, npartial,
+                counters, ncounters, M, N, K, block, body, static_cast<cudaStream_t>(stream));
 }
 
-// The decode body's K splits for these operands (its partials are
-// (splits, M, N) f32 when splits > 1), or -1 where it refuses them.
-int nq_dec_splits(const int* bits, int nstreams, int M, int N, int K, int block) {
+// The decode body's f32 partials per activation row for these operands,
+// and its column tiles (the arrival counters it needs), or -1 where it
+// refuses them.  The launch follows the same plan.
+int nq_dec_workspace(const int* bits, int nstreams, int M, int N, int K, int block,
+                     int* tiles) {
   Args a = {};
   if (make_args(a, nullptr, bits, nstreams, M, N, K, block) != 0 || M > kDecMaxM) return -1;
   dec_plan(a, nstreams);
-  return a.nsplit;
+  *tiles = a.tiles;
+  return static_cast<int>(dec_workspace(a));
 }
 
 }  // extern "C"

@@ -31,13 +31,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the cudaError_t of the launch)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "nest_matmul.cu": {
-        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _I,
+        "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                              _I, _I, _I, _I, _I, _P],
-        "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _I,
+        "nq_nested_matmul": [_P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                              _I, _I, _I, _I, _I, _P],
-        "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,
+        "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                              _I, _I, _I, _I, _I, _P],
-        "nq_dec_splits": [_P, _I, _I, _I, _I, _I],
+        "nq_dec_workspace": [_P, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -126,27 +126,30 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-# the decode body's K splits per (device, bits, M, N, K, block), and its
-# per-column-tile arrival counters per device (int32, 0 between launches:
-# the last CTA of a tile resets its own)
-_dec_splits: Dict[tuple, int] = {}
+# the decode body's plan per (device, bits, M, N, K, block): f32 partials
+# per activation row and column tiles; and its per-column-tile arrival
+# counters per device (int32, 0 between launches: the last CTA of a tile
+# resets its own)
+_dec_plans: Dict[tuple, tuple] = {}
 _dec_counters: Dict[int, "object"] = {}
-DEC_COUNTERS_MIN = 4096
+DEC_COUNTERS_MIN = 8192
 
 
-def dec_splits(device, bits, M: int, N: int, K: int, block: int) -> int:
-    """K splits of one decode-body launch (``nq_dec_splits``, the plan the
-    launch itself follows); cached per shape."""
+def dec_plan(device, bits, M: int, N: int, K: int, block: int):
+    """(partial floats per activation row, column tiles) of one decode-body
+    launch (``nq_dec_workspace``, the plan the launch itself follows);
+    cached per shape."""
     key = (device.index, tuple(bits), M, N, K, block)
-    if key not in _dec_splits:
+    if key not in _dec_plans:
         arr = (ctypes.c_int * len(bits))(*bits)
-        n = library("nest_matmul.cu").nq_dec_splits(ctypes.addressof(arr), len(bits),
-                                                     M, N, K, block)
+        tiles = ctypes.c_int(0)
+        n = library("nest_matmul.cu").nq_dec_workspace(
+            ctypes.addressof(arr), len(bits), M, N, K, block, ctypes.byref(tiles))
         if n < 1:
             raise ValueError(f"the decode body refuses bits {tuple(bits)}, M={M}, N={N}, "
                              f"K={K}, block={block}")
-        _dec_splits[key] = n
-    return _dec_splits[key]
+        _dec_plans[key] = (n, tiles.value)
+    return _dec_plans[key]
 
 
 def dec_counters(device, tiles: int):
@@ -165,29 +168,27 @@ def dec_counters(device, tiles: int):
     return buf
 
 
-DEC_BN = 128    # output columns per decode-body CTA (csrc/nest_matmul.cu kDecBN)
-
-
 def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits):
-    """Output, f32 split-K partials, arrival counters and the current
-    stream handle for one stream-matmul launch on ``body`` (0 CUDA cores,
-    1 tensor cores, 2 decode; ``dispatch.BODY``).  The CUDA-core body
-    splits K over every pack block, (nk, M, N) partials added by a second
-    pass; the decode body over ``dec_splits`` CTAs per column tile,
-    (splits, M, N) partials added by the tile's last CTA; the tensor-core
-    body takes no workspace (None).  The kernel allocates nothing itself."""
+    """Output, f32 partials, arrival counters and the current stream handle
+    for one stream-matmul launch on ``body`` (0 CUDA cores, 1 tensor cores,
+    2 decode; ``dispatch.BODY``).  The CUDA-core body splits K over every
+    pack block: (nk, M, N) partials added by a second pass.  The decode
+    body's CTAs each take an equal run of (pack block, column tile, chunk)
+    items: one partial row per run of one tile, added by the tile's last
+    CTA.  The tensor-core body takes no workspace (None).  The kernel
+    allocates nothing itself."""
     import torch
 
     M = x.shape[0]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = counters = None
-    splits = -(-K // block) if body == 0 else 1
-    if body == 2:
-        splits = dec_splits(x.device, bits, M, N, K, block)
-        if splits > 1:
-            counters = dec_counters(x.device, -(-N // DEC_BN))
-    if splits > 1 and body != 1:
-        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    nk = -(-K // block)
+    if body == 0 and nk > 1:
+        partial = torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
+    elif body == 2:
+        per_row, tiles = dec_plan(x.device, bits, M, N, K, block)
+        partial = torch.empty(per_row * M, dtype=torch.float32, device=x.device)
+        counters = dec_counters(x.device, tiles)
     return out, partial, counters, torch.cuda.current_stream(x.device).cuda_stream
 
 

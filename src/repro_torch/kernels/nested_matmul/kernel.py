@@ -30,8 +30,8 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
     err = build.library(SOURCE).nq_nested_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), build.ptr(words_high),
         build.ptr(words_low), n, h, build.ptr(scale), build.ptr(out),
-        int(out_dtype == torch.float32), build.ptr(partial), build.ptr(counters),
-        build.numel(counters), x.shape[0], N, K, block_k, body, stream)
+        int(out_dtype == torch.float32), build.ptr(partial), build.numel(partial),
+        build.ptr(counters), build.numel(counters), x.shape[0], N, K, block_k, body, stream)
     build.check(err, "nested_matmul")
     return out
 
@@ -46,7 +46,7 @@ def ladder_matmul(x, streams, scale, *, bits, K: int, block_k: int,
     err = build.library(SOURCE).nq_ladder_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), ctypes.addressof(ptrs),
         ctypes.addressof(bit_arr), len(streams), build.ptr(scale), build.ptr(out),
-        int(out_dtype == torch.float32), build.ptr(partial), build.ptr(counters),
-        build.numel(counters), x.shape[0], N, K, block_k, body, stream)
+        int(out_dtype == torch.float32), build.ptr(partial), build.numel(partial),
+        build.ptr(counters), build.numel(counters), x.shape[0], N, K, block_k, body, stream)
     build.check(err, "ladder_matmul")
     return out

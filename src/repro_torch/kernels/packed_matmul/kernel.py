@@ -27,7 +27,8 @@ def packed_matmul(x: torch.Tensor, words: torch.Tensor, scale: torch.Tensor, *,
     err = build.library(SOURCE).nq_packed_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), build.ptr(words), k,
         build.ptr(scale), build.ptr(out), int(out_dtype == torch.float32),
-        build.ptr(partial), build.ptr(counters), build.numel(counters), x.shape[0], N, K,
+        build.ptr(partial), build.numel(partial),
+        build.ptr(counters), build.numel(counters), x.shape[0], N, K,
         block_k, body, stream)
     build.check(err, "packed_matmul")
     return out

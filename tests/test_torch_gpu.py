@@ -1,6 +1,7 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version at
-the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on both their
-bodies - CUDA cores at decode, tensor cores at prefill M - the nested KV
+the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their three
+bodies - decode at M <= 8, CUDA cores at M 9-63 and f32 above M 8, tensor
+cores at bf16 prefill M - the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
 recompose K6), and the kernel routes' refusals.
 
@@ -185,22 +186,28 @@ def test_tensor_core_body_f32_output(cuda):
 
 
 def test_route_counter_shows_which_body_ran(cuda):
-    """bf16 below TC_MIN_M and every f32 call take the CUDA-core body;
-    bf16 at TC_MIN_M the tensor-core one; a named route is honoured."""
+    """M <= DEC_MAX_M takes the decode body in bf16 and f32; bf16 at M 9-63
+    and f32 above M 8 the CUDA-core body; bf16 at TC_MIN_M the tensor-core
+    one; a named route is honoured."""
     g = torch.Generator(device=cuda).manual_seed(7)
     nt = nest_quantize(torch.randn(512, 256, generator=g, device=cuda), bits=(8, 6, 4),
                        rounding="rtn")
-    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0),
-             (dispatch.TC_MIN_M, torch.bfloat16, None, 1),
-             (dispatch.TC_MIN_M, torch.float32, None, 0),
-             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1),
-             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0)]
-    for M, dtype, route, tc in cases:
+    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0, 0),
+             (dispatch.TC_MIN_M, torch.bfloat16, None, 1, 0),
+             (dispatch.TC_MIN_M, torch.float32, None, 0, 0),
+             (dispatch.DEC_MAX_M + 1, torch.float32, None, 0, 0),
+             (4, torch.bfloat16, None, 0, 1),
+             (dispatch.DEC_MAX_M, torch.float32, None, 0, 1),
+             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1, 0),
+             (4, torch.float32, dispatch.CUDA_CORE, 0, 0),
+             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0, 0)]
+    for M, dtype, route, tc, dec in cases:
         x = torch.randn(M, 512, generator=g, device=cuda).to(dtype)
         for rung, counter in enumerate(COUNTERS.values()):
-            before = (counter.launches, counter.tc_launches)
+            before = (counter.launches, counter.tc_launches, counter.dec_launches)
             got, _ = _run_rung(nt, rung, x, route=route)
-            assert (counter.launches, counter.tc_launches) == (before[0] + 1, before[1] + tc)
+            assert (counter.launches, counter.tc_launches, counter.dec_launches) == (
+                before[0] + 1, before[1] + tc, before[2] + dec)
             with dispatch.reference_pass():
                 want = _run_rung(nt, rung, x)[0]
             err = (got.float() - want.float()).abs().max().item()
@@ -220,6 +227,137 @@ def test_tensor_core_route_raises_on_what_it_refuses(cuda):
     with pytest.raises(ValueError):
         _run_rung(nt, 2, x.bfloat16(), route="tensor")
     assert {n: (c.launches, c.tc_launches) for n, c in COUNTERS.items()} == before
+
+
+# ---------------------------------------------------------------------------
+# K1-K3 decode body (M <= DEC_MAX_M, bf16 and f32)
+# ---------------------------------------------------------------------------
+def _check_decode_rungs(nt, x, rungs=None, out_dtype=None, streams=None):
+    """Rungs of ``nt`` (every one by default) on the decode body, chosen by
+    the route: counted as a decode launch, within 2e-2 (bf16) or 1e-4
+    (f32) of max(1, max |y|) of the plain version, and bit-identical over
+    two launches.  ``streams`` replaces the leaf's own word streams."""
+    tol = TOL[x.dtype]
+    for rung in range(len(nt.bits)) if rungs is None else rungs:
+        src = nt if streams is None else nt._replace(w_base=streams[0],
+                                                     deltas=tuple(streams[1:]))
+        counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[min(rung, 2)]]
+        before = (counter.launches, counter.dec_launches)
+        got, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        again, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        assert (counter.launches, counter.dec_launches) == (before[0] + 2, before[1] + 2)
+        with dispatch.reference_pass():
+            want, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == (out_dtype or x.dtype) and got.shape == want.shape
+        assert torch.equal(got, again), (nt.bits, rung, "two launches differ")
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        assert err <= tol * max(1.0, peak), (nt.bits, rung, x.shape, err, peak)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", SHAPES)
+def test_decode_body_matches_plain_at_main_path_shapes(cuda, K, N, dtype):
+    """Every main-path shape at rungs 0, 1 and 2, M in {1, 2, 3, 5, 8};
+    the LM head with its f32 output."""
+    g = torch.Generator(device=cuda).manual_seed(K * 3 + N)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=(8, 6, 4), rounding="rtn")
+    out_dtype = torch.float32 if N == 151936 else None
+    for M in (1, 2, 3, 5, 8):
+        _check_decode_rungs(nt, torch.randn(M, K, generator=g, device=cuda).to(dtype),
+                            out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N,block,bits", [
+    (1000, 190, 32, (2, 4, 6, 8)),    # 4 streams, ragged K, N % 4 == 2: 8-byte loads
+    (999, 130, 96, (3, 5, 6, 8)),     # block 96, odd K, codes wider than w_max
+    (1536, 300, 256, (8, 6, 4)),      # block 256, a ragged column tile
+    (520, 33, 64, (4, 8)),            # odd N: 4-byte loads
+    (1536, 260, 512, (12, 16)),       # 16-bit codes: bf16 rounds them, as code_as
+])
+def test_decode_body_ragged_shapes_blocks_and_wide_codes(cuda, K, N, block, bits, dtype):
+    g = torch.Generator(device=cuda).manual_seed(K + N + block)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn", block=block)
+    for M in (1, 3, 8):
+        _check_decode_rungs(nt, torch.randn(M, K, generator=g, device=cuda).to(dtype))
+    _check_decode_rungs(nt, torch.randn(2, K, generator=g, device=cuda).to(dtype),
+                        rungs=[len(bits) - 1], out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("bits", [(4, 6, 8), (2, 5, 9, 16), (2, 3, 4)])
+def test_decode_body_chain_edge_codes(cuda, bits):
+    """Codes at the ladder's lo and hi (and every neighbour of them): the
+    chain recompose's clip, on both the packed-field and the general path."""
+    from repro_torch.core.decompose import chain_decompose
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.core.packing import pack_blocked
+
+    g = torch.Generator(device=cuda).manual_seed(len(bits))
+    K, N, block, top = 512, 256, 512, bits[-1]
+    lo, hi = -(1 << (top - 1)), (1 << (top - 1)) - 1
+    codes = torch.randint(lo, hi + 1, (K, N), generator=g, device=cuda, dtype=torch.int32)
+    edges = torch.tensor([lo, lo + 1, lo + 2, hi - 2, hi - 1, hi], device=cuda,
+                         dtype=torch.int32)
+    codes[:, ::7] = edges[torch.arange(K, device=cuda) % 6].unsqueeze(1)
+    base, deltas = chain_decompose(codes, bits, method="rtn", validate=False)
+    widths = (bits[0],) + tuple(b - a + 1 for a, b in zip(bits, bits[1:]))
+    words = [pack_blocked(c, w, block, axis=0) for c, w in zip((base, *deltas), widths)]
+    scale = torch.rand(1, N, generator=g, device=cuda) + 0.5
+    nt = NestedTensor(w_base=words[0], deltas=tuple(words[1:]), scale=scale, bits=bits,
+                      shape=(K, N), block=block)
+    assert torch.equal(nt.codes_at(len(bits) - 1), codes)
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (1, 4):
+            _check_decode_rungs(nt, torch.randn(M, K, generator=g, device=cuda).to(dtype))
+
+
+def test_decode_body_misaligned_stream_views(cuda):
+    """Word streams that start 4 or 8 bytes past a 16-byte boundary (views
+    into a larger buffer) take narrower loads in the same body."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    nt = nest_quantize(torch.randn(1536, 256, generator=g, device=cuda) / 40, bits=(8, 6, 4),
+                       rounding="rtn")
+    for shift in (1, 2):
+        views = []
+        for s in (nt.w_base,) + nt.deltas:
+            buf = torch.empty(s.numel() + shift, dtype=s.dtype, device=cuda)
+            v = buf[shift:].view(s.shape)
+            v.copy_(s)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4 * shift
+        _check_decode_rungs(nt, torch.randn(5, 1536, generator=g, device=cuda).bfloat16(),
+                            streams=views)
+
+
+def test_stacked_layer_views_stay_aligned(cuda):
+    """``NestedTensor.layer(i)`` of a stacked leaf is a view at an offset of
+    i layers: at qwen2's widths every such view starts on a 16-byte
+    boundary, so the served decode path takes the 16-byte loads."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    nt = nest_quantize(torch.randn(3, 1536, 256, generator=g, device=cuda) / 40,
+                       bits=(8, 6, 4), rounding="rtn")
+    for i in range(3):
+        lay = nt.layer(i)
+        assert all(s.data_ptr() % 16 == 0 for s in (lay.w_base,) + lay.deltas)
+        _check_decode_rungs(lay, torch.randn(2, 1536, generator=g, device=cuda).bfloat16(),
+                            rungs=[2])
+
+
+def test_decode_route_raises_on_what_it_refuses(cuda):
+    """A named decode route takes M <= DEC_MAX_M only: above it raises and
+    counts nothing, instead of running another body."""
+    nt = nest_quantize(torch.randn(512, 256, device=cuda), bits=(8, 6, 4), rounding="rtn")
+    before = {n: (c.launches, c.dec_launches) for n, c in COUNTERS.items()}
+    for M, dtype in ((dispatch.DEC_MAX_M + 1, torch.float32), (64, torch.bfloat16)):
+        x = torch.randn(M, 512, device=cuda).to(dtype)
+        for rung in range(3):
+            with pytest.raises(ValueError):
+                _run_rung(nt, rung, x, route=dispatch.DECODE)
+    assert {n: (c.launches, c.dec_launches) for n, c in COUNTERS.items()} == before
 
 
 # ---------------------------------------------------------------------------
