@@ -10,10 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
    nvcc for sm_90a (the ptxas report is printed once), then hold each of
    K1 packed_matmul / K2 nested_matmul / K3 ladder_matmul against its
    plain PyTorch version at every main-path shape of qwen2-1.5b (q/o,
-   k/v, gate/up, down, lm_head) at M in {1, 4, 8, 32}, bf16 and f32, and
+   k/v, gate/up, down, lm_head) at M in {1, 2, 4, 8, 32}, bf16 and f32, and
    time it (CUDA events, cold L2), its plain version and a dense bf16
    ``torch.matmul`` of the same shape (a yardstick only; the port never
-   calls it).  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
+   calls it).  Every row at M <= 8 must launch on the decode body (its
+   counter says so) and is timed beside the same call on the CUDA-core
+   body (``route="cuda_core"``, the "before").  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
    ragged against the 256-row tile) and 4096 (2 x 2048) for q/o, k/v,
    gate/up and down, each launched on the tensor-core body the route
    picks (its counter must say so), held to 2e-2 of max(1, max |y|)
@@ -25,7 +27,8 @@ Phases (each raises on failure; the script then exits non-zero):
    calls of 4 requests x 8 prompt tokens x 8 new tokens under budgets
    that land on rungs 2, 0, 1, 2.  The launch counters must show every
    ``packed_linear`` (28 * 7 + 1 per forward) on the kernel of its rung
-   and no plain version.
+   and no plain version: the 32-row prefill's 196 on the CUDA-core body,
+   its LM head (M = 4) and every decode step on the decode body.
 3. Run the same requests through the plain versions (the scoped
    ``reference_pass``) with ``compute_dtype="float32"`` as the reference:
    the f32 kernel path within 1e-4 of it (logits relative to max |logit|)
@@ -46,7 +49,7 @@ Phases (each raises on failure; the script then exits non-zero):
    rung 2 -> 1 -> 0 -> 1 -> 2.  Each prefill launches K5 once per layer and
    the plain blockwise version never, and its 196 weight matmuls (28
    layers x 7) on the tensor-core body, while every decode step and the
-   prefill's LM head (M = 2) take the CUDA-core body; every KV ledger
+   prefill's LM head (M = 2) take the decode body; every KV ledger
    event equals its
    metadata-computed bytes; the top-rung rendering is within 0.02 of the
    dense prefill K/V; the wall time of each ``_kv_ingest`` is printed.
@@ -94,7 +97,7 @@ ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # bf16 plain pass on this seeded model, the same in every run (see PERF.md)
 BF16_E2E_TOL = 3e-2
 BITS = (8, 6, 4)
-MS = (1, 4, 8, 32)
+MS = (1, 2, 4, 8, 32)    # decode at batch 1-8 (2: the long path's), the short prefill
 # prefill rows (bf16): the route's threshold, the ragged 2 x 1100 prefill
 # and the long-context path's 2 x 2048
 PREFILL_MS = (64, 2 * 1100, 2 * 2048)
@@ -294,9 +297,16 @@ def phase_kernels(cfg, gen):
             for M in MS:
                 x = torch.randn(M, K, generator=gen, device=DEVICE).to(dtype)
                 xd = x.to(torch.bfloat16)
+                route = dispatch.matmul_route(M, dtype, x.device)
                 for name, (rung, _, _) in KERNELS.items():
+                    counter = dispatch.COUNTERS[name]
                     call = kernel_call(name, nt, x, copies, out_dtype)
+                    before = (counter.launches, counter.dec_launches)
                     got = call(0)
+                    dec = int(route == dispatch.DECODE)
+                    if (counter.launches, counter.dec_launches) != (before[0] + 1, before[1] + dec):
+                        raise AssertionError(f"{name} {shape} M={M} {dtype}: not launched on the "
+                                             f"{route} body ({before} -> {counter})")
                     with dispatch.reference_pass():
                         ref = call(0)
                     torch.cuda.synchronize()
@@ -308,6 +318,9 @@ def phase_kernels(cfg, gen):
                             f"> {TOL[dtype]} * max(1, {peak})")
                     ms = time_graph_ms(call, 20)
                     host_ms = time_ms(call, 20)
+                    cc_ms = (time_graph_ms(kernel_call(name, nt, x, copies, out_dtype,
+                                                       route=dispatch.CUDA_CORE), 20)
+                             if dec else None)
                     with dispatch.reference_pass():
                         plain_ms = time_ms(call, 3)
                     dense_ms = time_graph_ms(lambda i: torch.matmul(xd, dense[i % len(dense)]), 20)
@@ -320,16 +333,17 @@ def phase_kernels(cfg, gen):
                     rows.append({
                         "kernel": name, "shape": shape, "K": K, "N": N, "M": M,
                         "dtype": str(dtype).replace("torch.", ""), "uses_per_forward": uses,
-                        "route": dispatch.matmul_route(M, dtype, x.device),
-                        "max_abs_err": err, "max_abs_ref": peak, "ms": ms,
-                        "eager_call_ms": host_ms,
+                        "route": route, "max_abs_err": err, "max_abs_ref": peak, "ms": ms,
+                        "cuda_core_ms": cc_ms, "eager_call_ms": host_ms,
                         "plain_ms": plain_ms, "dense_bf16_matmul_ms": dense_ms,
                         "bytes": nbytes, "flops": flops,
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                    before_ms = "" if cc_ms is None else f" cuda-core={cc_ms:.4f}"
                     log(f"[kernel] {name:13s} {shape:8s} M={M:2d} {rows[-1]['dtype']:8s} "
-                        f"err={err:.2e} ms={ms:.4f} eager={host_ms:.4f} plain={plain_ms:.3f} "
-                        f"dense_bf16={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
+                        f"{route:9s} err={err:.2e} ms={ms:.4f}{before_ms} eager={host_ms:.4f} "
+                        f"plain={plain_ms:.3f} dense_bf16={dense_ms:.4f} "
+                        f"bound={rows[-1]['bound_ms']:.4f}")
         if not out_f32:           # a prefill's LM head sees only the last token
             rows += prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen)
         del copies, dense, nt, streams
@@ -391,10 +405,15 @@ def phase_serve(cfg):
     forwards = 1 + NEW_TOKENS
     log(f"[serve] {per_forward} packed_linear calls per forward, {forwards} "
         f"forwards per generate")
+    # per generate: the 32-row prefill's matmuls on the CUDA-core body, its
+    # LM head (M = 4, the last token of each request) and every decode
+    # step's on the decode body
+    want_dec = per_forward * NEW_TOKENS + 1
     dispatch.reset_counters()                      # the main path starts here
     phases = []
     for phase, rung in enumerate(SERVE_SCHEDULE):
         before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
+        before_dec = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
         reqs = make_requests(phase, cfg.vocab_size)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -408,6 +427,10 @@ def phase_serve(cfg):
         if store.rung != rung or delta != want:
             raise AssertionError(f"phase {phase}: rung {store.rung} (want {rung}), "
                                  f"launches {delta}, want {want}")
+        dec = {n: c.dec_launches - before_dec[n] for n, c in dispatch.COUNTERS.items()}
+        if dec != {n: want_dec if want[n][0] else 0 for n in dec}:
+            raise AssertionError(f"phase {phase}: decode-body launches {dec}, want {want_dec} "
+                                 f"on the rung's kernel")
         for r in reqs:
             if len(r.out_tokens) != NEW_TOKENS or not all(
                     0 <= t < cfg.vocab_size for t in r.out_tokens):
@@ -415,12 +438,14 @@ def phase_serve(cfg):
         phases.append({"rung": rung, "mode": store.mode, "wall_s": wall,
                        "page_in": store.ledger.page_in_bytes,
                        "page_out": store.ledger.page_out_bytes,
-                       "tokens": [r.out_tokens for r in reqs], "launches": delta})
+                       "tokens": [r.out_tokens for r in reqs], "launches": delta,
+                       "dec_launches": dec})
         log(f"[serve] phase {phase}: mode={store.mode} rung={store.rung} "
             f"{BATCH}x{NEW_TOKENS} tokens in {wall:.3f}s; ledger in="
             f"{store.ledger.page_in_bytes} out={store.ledger.page_out_bytes} "
-            f"switches={store.ledger.switches}; launches {delta}")
-    launches = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
+            f"switches={store.ledger.switches}; launches {delta}, on the decode body {dec}")
+    launches = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches)
+                for n in KERNELS}
     if any(dispatch.COUNTERS[n].plain_launches for n in KERNELS):
         raise AssertionError("a plain version ran on the main path")
     if any(dispatch.COUNTERS[n].tc_launches for n in KERNELS):
@@ -428,10 +453,24 @@ def phase_serve(cfg):
     return engine, store, phases, launches
 
 
-def phase_profile(engine, store, cfg):
+K1_K3_BODIES = (("decode", ("stream_matmul_dec<",)), ("tensor_core", ("stream_matmul_tc<",)),
+                ("cuda_core", ("stream_matmul<",)), ("reduce_partials", ("reduce_partials",)))
+
+
+def k1_k3_split(dev):
+    """K1-K3 device ms and launches by body (and the CUDA-core body's
+    split-K pass) from profiler rows (device us, calls, kernel name)."""
+    return {body: {"device_ms": sum(t for t, _, k in dev if any(p in k for p in pats)) / 1e3,
+                   "calls": sum(c for _, c, k in dev if any(p in k for p in pats))}
+            for body, pats in K1_K3_BODIES}
+
+
+def phase_profile(engine, store, cfg, per_forward):
     """Where one generate call's time goes at the current rung: wall time
     (host clock, unprofiled), device busy time (torch.profiler's CUDA
-    kernel self times, profiled run) and the largest kernels."""
+    kernel self times, profiled run), K1-K3 by body and the largest
+    kernels.  Only the 32-row prefill's matmuls take the CUDA-core body,
+    so its split-K pass runs per_forward - 1 times and no more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -450,14 +489,19 @@ def phase_profile(engine, store, cfg):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                  reverse=True)
     busy_ms = sum(d[0] for d in dev) / 1e3
+    split = k1_k3_split(dev)
     out = {"rung": store.rung, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if busy_ms > 0 else None,
            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
+           "k1_k3": split,
            "top_kernels": [{"name": k[:90], "calls": c, "device_ms": t / 1e3}
                            for t, c, k in dev[:8]]}
     log(f"[profile] rung {store.rung} generate ({BATCH}x{NEW_TOKENS} tokens): wall "
         f"{wall_ms:.1f} ms, device busy "
-        f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms'}")
+        f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms'}; K1-K3 by body {split}")
+    if busy_ms > 0 and split["reduce_partials"]["calls"] != per_forward - 1:
+        raise AssertionError(f"short generate: {split['reduce_partials']['calls']} split-K "
+                             f"passes, want {per_forward - 1} (the 32-row prefill's)")
     for k in out["top_kernels"]:
         log(f"[profile]   {k['device_ms']:9.3f} ms  x{k['calls']:5d}  {k['name']}")
     return out
@@ -776,11 +820,14 @@ def phase_long_serve(cfg, store, per_forward):
 
     engine._kv_ingest = timed_kv_ingest
     dispatch.reset_counters()                      # this path starts here
-    # a bf16 prefill's packed_linears but the LM head (M = 2) take the tensor cores
+    # a bf16 prefill's packed_linears but the LM head (M = 2) take the tensor
+    # cores; the LM head and every decode step (M = 2) the decode body
     prefill_tc = per_forward - 1 if cfg.compute_dtype == "bfloat16" else 0
+    want_dec = per_forward * NEW_TOKENS + 1
     for phase, depth in enumerate(LONG_QUEUE):
         before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
         before_tc = {n: c.tc_launches for n, c in dispatch.COUNTERS.items()}
+        before_dec = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
         reqs = long_requests(phase, cfg.vocab_size)
         torch.cuda.synchronize()
         t0 = time.time()
@@ -796,11 +843,15 @@ def phase_long_serve(cfg, store, per_forward):
         if delta != want:
             raise AssertionError(f"long phase {phase}: launches {delta}, want {want}")
         # per body: the bf16 prefill's 196 on the tensor cores, the rest
-        # (decode steps, the LM head) on the CUDA cores
+        # (decode steps, the LM head) on the decode body
         tc = {n: c.tc_launches - before_tc[n] for n, c in dispatch.COUNTERS.items()}
         want_tc = {n: (prefill_tc if want[n][0] and n in KERNELS else 0) for n in tc}
         if tc != want_tc:
             raise AssertionError(f"long phase {phase}: tensor-core launches {tc}, want {want_tc}")
+        dec = {n: c.dec_launches - before_dec[n] for n, c in dispatch.COUNTERS.items()}
+        want_d = {n: (want_dec if want[n][0] and n in KERNELS else 0) for n in dec}
+        if dec != want_d:
+            raise AssertionError(f"long phase {phase}: decode-body launches {dec}, want {want_d}")
         for r in reqs:
             if len(r.out_tokens) != NEW_TOKENS or not all(0 <= t < cfg.vocab_size
                                                           for t in r.out_tokens):
@@ -810,15 +861,16 @@ def phase_long_serve(cfg, store, per_forward):
                        "wall_s": wall, "kv_ingest_s": ingest_s[-1],
                        "kv_pages": len(engine.kv.pages),
                        "kv_resident_bytes": engine.kv.resident_bytes(), "launches": delta,
-                       "tc_launches": tc,
+                       "tc_launches": tc, "dec_launches": dec,
                        "tokens": [r.out_tokens for r in reqs]})
         log(f"[long] phase {phase}: queue {depth} -> kv rung {engine.kv.rung}, weight rung "
             f"{rung}; {BATCH_LONG}x{PROMPT_LONG} prompt + {NEW_TOKENS} tokens in {wall:.3f}s "
             f"(_kv_ingest {ingest_s[-1]:.3f}s); "
             f"{len(engine.kv.pages)} pages, kv resident {engine.kv.resident_bytes()} B; "
-            f"launches {delta}, on the tensor cores {tc}")
+            f"launches {delta}, on the tensor cores {tc}, on the decode body {dec}")
     launches = {n: c.launches for n, c in dispatch.COUNTERS.items()}
     tc_launches = {n: c.tc_launches for n, c in dispatch.COUNTERS.items()}
+    dec_launches = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
     del engine._kv_ingest
     if len(ingest_s) != len(LONG_QUEUE):
         raise AssertionError(f"{len(ingest_s)} KV ingests in {len(LONG_QUEUE)} generates")
@@ -848,7 +900,8 @@ def phase_long_serve(cfg, store, per_forward):
         f"{render['k']:.3e} v {render['v']:.3e} (tol {RENDER_TOP_TOL})")
     return engine, dense, {"phases": phases, "kv_walk": walk, "kv_ledger": events,
                            "render_top_rel": render, "launches": launches,
-                           "tc_launches": tc_launches, "prefill_tc_launches": prefill_tc}
+                           "tc_launches": tc_launches, "dec_launches": dec_launches,
+                           "prefill_tc_launches": prefill_tc}
 
 
 def phase_long_f32(cfg, store):
@@ -881,7 +934,10 @@ def phase_long_f32(cfg, store):
 
 def phase_long_profile(engine, cfg):
     """Where one long generate call's time goes (rung 2, bf16): host wall
-    clock unprofiled, then device busy time by kernel under torch.profiler."""
+    clock unprofiled, then device busy time by kernel under torch.profiler.
+    In bf16 no K1-K3 launch of the path takes the CUDA-core body (so no
+    split-K pass runs): the prefill's on the tensor cores, the rest on the
+    decode body."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -898,13 +954,12 @@ def phase_long_profile(engine, cfg):
                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                  reverse=True)
     busy_ms = sum(d[0] for d in dev) / 1e3
-    body_ms = {body: sum(t for t, _, k in dev if any(p in k for p in pats)) / 1e3
-               for body, pats in (("tensor_core", ("stream_matmul_tc",)),
-                                  ("cuda_core", ("stream_matmul<", "reduce_partials")))}
+    split = k1_k3_split(dev)
+    body_ms = {body: v["device_ms"] for body, v in split.items()}
     out = {"kv_rung": engine.kv.rung, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if busy_ms > 0 else None,
            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
-           "k1_k3_device_ms": body_ms,
+           "k1_k3_device_ms": body_ms, "k1_k3_calls": {b: v["calls"] for b, v in split.items()},
            "top_kernels": [{"name": k[:90], "calls": c, "device_ms": t / 1e3}
                            for t, c, k in dev[:10]]}
     log(f"[long-profile] generate {BATCH_LONG}x{PROMPT_LONG} + {NEW_TOKENS}: wall "
@@ -913,6 +968,9 @@ def phase_long_profile(engine, cfg):
         f"by body {body_ms}")
     for k in out["top_kernels"]:
         log(f"[long-profile]   {k['device_ms']:9.3f} ms  x{k['calls']:5d}  {k['name']}")
+    if (busy_ms > 0 and cfg.compute_dtype == "bfloat16"
+            and (split["reduce_partials"]["calls"] or split["cuda_core"]["calls"])):
+        raise AssertionError(f"long generate: K1-K3 on the CUDA-core body {split}")
     return out
 
 
@@ -1029,10 +1087,24 @@ def prefill_summary(rows, name, tc_launches):
             "library_ms": None, "yardstick_dense_bf16_matmul_ms": tot("dense_bf16_matmul_ms")}
 
 
+def decode_steps(rows, M, dtype):
+    """One decode step (197 launches) per kernel at batch M in ``dtype``:
+    the decode body, the CUDA-core body and the dense bf16 yardstick."""
+    out = {}
+    for name in KERNELS:
+        sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
+        out[name] = {key: sum(r[key] * r["uses_per_forward"] for r in sel)
+                     for key in ("ms", "cuda_core_ms", "dense_bf16_matmul_ms", "bound_ms")}
+    return out
+
+
 def kernel_summary(rows, launches, tc_launches, M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
-    (every main-path shape times its uses per forward), with the long
-    prefill's tensor-core launches as its ``prefill`` entry."""
+    (every main-path shape times its uses per forward) on the decode body,
+    the same launches on the CUDA-core body beside it (``cuda_core_ms``);
+    ``launches`` the short serve's (all bodies), ``decode_launches`` those
+    on the decode body; the long prefill's tensor-core launches as its
+    ``prefill`` entry."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
@@ -1041,15 +1113,15 @@ def kernel_summary(rows, launches, tc_launches, M=4, dtype="bfloat16"):
         t_ops = sum(r["flops"] * r["uses_per_forward"] for r in sel) / 989e12 * 1e3
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[name][0], "decode_launches": launches[name][1],
             "max_abs_err": max(r["max_abs_err"] for r in sel),
-            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "ms": tot("ms"), "cuda_core_ms": tot("cuda_core_ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "yardstick_dense_bf16_matmul_ms": tot("dense_bf16_matmul_ms"),
             "per": f"one decode step: {sum(r['uses_per_forward'] for r in sel)} "
-                   f"launches at M={M} {dtype}",
+                   f"launches at M={M} {dtype}, decode body",
             "prefill": prefill_summary(rows, name, tc_launches[name])})
     return out
 
@@ -1115,7 +1187,7 @@ def main() -> int:
     rows = phase_kernels(cfg, gen)
     kv_rows = phase_kv_kernels(cfg, gen)
     engine, store, phases, launches = phase_serve(cfg)
-    profile_info = phase_profile(engine, store, cfg)
+    profile_info = phase_profile(engine, store, cfg, packed_linears_per_forward(store))
     reference = phase_reference(cfg, store, phases)
     del engine
     peak_before_long = torch.cuda.max_memory_allocated()
@@ -1136,12 +1208,18 @@ def main() -> int:
                    "nest_recompose": served_recompose["launches"]}
     kernels = (kernel_summary(rows, launches, long_info["tc_launches"])
                + kv_kernel_summary(kv_rows, kv_launches))
+    steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
+             for dt in ("bfloat16", "float32")}
+    for key, by in steps.items():
+        log(f"[decode-step] {key}: " + "; ".join(
+            f"{n} {v['ms']:.3f} ms (cuda-core {v['cuda_core_ms']:.3f}, dense bf16 "
+            f"{v['dense_bf16_matmul_ms']:.3f}, bound {v['bound_ms']:.3f})" for n, v in by.items()))
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
               "reference": reference, "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose,
-              "kernels": kernels,
+              "kernels": kernels, "decode_steps": steps,
               "peak_mem_bytes": max(peak_before_long, torch.cuda.max_memory_allocated()),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)
