@@ -299,7 +299,7 @@ def phase_kernels(cfg, gen):
                 xd = x.to(torch.bfloat16)
                 route = dispatch.matmul_route(M, dtype, x.device)
                 for name, (rung, _, _) in KERNELS.items():
-                    counter = dispatch.COUNTERS[name]
+                    counter = dispatch.counter(name)
                     call = kernel_call(name, nt, x, copies, out_dtype)
                     before = (counter.launches, counter.dec_launches)
                     got = call(0)

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the three weight matmuls of the
-// NestQuant serving path, two templated bodies (a CUDA-core one and a
-// tensor-core one), each instantiated for 1..4 packed word streams:
+// NestQuant serving path, three templated bodies (a decode one, a CUDA-core
+// one and a tensor-core one), each instantiated for 1..4 packed word
+// streams:
 //
 //   nq_packed_matmul  replaces repro/kernels/packed_matmul/kernel.py:48
 //                     packed_matmul (rung 0: the base stream alone)
@@ -16,16 +17,65 @@
 // TPU kernel does, products summed in f32, the scale applied once in the
 // epilogue.  f32 inputs use plain IEEE f32 FMAs (no TF32 anywhere).
 //
-// Words are unpacked BY INDEX in both bodies - element p of pack block b
+// Words are unpacked BY INDEX in every body - element p of pack block b
 // sits in row b * rows_pb + off_c + p mod R_c at bit (p div R_c) * w_c - in
 // uint32 arithmetic, so nothing depends on the TPU's tile shapes.  A body
 // walks the word rows r of the widest component (rmax per block, 32 / w_max
 // slots per word); every narrower component's word for the same elements
 // is its row r mod R_c.  The caller picks the body (kernels/dispatch.py
-// matmul_route: bf16 at M >= TC_MIN_M takes the tensor cores); nothing here
-// switches from one to the other.
+// matmul_route: M <= 8 the decode body, bf16 at M >= TC_MIN_M the tensor
+// cores, the rest the CUDA cores; the C entry points' `body` argument);
+// nothing here switches from one to another.
 //
-// CUDA-core body (stream_matmul; decode, short prefill, every f32 call).
+// Decode body (stream_matmul_dec; M <= 8, bf16 and f32).  Every packed word
+// is used for 2*M <= 16 flops, so the bound is the bytes of the words (4 /
+// 7 / 10 bits per weight at rungs 0 / 1 / 2 of an (8, 6, 4) ladder: 0.23 /
+// 0.40 / 0.58 ms per qwen2-1.5b decode step at 3.35 TB/s), and in practice
+// the integer instructions that unpack them: at the byte bound gate/up
+// leaves ~6 INT32 instructions per code (64 lanes per SM).  What the design
+// does about it:
+//   * each word is loaded and unpacked once per call, for all M rows: a
+//     CTA stages the x of its pack block (M <= 8 rows, f32, row-fastest, so
+//     one broadcast 16-byte read serves 4 rows), and accumulators and FMAs
+//     exist for MB in {1, 2, 4, 8} rows (a template; M 3 and 5..7 mask
+//     rows of zeros);
+//   * a unit is the widest component's rows r = rho + t * R_min (t <
+//     w_max / w_min) of one rho < R_min of a pack block; with them every
+//     narrower component's words for those rows (R_c / R_min of them) are
+//     copied once - not once per widest row they serve;
+//   * 16-byte cp.async copies, 32 lanes reading 512 contiguous bytes of a
+//     word row; 8- or 4-byte copies where N % 4 != 0 or a stream's base is
+//     not 16-byte aligned (the same body);
+//   * work items (one chunk of units x one column tile of 128, 64 or 32
+//     columns x one pack block), numbered block-major, split evenly over the
+//     CTAs: one CTA per item, or, with more than 4 items per resident CTA
+//     (the LM head), as many CTAs as fit the SMs at once, each walking its
+//     run with the words of the next item in flight (a 2-stage cp.async
+//     ring).  Narrow tiles spread k/v (N = 256) and q/o over the SMs;
+//   * the packed-field path (every stream's code fits w_max bits, codes <=
+//     9 bits or f32 x: the served (8, 6, 4) ladder): per row, each stream's
+//     components merge into one word holding its code for every slot, w_max
+//     bits apart; per slot and stream one LOP3 turns the low field into the
+//     f32 2^23 + code + 2^(b-1), one FADD into the signed code, and the
+//     chain recompose runs on exact f32 integers (FFMA, FMNMX; the upper
+//     clip of a compensated chain can never bind): 2 INT32 instructions per
+//     stream and code, the rest on the FP32 pipe.  Other ladders take the
+//     general path in the same body (codes assembled from their fields one
+//     column at a time, bf16 rounding of codes over 8 bits as code_as does);
+//   * one launch per matmul, deterministic: each run of items of one
+//     (block, tile) adds its rows in a fixed order (warp shuffles, then
+//     warps) into its own f32 partial slot; the run that brings the tile's
+//     arrival count (a per-tile int32 in a workspace the wrapper keeps, 0
+//     between launches) to all the tile's items adds every slot of the tile
+//     in (block, CTA) order, applies the scale, casts, and resets the count.
+//     No float atomics, no second pass.
+//   What still bounds it: the unpack and the 2*M FMAs per code issue at
+//   ~30-60 % of the SMs' rate (no ncu on the card's machine to say which
+//   stall), and short launches (k/v, q/o) pay a launch and one round trip
+//   to memory: 9-44 % of the byte bound (PERF.md).
+//
+// CUDA-core body (stream_matmul; bf16 at M 9-63, f32 above M 8; it was
+// written for decode, which the decode body now serves).
 // At decode (M = 1..8) every packed weight word is read once for 2*M flops
 // per weight, far below the card's ~295 flop/byte ridge, so the bound is
 // the bytes of the packed words: 4 / 7 / 10 bits per weight at rungs
@@ -83,8 +133,8 @@
 //
 // Limits (the Python wrappers check them first): 1..4 streams, every
 // bitwidth <= 16, pack block a multiple of 32 and <= 512; the tensor-core
-// body takes bf16 activations only and returns cudaErrorInvalidValue
-// otherwise.
+// body takes bf16 activations only, the decode body M <= 8, and each
+// returns cudaErrorInvalidValue otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,7 +179,7 @@ struct Args {
   const void* x;
   void* out;
   const float* scale;
-  float* partial;       // (nk, M, N) f32 split-K partial sums (nk > 1)
+  float* partial;       // CUDA cores: (nk, M, N) split-K sums; decode: per-run slots
   int M, N, K, block, nk;
   int rmax;             // word rows of the widest component in a block
   int slots;            // block / rmax: codes per word of that component
