@@ -69,10 +69,10 @@
 //     between launches) to all the tile's items adds every slot of the tile
 //     in (block, CTA) order, applies the scale, casts, and resets the count.
 //     No float atomics, no second pass.
-//   What still bounds it: the unpack and the 2*M FMAs per code issue at
-//   ~30-60 % of the SMs' rate (no ncu on the card's machine to say which
+//   What still bounds it: the unpack and the 2*M FMAs per code issue at a
+//   fraction of the SMs' rate (no ncu on the card's machine to say which
 //   stall), and short launches (k/v, q/o) pay a launch and one round trip
-//   to memory: 9-44 % of the byte bound (PERF.md).
+//   to memory: 2-23 % of the byte bound per shape at M = 4 (PERF.md).
 //
 // CUDA-core body (stream_matmul; bf16 at M 9-63, f32 above M 8; it was
 // written for decode, which the decode body now serves).
@@ -162,9 +162,10 @@ struct Stream {
   int R[kMaxComps];     // word rows of each component within a block
   int off[kMaxComps];   // first row of each component within a block
   int q[kMaxComps];     // rmax / R[c]
+  int cs[kMaxComps];    // bit position of each component in the stream's code
+                        // (tensor-core and decode routes)
   // tensor-core route only
   int first;            // index of component 0 among every stream's components
-  int cs[kMaxComps];    // bit position of each component in the stream's code
   int rdiv[kMaxComps];  // ceil(2^20 / R[c]): r / R[c] == (r * rdiv) >> 20, r < 512
   // decode route only
   int glog[kMaxComps];  // log2(R[c] / R_min): word rows of this component per unit
@@ -842,7 +843,7 @@ __device__ __forceinline__ void dec_row(const Args& a, const uint32_t* wb, const
 // order (deterministic whoever arrives last), scales, casts and resets
 // the tile's counter.  Thread i owns the 4 columns of quad i mod (bn / 4)
 // and takes every (1024 / bn)-th widest-component row of a chunk.
-__host__ __device__ __forceinline__ int dec_owner(long item, long W, long P) {
+__device__ __forceinline__ int dec_owner(long item, long W, long P) {
   return static_cast<int>(((item + 1) * P - 1) / W);  // the CTA whose run holds item
 }
 
@@ -860,8 +861,10 @@ struct DecItem {
   }
 };
 
+// (8 rows: at most 80 registers, 3 CTAs per SM; measured faster at M = 8
+// and slower at M <= 4, where the body keeps its registers)
 template <int NS, int MB>
-__global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
+__global__ void __launch_bounds__(kDecThreads, MB == 8 ? 3 : 1) stream_matmul_dec(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 1 << a.g_log;
   const int bn = 1 << a.bn_log;
