@@ -861,10 +861,8 @@ struct DecItem {
   }
 };
 
-// (8 rows: at most 80 registers, 3 CTAs per SM; measured faster at M = 8
-// and slower at M <= 4, where the body keeps its registers)
 template <int NS, int MB>
-__global__ void __launch_bounds__(kDecThreads, MB == 8 ? 3 : 1) stream_matmul_dec(const Args a) {
+__global__ void __launch_bounds__(kDecThreads) stream_matmul_dec(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = 1 << a.g_log;
   const int bn = 1 << a.bn_log;
