@@ -69,9 +69,9 @@
 //     between launches) to all the tile's items adds every slot of the tile
 //     in (block, CTA) order, applies the scale, casts, and resets the count.
 //     No float atomics, no second pass.
-//   What still bounds it: the unpack and the 2*M FMAs per code issue at a
-//   fraction of the SMs' rate (no ncu on the card's machine to say which
-//   stall), and short launches (k/v, q/o) pay a launch and one round trip
+//   What still bounds it: the unpack and the 2*M FMAs per code run at a
+//   fraction of the SMs' instruction rate (no ncu on the card's machine to
+//   say which stall), and short launches (k/v, q/o) pay a launch and one round trip
 //   to memory: 2-23 % of the byte bound per shape at M = 4 (PERF.md).
 //
 // CUDA-core body (stream_matmul; bf16 at M 9-63, f32 above M 8; it was
