@@ -35,11 +35,15 @@ Phases (each raises on failure; the script then exits non-zero):
    with greedy tokens identical; the bf16 kernel path's prefill logits
    within 3e-2 of it and of the plain bf16 pass.  What a kernel that
    drops one delta stream would read is printed beside them.
-4. Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
-   (3, 5, 6, 8), M = 6 and 48), K5 flash_attention (S 1100, 2048, 4096,
-   bf16 within 2e-2 and f32 within 1e-4, both of max |o| and of every
-   output row's own norm) and K6 nest_recompose
-   (bit for bit, (n, h) (6, 4), (8, 6), (8, 4) on every weight shape)
+4. Time the launch floor (a one-element ``zero_()`` under CUDA-graph
+   replay).  Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
+   (3, 5, 6, 8), M = 6 and 48; every row beside a control with the same
+   streams and the query codes pushed out of int8 range, which takes K4's
+   CUDA-core path instead of its int8 tensor cores), K5 flash_attention
+   (S 1100, 2048, 4096, bf16 within 2e-2 and f32 within 1e-4, both of max
+   |o| and of every output row's own norm) and K6 nest_recompose (bit for
+   bit, (n, h) (6, 4), (8, 6), (8, 4) on every weight shape; the page-in of
+   the whole tree at (6, 4) is the sum over shapes times their uses)
    against their plain versions at the long-context path's shapes, timed
    like K1-K3; ``scaled_dot_product_attention`` is timed beside K5 as its
    library yardstick (the port never calls it).
@@ -120,6 +124,10 @@ KV_KERNELS = {  # name -> (source, TPU kernel it replaces)
 }
 # K4's codes are <= 8 bits, so the card's peak for its products is int8's
 PEAK_INT8_OPS = 1979e12
+# one page-in of the tree at (6, 4) on the one-thread-per-code K6 body it
+# replaces (PERF.md section 6, H100 80GB HBM3 at 700 W): printed beside
+# this run's total, never used as a measurement of this run
+K6_TREE_MS_BEFORE = 15.35
 SERVE_SCHEDULE = (2, 0, 1, 2)
 DEVICE = "cuda"
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 8, 8, 64
@@ -660,6 +668,12 @@ def phase_kv_kernels(cfg, gen):
     from repro_torch.kernels.nested_attention import ops as qk
 
     rows = []
+    z = torch.zeros(1, device=DEVICE)
+    floor_ms = time_graph_ms(lambda i: z.zero_(), 50)
+    log(f"[kv-kernels] launch floor (one-element zero_(), CUDA-graph replay): "
+        f"{floor_ms * 1e3:.3f} us")
+    rows.append(_row("launch_floor", "zeros(1).zero_()", 0, "float32", 0.0, floor_ms, None, 8,
+                     0.0, PEAK_FLOPS[torch.float32], None))
     BH, D, S = BATCH_LONG * cfg.num_kv_heads, cfg.head_dim, PROMPT_LONG
     x = torch.randn(BH, S, D, generator=gen, device=DEVICE)
     for bits in ((4, 6, 8), (3, 5, 6, 8)):
@@ -679,10 +693,19 @@ def phase_kv_kernels(cfg, gen):
                 with dispatch.reference_pass():
                     plain_ms = time_ms(lambda i: qk.ladder_qk_scores(qc, st, bits=res,
                                                                      page=KV_PAGE), 3)
+                # the control: query codes out of int8 range take the CUDA cores
+                qw = qc * 256
+                got = qk.ladder_qk_scores(qw, st, bits=res, page=KV_PAGE)
+                with dispatch.reference_pass():
+                    want = qk.ladder_qk_scores(qw, st, bits=res, page=KV_PAGE)
+                _check_exact("nested_qk", got, want, f"bits {bits} rung {rung} M={M} control")
+                cc_ms = time_graph_ms(lambda i: qk.ladder_qk_scores(
+                    qw, copies[i % len(copies)], bits=res, page=KV_PAGE), 20)
                 ops = 2.0 * BH * M * S * D
                 rows.append(_row("nested_qk", f"bits {bits} rung {rung}", M, "int32",
                                  0.0, ms, plain_ms, nbytes, ops, PEAK_INT8_OPS, None,
-                                 BH=BH, S=S, D=D, page=KV_PAGE, rung=rung, bits=list(bits)))
+                                 cuda_core_ms=cc_ms, BH=BH, S=S, D=D, page=KV_PAGE, rung=rung,
+                                 bits=list(bits)))
         del streams
     B, Hq, Hkv, hd = BATCH_LONG, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for S in (1100, PROMPT_LONG, 2 * PROMPT_LONG):
@@ -758,10 +781,19 @@ def phase_kv_kernels(cfg, gen):
         del w
         torch.cuda.empty_cache()
     for r in rows:
+        if r["kernel"] == "launch_floor":
+            continue
         log(f"[kernel] {r['kernel']:15s} {r['shape']:22s} {r['dtype']:8s} M={r['M']:<4d} "
             f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"bound={r['bound_ms']:.4f} ({r['bound_by']}) library="
-            f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}")
+            f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
+            + (f" cuda-core={r['cuda_core_ms']:.4f}" if "cuda_core_ms" in r else ""))
+    tree = [r for r in rows if r["kernel"] == "nest_recompose" and (r["n"], r["h"]) == (6, 4)]
+    log(f"[kv-kernels] K6 page-in of the tree at (6, 4): "
+        f"{sum(r['ms'] * r['uses_per_tree'] for r in tree):.4f} ms over "
+        f"{sum(r['uses_per_tree'] for r in tree)} launches (bound "
+        f"{sum(r['bound_ms'] * r['uses_per_tree'] for r in tree):.4f} ms; "
+        f"{K6_TREE_MS_BEFORE} ms on the one-thread-per-code body it replaces)")
     return rows
 
 
@@ -1133,6 +1165,7 @@ def kv_kernel_summary(rows, launches):
     per layer), K6 one page-in of every weight slice of the tree at
     (n, h) = (6, 4)."""
     decode_m = min(r["M"] for r in rows if r["kernel"] == "nested_qk")
+    floor_ms = next(r["ms"] for r in rows if r["kernel"] == "launch_floor")
     pick = {
         "nested_qk": [r for r in rows if r["kernel"] == "nested_qk" and r["bits"] == [4, 6, 8]
                       and r["rung"] == 2 and r["M"] == decode_m],
@@ -1162,6 +1195,8 @@ def kv_kernel_summary(rows, launches):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": sel[0]["library_ms"] if name == "flash_attention" else None,
             "per": per[name]})
+        if name == "nested_qk":          # the CUDA-core control and the launch floor
+            out[-1].update(cuda_core_ms=tot("cuda_core_ms"), launch_floor_ms=floor_ms)
     return out
 
 

@@ -9,29 +9,53 @@
 // the base stream and 0..3 delta streams, each block-packed along the
 // POSITION axis with block = page, unpacked and chain-recomposed exactly as
 // repro/core/decompose.py chain_recompose does (codes = clip(codes * 2^gap
-// + delta) per level).  Products and sums are taken in uint32, which wraps
-// exactly as the reference's int32 dot_general does, and reinterpreted.
-// The caller applies the scales, the rung shift and the softmax.
+// + delta) per level).  The caller applies the scales, the rung shift and
+// the softmax.
 //
 // What bounds it: every packed K word is read once and every score written
 // once, for 2 * M operations per K code; at decode (M = G = 6 query heads
 // per kv head) that is a few operations per byte, so the bound is the
-// bytes: the packed streams, the int32 queries and the int32 scores.  The
-// design:
-//   * one CTA of 256 threads per (32 positions, bh).  The CTA first
-//     unpacks the 32 x D codes of its positions by index - element p of
-//     page g sits, per power-of-two component c of width w, in word row
-//     g * rows_pb + off_c + p mod R_c at bit (p div R_c) * w - with the
-//     32 threads of a warp on 32 neighbouring d, so every word-row read is
-//     one coalesced line.  Any page >= 1 works, including pages that
-//     leave a word row partly used (page 16, a 1-bit component);
-//   * the recomposed codes and a 32-row slice of the queries live in
-//     shared memory as int32 (code rows padded by one word so the lanes of
-//     a warp, one position each, read distinct banks);
-//   * each warp produces one query row at a time for the 32 positions, one
-//     per lane, so the score stores are coalesced.  Integer CUDA-core
-//     multiply-adds; the int8 tensor cores (valid only while every
-//     resident bitwidth is <= 8) come later.
+// bytes: the packed streams, the int32 queries and the int32 scores.  At
+// the served shape (BH 4, S 2048, D 128) those bytes take ~0.5 us, below
+// the cost of one launch, so what a launch pays for is its chain of
+// latencies: the copies' round trip, the decode, the contraction and the
+// stores, one after another in every CTA.  The design shortens the chain
+// and runs many short CTAs side by side.
+//
+// The design: one CTA of 256 threads per (bh, run of positions <= 64).
+//   * Sizing.  Where a page has <= 64 positions and its words fit, the CTA
+//     owns a run of whole pages: >= 16 positions, and more only while the
+//     grid keeps 4 CTAs per SM (the served launch: one page, 512 CTAs, one
+//     wave at <= 64 registers).  Larger pages take 64-position runs of one
+//     page and read their words from device memory directly (4-byte loads,
+//     the same decode).
+//   * Staging.  A run of whole pages is one contiguous chunk of word rows
+//     per stream: the CTA copies each chunk, and its query rows, into
+//     shared memory with 16-byte cp.async (4-byte copies where D % 4 != 0
+//     or a view is misaligned), so every word leaves device memory once.
+//   * Decode.  Element p of page g sits, per power-of-two component c of
+//     width w, in word row g * rows_pb + off_c + p mod R_c at bit (p div
+//     R_c) * w.  While the copies fly the CTA tabulates, per (stream,
+//     component, position), the staged row and the rotate that brings the
+//     field to its place in the code (a float-reciprocal divide per table
+//     entry, none per code).  A thread item is 8 d of one position: per
+//     component two 16-byte shared-memory reads, a rotate and a masked OR
+//     per code; per stream a sign extension and the chain step clip(code *
+//     2^gap + delta) (only the lower clip can bind).  The kernel is
+//     instantiated per resident stream count (1-4), so the stream loop is
+//     unrolled and the component loop runs over the stream's own
+//     components.  Codes go to a (64, D) int16 tile.
+//   * Contraction, by a uniform choice per CTA and query chunk of <= 64 rows:
+//     - the int8 tensor cores (mma.sync m16n8k32 s8 x s8 -> s32) when every
+//       resident bitwidth is <= 8 and every query code of the chunk lies in
+//       [-128, 127] (__syncthreads_or over the pass that also packs the
+//       queries to int8): queries are A (rows padded to 16, D to 32 with
+//       zeros), the code tile B (its low bytes); warps take (8-position,
+//       16-row) tiles.  Exact: |sum| <= 256 * 128 * 128 < 2^31;
+//     - otherwise the CUDA cores, int32 multiply-adds in uint32 (which wrap
+//       exactly as the reference's int32 dot_general) over the same tile,
+//       each thread one position and every G-th query row (G = 256 / the
+//       CTA's positions), so every warp works at any M.
 //
 // Limits (the Python wrapper checks them first): 1..4 resident streams,
 // ascending bitwidths <= 16, any page >= 1, D <= 256.
@@ -39,34 +63,48 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kMaxStreams = 4;
 constexpr int kMaxComps = 5;   // a <= 16-bit field splits into <= 5 parts
-constexpr int kTP = 32;        // positions per CTA
-constexpr int kTM = 32;        // query rows staged at a time
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kTP = 64;        // positions per CTA: 8 n-tiles of 8, one per warp
+constexpr int kTM = 64;        // query rows per chunk: 4 m-tiles of 16
 constexpr int kMaxD = 256;
+constexpr int kStageBytes = 64 * 1024;   // staged words per CTA, at most
+constexpr int kSMs = 132;                // H100 SXM
 
 struct Stream {
-  const uint32_t* words;  // (BH, npages * rows_pb, D)
-  int rows_pb;            // word rows one page of this stream holds
+  const uint32_t* words;       // (BH, npages * rows_pb, D)
+  int rows_pb;                 // word rows one page of this stream holds
   int code_bits;
   int ncomp;
-  int w[kMaxComps];       // component widths, widest first
-  int R[kMaxComps];       // word rows of each component within a page
-  int off[kMaxComps];     // first row of each component within a page
+  int w[kMaxComps];            // component widths, widest first
+  int R[kMaxComps];            // word rows of each component within a page
+  int off[kMaxComps];          // first row of each component within a page
+  int cs[kMaxComps];           // bit of the code where the component starts
+  uint32_t mask[kMaxComps];    // (2^w - 1) << cs
+  int soff;                    // staged: first word of this stream's chunk
+  int vec;                     // staged: 16-byte copies
 };
 
 struct Args {
-  const int32_t* q;       // (BH, M, D)
-  int32_t* out;           // (BH, M, S)
-  int BH, M, D, S, page, ns;
+  const int32_t* q;            // (BH, M, D)
+  int32_t* out;                // (BH, M, S)
+  int BH, M, D, S, page, npages, ns;
+  int Dw;                      // D rounded up to 4: staged row stride, words
+  int Dp;                      // D rounded up to 32: tensor-core depth
+  int staged;                  // 1: whole pages staged in shared memory
+  int ppc;                     // staged: pages per CTA
+  int cpp;                     // direct: 64-position runs per page
+  int tc;                      // every resident bitwidth <= 8
+  int qvec;                    // queries: 16-byte copies
+  int tab_bytes, tile_bytes, stage_bytes, q32_bytes;  // shared-memory carve-up
   Stream s[kMaxStreams];
-  int gap[kMaxStreams];   // level i >= 1: codes = clip(codes * 2^gap + delta)
+  int gap[kMaxStreams];        // level i >= 1: codes = clip(codes * 2^gap + delta)
   int lo[kMaxStreams];
-  int hi[kMaxStreams];
 };
 
 int split_components(int k, int* w) {
@@ -77,75 +115,302 @@ int split_components(int k, int* w) {
   return n;
 }
 
-// The code of position j (page g, offset p) at column d of one stream.
-__device__ __forceinline__ int unpack(const Stream& st, size_t bh_rows, int g, int p,
-                                      int d, int D) {
-  uint32_t u = 0u;
-  int cs = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxComps; ++c) {
-    if (c < st.ncomp) {
-      const int R = st.R[c];
-      const size_t row = bh_rows + static_cast<size_t>(g) * st.rows_pb + st.off[c] + p % R;
-      const uint32_t word = __ldg(st.words + row * D + d);
-      const int w = st.w[c];
-      const uint32_t mask = (w == 32) ? 0xffffffffu : ((1u << w) - 1u);
-      u |= ((word >> ((p / R) * w)) & mask) << cs;
-      cs += w;
-    }
-  }
-  int v = static_cast<int>(u);
-  if (v >= (1 << (st.code_bits - 1))) v -= (1 << st.code_bits);
-  return v;
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// x / d for 0 <= x < 2^16, d >= 1: a float reciprocal and one correction
+// each way (the table's divides; no integer divide loop)
+__device__ __forceinline__ int div_small(int x, int d) {
+  int q = __float2int_rz(__int2float_rn(x) * __frcp_rn(__int2float_rn(d)));
+  q += (q + 1) * d <= x;
+  q -= q * d > x;
+  return q;
 }
 
-__global__ void __launch_bounds__(kThreads) nested_qk(const Args a) {
-  extern __shared__ int32_t sm[];
-  int32_t* kc = sm;                       // (kTP, D + 1) recomposed K codes
-  int32_t* qs = kc + kTP * (a.D + 1);     // (kTM, D) query codes
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * kTP;
-  const int npages = (a.S + a.page - 1) / a.page;
+// int16 code tile row stride, elements: 2 * Dp + 40 bytes is an odd multiple
+// of 8 modulo 128, so 16 neighbouring positions read distinct bank pairs
+// (the CUDA-core path) and a B fragment's 8 x 4 lanes need <= 3 wavefronts
+__host__ __device__ constexpr int tile_stride(int Dp) { return Dp + 20; }
 
-  for (int i = threadIdx.x; i < kTP * a.D; i += kThreads) {
-    const int jl = i / a.D;
-    const int d = i - jl * a.D;
-    const int j = j0 + jl;
-    int code = 0;
-    if (j < a.S) {
-      const int g = j / a.page;
-      const int p = j - g * a.page;
-      for (int s = 0; s < a.ns; ++s) {
-        const size_t bh_rows = static_cast<size_t>(bh) * npages * a.s[s].rows_pb;
-        const int v = unpack(a.s[s], bh_rows, g, p, d, a.D);
-        code = (s == 0) ? v : min(max(code * (1 << a.gap[s]) + v, a.lo[s]), a.hi[s]);
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [m0, m0 + rows) of the queries of bh -> q32 (rows, Dw) int32
+__device__ __forceinline__ void stage_queries(const Args& a, int32_t* q32, int bh, int m0,
+                                              int rows) {
+  const int32_t* src = a.q + (static_cast<size_t>(bh) * a.M + m0) * a.D;
+  if (a.qvec) {
+    for (int i = threadIdx.x; i < rows * a.D / 4; i += kThreads) {
+      nq_tc::cp_async<16>(nq_tc::smem_u32(q32 + 4 * i), src + 4 * i, true);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * a.D; i += kThreads) {
+      const int r = i / a.D;
+      nq_tc::cp_async<4>(nq_tc::smem_u32(q32 + r * a.Dw + (i - r * a.D)), src + i, true);
+    }
+  }
+}
+
+// The words of one component for 8 d of a position: quads qd and qd2 (qd2
+// only where ``two``)
+template <bool STAGED>
+__device__ __forceinline__ void load8(uint32_t (&w)[8], const Args& a, const Stream& st,
+                                      const uint32_t* stage, int2 t, int bh, int qd, int qd2,
+                                      bool two) {
+  if constexpr (STAGED) {
+    const uint4 v0 = *reinterpret_cast<const uint4*>(stage + t.x + 4 * qd);
+    const uint4 v1 = two ? *reinterpret_cast<const uint4*>(stage + t.x + 4 * qd2)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = v0.x; w[1] = v0.y; w[2] = v0.z; w[3] = v0.w;
+    w[4] = v1.x; w[5] = v1.y; w[6] = v1.z; w[7] = v1.w;
+  } else {
+    const uint32_t* src = st.words + (static_cast<size_t>(bh) * a.npages * st.rows_pb + t.x) * a.D;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int d = 4 * (e < 4 ? qd : qd2) + (e & 3);
+      w[e] = (d < a.D && (e < 4 || two)) ? __ldg(src + d) : 0u;
+    }
+  }
+}
+
+// Codes of the CTA's positions -> the int16 tile.  A thread item is 8 d of
+// one position (quads qd and qd + nh); the stream loop is unrolled (NS is a
+// template argument), the component loop runs over the stream's own
+// components only.
+template <bool STAGED, int NS>
+__device__ __forceinline__ void decode(const Args& a, const int2* tab, const uint32_t* stage,
+                                       int16_t* tile, int bh, int TPc) {
+  const int nq = a.Dw >> 2;
+  const int nh = (nq + 1) >> 1;
+  const int total = TPc * nh;
+  const int ts = tile_stride(a.Dp);
+  int pl = threadIdx.x / nh;
+  int qd = threadIdx.x - pl * nh;
+  const int dpl = kThreads / nh, dqd = kThreads - dpl * nh;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int qd2 = qd + nh;
+    const bool two = qd2 < nq;
+    int code[8];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const Stream& st = a.s[s];
+      uint32_t u[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+      const int2* te = tab + s * kMaxComps * kTP + pl;
+#pragma unroll 1
+      for (int c = 0; c < st.ncomp; ++c, te += kTP) {
+        const int2 t = *te;
+        const uint32_t mask = st.mask[c];
+        uint32_t w[8];
+        load8<STAGED>(w, a, st, stage, t, bh, qd, qd2, two);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) u[e] |= __funnelshift_r(w[e], w[e], t.y) & mask;
+      }
+      const int sh = 32 - st.code_bits;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int v = static_cast<int>(u[e] << sh) >> sh;
+        code[e] = (s == 0) ? v : max(code[e] * (1 << a.gap[s]) + v, a.lo[s]);
       }
     }
-    kc[jl * (a.D + 1) + d] = code;
+    uint32_t c16[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int d = 4 * (h < 2 ? qd : qd2) + 2 * (h & 1);
+      c16[h] = (d < a.D ? static_cast<uint32_t>(code[2 * h]) & 0xffffu : 0u)
+               | (d + 1 < a.D ? static_cast<uint32_t>(code[2 * h + 1]) << 16 : 0u);
+    }
+    int16_t* row = tile + pl * ts;
+    *reinterpret_cast<uint2*>(row + 4 * qd) = make_uint2(c16[0], c16[1]);
+    if (two) *reinterpret_cast<uint2*>(row + 4 * qd2) = make_uint2(c16[2], c16[3]);
+    pl += dpl;
+    qd += dqd;
+    if (qd >= nh) {
+      qd -= nh;
+      ++pl;
+    }
   }
+}
+
+// <= 64 registers: 4 CTAs per SM, so the served launch (512 CTAs) is one wave
+template <int NS>
+__global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* tab = reinterpret_cast<int2*>(smem);
+  int16_t* tile = reinterpret_cast<int16_t*>(smem + a.tab_bytes);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(smem + a.tab_bytes + a.tile_bytes);
+  int32_t* q32 = reinterpret_cast<int32_t*>(smem + a.tab_bytes + a.tile_bytes + a.stage_bytes);
+  int8_t* q8 = reinterpret_cast<int8_t*>(smem + a.tab_bytes + a.tile_bytes + a.stage_bytes +
+                                         a.q32_bytes);
+  const int bh = blockIdx.y;
+
+  // the CTA's positions [j0, j0 + TPc): whole pages g0.. when staged
+  int j0, TPc, g0 = 0;
+  if (a.staged) {
+    g0 = blockIdx.x * a.ppc;
+    const int np = min(a.ppc, a.npages - g0);
+    j0 = g0 * a.page;
+    TPc = np * a.page;
+    for (int s = 0; s < a.ns; ++s) {
+      const Stream& st = a.s[s];
+      const uint32_t* src = st.words
+          + (static_cast<size_t>(bh) * a.npages + g0) * st.rows_pb * a.D;
+      uint32_t* dst = stage + st.soff;
+      const int n = np * st.rows_pb * a.D;
+      if (st.vec) {
+        for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+          nq_tc::cp_async<16>(nq_tc::smem_u32(dst + 4 * i), src + 4 * i, true);
+        }
+      } else {
+        for (int i = threadIdx.x; i < n; i += kThreads) {
+          const int r = i / a.D;
+          nq_tc::cp_async<4>(nq_tc::smem_u32(dst + r * a.Dw + (i - r * a.D)), src + i, true);
+        }
+      }
+    }
+  } else {
+    const int g = blockIdx.x / a.cpp;
+    const int part = blockIdx.x - g * a.cpp;
+    j0 = g * a.page + part * kTP;
+    TPc = min(kTP, a.page - part * kTP);
+  }
+  stage_queries(a, q32, bh, 0, min(a.M, kTM));
+  nq_tc::cp_async_commit();
+
+  // (stream, component, position) -> staged word offset (direct: word row)
+  // and the rotate that moves the field to bit cs of the code
+  const int gq = a.staged ? 0 : j0 / a.page;      // direct: the CTA's page
+  for (int i = threadIdx.x; i < a.ns * kMaxComps * TPc; i += kThreads) {
+    const int e = div_small(i, TPc);               // stream * kMaxComps + component
+    const int pl = i - e * TPc;
+    const int s = e / kMaxComps;
+    const int c = e - s * kMaxComps;
+    const Stream& st = a.s[s];
+    if (c < st.ncomp) {
+      int tab_off, p, R = st.R[c];
+      if (a.staged) {                              // pl < 64: cheap divides
+        const int gl = div_small(pl, a.page);
+        p = pl - gl * a.page;
+        const int qr = div_small(p, R);
+        tab_off = st.soff + (gl * st.rows_pb + st.off[c] + p - qr * R) * a.Dw;
+        p = qr;
+      } else {
+        const int pp = j0 - gq * a.page + pl;
+        tab_off = gq * st.rows_pb + st.off[c] + pp % R;
+        p = pp / R;
+      }
+      tab[e * kTP + pl] = make_int2(tab_off, (p * st.w[c] - st.cs[c]) & 31);
+    }
+  }
+  nq_tc::cp_async_wait_all();
+  __syncthreads();
+  if (a.staged) decode<true, NS>(a, tab, stage, tile, bh, TPc);
+  else decode<false, NS>(a, tab, stage, tile, bh, TPc);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int j = j0 + lane;
+  const int ts = tile_stride(a.Dp);
+  const int qs = a.Dp + 16;             // int8 query row stride, bytes
+  const int nq8 = a.Dp >> 2;            // int8 query quads per row
+  const int rq = threadIdx.x / nq8, qq = threadIdx.x - rq * nq8;
+  const int rstep = kThreads / nq8;     // nq8 <= 64, so rstep >= 4
   for (int m0 = 0; m0 < a.M; m0 += kTM) {
-    __syncthreads();                      // codes written / previous q slice read
     const int rows = min(kTM, a.M - m0);
-    for (int i = threadIdx.x; i < rows * a.D; i += kThreads) {
-      qs[i] = a.q[(static_cast<size_t>(bh) * a.M + m0) * a.D + i];
+    const int mtiles = (rows + 15) >> 4;
+    if (m0 > 0) {
+      __syncthreads();                  // the previous chunk's queries are read
+      stage_queries(a, q32, bh, m0, rows);
+      nq_tc::cp_async_commit();
+      nq_tc::cp_async_wait_all();
+      __syncthreads();
     }
-    __syncthreads();
-    for (int r = warp; r < rows; r += kWarps) {
-      uint32_t acc = 0u;
-      const int32_t* qr = qs + r * a.D;
-      const int32_t* kr = kc + lane * (a.D + 1);
-      for (int d = 0; d < a.D; ++d) {
-        acc += static_cast<uint32_t>(qr[d]) * static_cast<uint32_t>(kr[d]);
+    // one pass: range check, and the int8 A tile (zero padded) for the tensor cores
+    int wide = 0;
+    if (a.tc) {
+      for (int r = rq; r < mtiles * 16 && qq < nq8; r += rstep) {
+        const int d0 = 4 * qq;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (r < rows && d0 < a.D) v = *reinterpret_cast<const int4*>(q32 + r * a.Dw + d0);
+        const int e[4] = {v.x, d0 + 1 < a.D ? v.y : 0, d0 + 2 < a.D ? v.z : 0,
+                          d0 + 3 < a.D ? v.w : 0};
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          wide |= e[k] < -128 || e[k] > 127;
+          packed |= (static_cast<uint32_t>(e[k]) & 0xffu) << (8 * k);
+        }
+        *reinterpret_cast<uint32_t*>(q8 + r * qs + d0) = packed;
       }
-      if (j < a.S) {
-        a.out[(static_cast<size_t>(bh) * a.M + m0 + r) * a.S + j] = static_cast<int32_t>(acc);
+    }
+    // the barrier after the decode and the query pass, taken by every CTA
+    // (not short-circuited by a.tc); the choice is uniform per CTA and chunk
+    const bool wide_any = __syncthreads_or(wide);
+    const bool tc = a.tc && !wide_any;
+    if (tc) {
+      // int8 tensor cores: warp tasks (8-position n-tile, 16-row m-tile)
+      const int g = lane >> 2, t = lane & 3;
+      const int ntiles = (TPc + 7) >> 3;
+      for (int task = warp; task < ntiles * mtiles; task += kThreads / 32) {
+        const int mt = task / ntiles;
+        const int n0 = 8 * (task - mt * ntiles);
+        const int16_t* brow = tile + (n0 + g) * ts;
+        const int8_t* arow = q8 + (mt * 16 + g) * qs;
+        int acc[4] = {0, 0, 0, 0};
+        for (int k0 = 0; k0 < a.Dp; k0 += 32) {
+          uint32_t af[4];
+          af[0] = *reinterpret_cast<const uint32_t*>(arow + k0 + 4 * t);
+          af[1] = *reinterpret_cast<const uint32_t*>(arow + 8 * qs + k0 + 4 * t);
+          af[2] = *reinterpret_cast<const uint32_t*>(arow + k0 + 16 + 4 * t);
+          af[3] = *reinterpret_cast<const uint32_t*>(arow + 8 * qs + k0 + 16 + 4 * t);
+          const uint2 b0 = *reinterpret_cast<const uint2*>(brow + k0 + 4 * t);
+          const uint2 b1 = *reinterpret_cast<const uint2*>(brow + k0 + 16 + 4 * t);
+          mma_s8(acc, af, __byte_perm(b0.x, b0.y, 0x6420), __byte_perm(b1.x, b1.y, 0x6420));
+        }
+        const int pos = n0 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 16 + g + 8 * h;
+          if (m < rows) {
+            int32_t* o = a.out + (static_cast<size_t>(bh) * a.M + m0 + m) * a.S + j0 + pos;
+            if (pos < TPc) o[0] = acc[2 * h];
+            if (pos + 1 < TPc) o[1] = acc[2 * h + 1];
+          }
+        }
+      }
+    } else {
+      // CUDA cores: thread = one position and the query rows mg, mg + G, ...
+      const int pl = threadIdx.x % TPc;
+      const int G = kThreads / TPc;     // >= 4 row groups
+      const int16_t* crow = tile + pl * ts;
+      for (int m = threadIdx.x / TPc; m < rows && threadIdx.x < G * TPc; m += G) {
+        uint32_t acc = 0u;
+        const int32_t* qr = q32 + m * a.Dw;
+        for (int d0 = 0; d0 < a.Dw; d0 += 4) {
+          // columns d >= D hold code 0 (the staged query there is unset)
+          const uint2 cw = *reinterpret_cast<const uint2*>(crow + d0);
+          const int4 qv = *reinterpret_cast<const int4*>(qr + d0);
+          acc += static_cast<uint32_t>(qv.x) * static_cast<uint32_t>(static_cast<int>(cw.x << 16) >> 16)
+                 + static_cast<uint32_t>(qv.y) * static_cast<uint32_t>(static_cast<int>(cw.x) >> 16)
+                 + static_cast<uint32_t>(qv.z) * static_cast<uint32_t>(static_cast<int>(cw.y << 16) >> 16)
+                 + static_cast<uint32_t>(qv.w) * static_cast<uint32_t>(static_cast<int>(cw.y) >> 16);
+        }
+        a.out[(static_cast<size_t>(bh) * a.M + m0 + m) * a.S + j0 + pl] = static_cast<int32_t>(acc);
       }
     }
   }
+}
+
+size_t smem_bytes(int ns, int Dp, int stage_bytes, int q_rows, int Dw, int* tab, int* tile,
+                  int* q32) {
+  *tab = round_up(ns * kMaxComps * kTP * 8, 16);
+  *tile = round_up(kTP * tile_stride(Dp) * 2, 16);
+  *q32 = round_up(q_rows * Dw * 4, 16);
+  const int q8 = round_up((q_rows + 15) / 16 * 16 * (Dp + 16), 16);
+  return static_cast<size_t>(*tab) + *tile + stage_bytes + *q32 + q8;
 }
 
 }  // namespace
@@ -169,35 +434,90 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
   a.D = D;
   a.S = npages * page;
   a.page = page;
+  a.npages = npages;
   a.ns = ns;
+  a.Dw = round_up(D, 4);
+  a.Dp = round_up(D, 32);
+  a.tc = bits[ns - 1] <= 8;
+  a.qvec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  int rows_total = 0;
   for (int s = 0; s < ns; ++s) {
     if (s > 0 && bits[s] <= bits[s - 1]) return static_cast<int>(cudaErrorInvalidValue);
     Stream& st = a.s[s];
     st.words = static_cast<const uint32_t*>(streams[s]);
     st.code_bits = (s == 0) ? bits[0] : bits[s] - bits[s - 1] + 1;
     st.ncomp = split_components(st.code_bits, st.w);
-    int off = 0;
+    int off = 0, cs = 0;
     for (int c = 0; c < st.ncomp; ++c) {
       const int per_word = 32 / st.w[c];
       st.R[c] = (page + per_word - 1) / per_word;
       st.off[c] = off;
+      st.cs[c] = cs;
+      st.mask[c] = ((1u << st.w[c]) - 1u) << cs;
       off += st.R[c];
+      cs += st.w[c];
     }
     st.rows_pb = off;
+    st.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(streams[s]) % 16 == 0;
+    rows_total += off;
     if (s > 0) {
       a.gap[s] = bits[s] - bits[s - 1];
       a.lo[s] = -(1 << (bits[s] - 1));
-      a.hi[s] = (1 << (bits[s] - 1)) - 1;
     }
   }
-  const size_t smem = (static_cast<size_t>(kTP) * (D + 1) + kTM * D) * sizeof(int32_t);
-  // opt in to the largest tile once (D = 256), before any graph capture
-  static cudaError_t opt_in = cudaFuncSetAttribute(
-      nested_qk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>((kTP * (kMaxD + 1) + kTM * kMaxD) * sizeof(int32_t)));
+  // stage whole pages when a page has <= 64 positions and its words fit;
+  // take >= 16 positions per CTA, and more only while the grid keeps 4
+  // CTAs per SM (many short CTAs hide the copies' latency)
+  const int page_bytes = rows_total * a.Dw * 4;
+  int ppc = 0;
+  if (page <= kTP) {
+    const int most = kTP / page < kStageBytes / page_bytes ? kTP / page
+                                                           : kStageBytes / page_bytes;
+    const long long want_ctas = 4LL * kSMs;
+    const long long spread = (static_cast<long long>(BH) * npages + want_ctas - 1) / want_ctas;
+    const int least = (16 + page - 1) / page;
+    ppc = static_cast<int>(spread > least ? spread : least);
+    if (ppc > most) ppc = most;
+  }
+  a.ppc = ppc;
+  a.staged = a.ppc >= 1;
+  int grid_x;
+  if (a.staged) {
+    int soff = 0;
+    for (int s = 0; s < ns; ++s) {
+      a.s[s].soff = soff;
+      soff += a.ppc * a.s[s].rows_pb * a.Dw;
+    }
+    a.stage_bytes = soff * 4;
+    grid_x = (npages + a.ppc - 1) / a.ppc;
+  } else {
+    a.cpp = (page + kTP - 1) / kTP;
+    grid_x = npages * a.cpp;
+    if (static_cast<long long>(npages) * a.cpp > 0x7fffffffLL) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const size_t smem = smem_bytes(ns, a.Dp, a.stage_bytes, min(M, kTM), a.Dw, &a.tab_bytes,
+                                 &a.tile_bytes, &a.q32_bytes);
+  // opt in to the largest carve-up once (4 streams, D = 256, a full staging
+  // budget and query chunk), before any graph capture
+  using Kernel = void (*)(Args);
+  static const Kernel kernels[kMaxStreams] = {nested_qk<1>, nested_qk<2>, nested_qk<3>,
+                                              nested_qk<4>};
+  static cudaError_t opt_in = [] {
+    int t0, t1, t2;
+    const size_t most = smem_bytes(kMaxStreams, kMaxD, kStageBytes, kTM, kMaxD, &t0, &t1, &t2);
+    cudaError_t err = cudaSuccess;
+    for (Kernel k : kernels) {
+      const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(most));
+      if (err == cudaSuccess) err = e;
+    }
+    return err;
+  }();
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const dim3 grid((a.S + kTP - 1) / kTP, BH);
-  nested_qk<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(grid_x, BH);
+  kernels[ns - 1]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -468,7 +468,7 @@ def test_flash_attention_tensor_core_body_bf16(cuda, S, hd, groups):
 
 
 @pytest.mark.parametrize("n,h", [(6, 4), (8, 6), (8, 4)])
-@pytest.mark.parametrize("K,N", SHAPES + [(1000, 100)])
+@pytest.mark.parametrize("K,N", SHAPES + [(1000, 100), (151936, 1536)])
 def test_nest_recompose_kernel_bit_exact(cuda, K, N, n, h):
     from repro_torch.kernels.nest_recompose import ops as nr
 
@@ -481,6 +481,179 @@ def test_nest_recompose_kernel_bit_exact(cuda, K, N, n, h):
         want = nr.nest_recompose(nt.w_base, nt.deltas[0], n=n, h=h, K=K, block_k=block)
     assert got.dtype == torch.int8 and torch.equal(got, want)
     assert torch.equal(got.to(torch.int32), nt.codes_at(1))
+
+
+def _recompose_words(codes, n, h, block):
+    """INT-n codes -> (w_high, w_low) words packed along K with ``block``."""
+    from repro_torch.core.decompose import decompose
+    from repro_torch.core.packing import pack_blocked
+
+    wh, wl = decompose(codes, n, h, method="adaptive")
+    return pack_blocked(wh, h, block, axis=0), pack_blocked(wl, n - h + 1, block, axis=0)
+
+
+def _check_recompose(codes, wh, wl, n, h, block):
+    from repro_torch.kernels.nest_recompose import ops as nr
+
+    K = codes.shape[0]
+    before = nr.COUNTER.launches
+    got = nr.nest_recompose(wh, wl, n=n, h=h, K=K, block_k=block)
+    assert nr.COUNTER.launches == before + 1
+    with dispatch.reference_pass():
+        want = nr.nest_recompose(wh, wl, n=n, h=h, K=K, block_k=block)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, want), (n, h, tuple(codes.shape), block)
+    assert torch.equal(got.to(torch.int32), codes), (n, h, tuple(codes.shape), block)
+
+
+@pytest.mark.parametrize("n,h", [(n, h) for n in range(2, 9) for h in range(1, n)])
+def test_nest_recompose_every_pair_block_and_edge_code(cuda, n, h):
+    """Every (n, h) K6 takes, at pack blocks 1, 48 (the general path), 256
+    and 512 (the fast path), with a ragged K, N = 97 (general) and 64
+    (fast), and the range's two ends (-2^(n-1), 2^(n-1) - 1) in every
+    column: bit-exact against the plain version and the original codes."""
+    g = torch.Generator(device=cuda).manual_seed(16 * n + h)
+    lo, hi = -(1 << (n - 1)), (1 << (n - 1)) - 1
+    for block in (1, 48, 256, 512):
+        for N in (97, 64):
+            K = 2 * block + 7 if block > 1 else 37
+            codes = torch.randint(lo, hi + 1, (K, N), generator=g, device=cuda, dtype=torch.int32)
+            codes[0], codes[1], codes[-1] = lo, hi, lo
+            _check_recompose(codes, *_recompose_words(codes, n, h, block), n, h, block)
+
+
+@pytest.mark.parametrize("block", [48, 512])
+def test_nest_recompose_misaligned_and_stacked_views(cuda, block):
+    """Word streams that start one word past a 16-byte boundary (views into
+    a larger buffer) take the general path; the per-layer views of a
+    stacked leaf (the served tree's slices) stay 16-byte aligned, so at a
+    pack block that is a multiple of 32 they take the fast one.  All
+    bit-exact."""
+    g = torch.Generator(device=cuda).manual_seed(block)
+    for n, h in ((6, 4), (8, 1)):
+        codes = torch.randint(-(1 << (n - 1)), 1 << (n - 1), (3 * block + 5, 256), generator=g,
+                              device=cuda, dtype=torch.int32)
+        views = []
+        for w in _recompose_words(codes, n, h, block):
+            buf = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)
+            v = buf[1:].view(w.shape)
+            v.copy_(w)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4
+        _check_recompose(codes, *views, n, h, block)
+    nt = nest_quantize(torch.randn(3, 1536, 256, generator=g, device=cuda), bits=(8, 6, 4),
+                       rounding="rtn", block=block)
+    for i in range(3):
+        lay = nt.layer(i)
+        assert lay.w_base.data_ptr() % 16 == 0 and lay.deltas[0].data_ptr() % 16 == 0
+        _check_recompose(lay.codes_at(1), lay.w_base, lay.deltas[0], 6, 4, block)
+
+
+def test_nest_recompose_two_launches_identical(cuda):
+    from repro_torch.kernels.nest_recompose import ops as nr
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for block in (512, 48):
+        nt = nest_quantize(torch.randn(1536, 8960, generator=g, device=cuda), bits=(6, 4),
+                           rounding="rtn", block=block)
+        a = nr.nest_recompose(nt.w_base, nt.deltas[0], n=6, h=4, K=1536, block_k=block)
+        b = nr.nest_recompose(nt.w_base, nt.deltas[0], n=6, h=4, K=1536, block_k=block)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def _check_qk(qc, streams, bits, page):
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    before = qk.COUNTER.launches
+    got = qk.ladder_qk_scores(qc, streams, bits=bits, page=page)
+    assert qk.COUNTER.launches == before + 1
+    with dispatch.reference_pass():
+        want = qk.ladder_qk_scores(qc, streams, bits=bits, page=page)
+    torch.cuda.synchronize()
+    BH, M, _ = qc.shape
+    assert got.dtype == torch.int32 and got.shape == want.shape and got.shape[:2] == (BH, M)
+    assert torch.equal(got, want), (tuple(qc.shape), bits, page)
+    return got
+
+
+@pytest.mark.parametrize("page", [1, 4, 5, 16, 48])
+@pytest.mark.parametrize("D", [40, 128, 256])
+def test_nested_qk_tensor_core_path(cuda, D, page):
+    """Every resident bitwidth <= 8 and query codes in int8 range: the
+    int8 tensor-core path, at head widths 40 (padded to the 32-deep step),
+    128 and 256, 1 to 65 query rows (ragged 16-row tiles; 65 takes a second
+    64-row chunk) and pages of 1 to 48 positions, at every rung."""
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(D + page)
+    bits = (4, 6, 8)
+    streams, _ = _kv_streams(torch.randn(3, 37 * page, D, generator=g, device=cuda), bits, page)
+    for M in (1, 6, 17, 48, 65):
+        qc, _ = qk.quantize_q(torch.randn(3, M, D, generator=g, device=cuda), bits[-1])
+        for rung in range(3):
+            _check_qk(qc, streams[:rung + 1], bits[:rung + 1], page)
+
+
+@pytest.mark.parametrize("bits,page", [((8, 16), 16), ((4, 10, 12), 5), ((3, 9), 100)])
+def test_nested_qk_cuda_core_path_wide_codes(cuda, bits, page):
+    """Codes over 8 bits (and page 100, above the staged 64 positions)
+    take the CUDA-core path at every rung."""
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(page)
+    streams, _ = _kv_streams(torch.randn(2, 7 * page, 128, generator=g, device=cuda), bits, page)
+    for M in (6, 48):
+        qc, _ = qk.quantize_q(torch.randn(2, M, 128, generator=g, device=cuda), bits[-1])
+        for rung in range(len(bits)):
+            _check_qk(qc, streams[:rung + 1], bits[:rung + 1], page)
+
+
+def test_nested_qk_out_of_range_queries_and_mixed_paths(cuda):
+    """Query codes outside [-128, 127] take the CUDA-core path, with the
+    int32 wrap-around; in one launch the bh whose queries fit take the
+    tensor cores and the others the CUDA cores.  Two launches give
+    identical outputs."""
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bits = (4, 6, 8)
+    streams, _ = _kv_streams(torch.randn(4, 2048, 128, generator=g, device=cuda), bits, 16)
+    qc, _ = qk.quantize_q(torch.randn(4, 6, 128, generator=g, device=cuda), 8)
+    wide = torch.randint(2 ** 20, 2 ** 30, (4, 6, 128), generator=g, device=cuda,
+                         dtype=torch.int32)
+    mixed = qc.clone()
+    mixed[1, 2, 5] = 300
+    mixed[3, 0, 0] = -129
+    for q in (qc * 256, wide, mixed):
+        for rung in range(3):
+            a = _check_qk(q, streams[:rung + 1], bits[:rung + 1], 16)
+            b = qk.ladder_qk_scores(q, streams[:rung + 1], bits=bits[:rung + 1], page=16)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+
+
+def test_nested_qk_misaligned_views_and_odd_head_width(cuda):
+    """Streams and queries that start one word past a 16-byte boundary, and
+    D = 33 (no multiple of 4), take the 4-byte staging copies."""
+    from repro_torch.kernels.nested_attention import ops as qk
+
+    g = torch.Generator(device=cuda).manual_seed(33)
+    bits = (4, 6, 8)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for D in (128, 33):
+        streams, _ = _kv_streams(torch.randn(2, 64, D, generator=g, device=cuda), bits, 16)
+        qc, _ = qk.quantize_q(torch.randn(2, 6, D, generator=g, device=cuda), 8)
+        views = [shifted(s) for s in streams]
+        assert views[0].data_ptr() % 16 == 4
+        for rung in range(3):
+            _check_qk(shifted(qc), views[:rung + 1], bits[:rung + 1], 16)
 
 
 def test_new_kernel_routes_raise_instead_of_falling_back(cuda):

@@ -59,6 +59,21 @@ def test_plain_qk_any_page_matches_jax_reference(page):
         np.testing.assert_array_equal(t2n(packing.pack_blocked(c, w, page, axis=1)), s)
 
 
+@pytest.mark.parametrize("rung", [0, 1, 2])
+def test_plain_qk_bit_exact_vs_jax_kernel_at_edge_shapes(rung):
+    """D = 40 (no multiple of the CUDA kernel's 32-deep tensor-core step),
+    M = 17 (a second, ragged 16-row query tile) and page 5 (pages that leave
+    word rows partly used) against the JAX kernel in interpret mode."""
+    bits, page = (4, 6, 8), 5
+    q_shape, k_shape = (2, 17, 40), (2, 6 * page, 40)
+    streams, _ = jax_kv_streams(k_shape, bits, page, 21)
+    qc, want = jax_nested_qk(q_shape, k_shape, bits, rung, page, 20)
+    got = ops.ladder_qk_scores(to_torch(qc), [to_torch(s) for s in streams[:rung + 1]],
+                               bits=bits[:rung + 1], page=page)
+    assert got.dtype == torch.int32 and got.shape == (2, 17, 6 * page)
+    np.testing.assert_array_equal(t2n(got), want)
+
+
 def test_plain_qk_wraps_like_jax_int32():
     """Query codes large enough that the int32 sums wrap: the port wraps
     exactly as JAX's int32 contraction."""

@@ -209,3 +209,25 @@ def jax_recompose(n, h, K, N, block, seed):
     wpl = jp.pack_blocked(wl, n - h + 1, block, axis=0)
     out = nr_kernel.nest_recompose(wph, wpl, n=n, h=h, K=K, block_k=block, interpret=True)
     return np.asarray(w_int), np.asarray(wph), np.asarray(wpl), np.asarray(out)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_recompose_ref(n, h, K, N, block, seed):
+    """Seeded INT-n codes (the range's two ends in the first rows) split into
+    (w_high, w_low) and packed by the JAX package, and the output of the
+    JAX package's plain recompose (``repro/kernels/nest_recompose/ref.py``),
+    which takes any K, N and pack block: numpy (codes, words_high,
+    words_low, out)."""
+    from repro.core import packing as jp
+    from repro.core.decompose import decompose, int_range
+    from repro.kernels.nest_recompose import ref as nr_ref
+
+    lo, hi = int_range(n)
+    codes = np.random.default_rng(seed).integers(lo, hi + 1, size=(K, N))
+    codes[0], codes[1] = lo, hi
+    w_int = jnp.asarray(codes, jnp.int32)
+    wh, wl = decompose(w_int, n, h, method="adaptive")
+    wph = jp.pack_blocked(wh, h, block, axis=0)
+    wpl = jp.pack_blocked(wl, n - h + 1, block, axis=0)
+    out = nr_ref.recompose_ref(wph, wpl, n=n, h=h, K=K, block_k=block)
+    return np.asarray(w_int), np.asarray(wph), np.asarray(wpl), np.asarray(out)
