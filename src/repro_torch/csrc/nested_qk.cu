@@ -17,18 +17,22 @@
 // per kv head) that is a few operations per byte, so the bound is the
 // bytes: the packed streams, the int32 queries and the int32 scores.  At
 // the served shape (BH 4, S 2048, D 128) those bytes take ~0.5 us, below
-// the cost of one launch, so what a launch pays for is its chain of
-// latencies: the copies' round trip, the decode, the contraction and the
-// stores, one after another in every CTA.  The design shortens the chain
-// and runs many short CTAs side by side.
+// the cost of one launch.  What a launch pays for is each CTA's chain -
+// the copies' round trip, the decode, the contraction, the stores - and
+// the instructions its threads issue on the way: the card issues, it does
+// not wait on memory (cold and warm L2 time the same).  The design keeps
+// every word's trip to device memory single and cuts instructions.
 //
-// The design: one CTA of 256 threads per (bh, run of positions <= 64).
+// The design: one CTA of 512 threads per (bh, run of positions <= 64).
+// Every thread of a CTA runs its set-up (indices, the table, the query
+// pass, barriers), so fewer, larger CTAs issue fewer instructions; at the
+// served shape 64 positions per CTA (128 CTAs of 16 warps) beat 32 or 16
+// positions with 128-512 threads in kernel-only sweeps on the card.
 //   * Sizing.  Where a page has <= 64 positions and its words fit, the CTA
-//     owns a run of whole pages: >= 16 positions, and more only while the
-//     grid keeps 4 CTAs per SM (the served launch: one page, 512 CTAs, one
-//     wave at <= 64 registers).  Larger pages take 64-position runs of one
-//     page and read their words from device memory directly (4-byte loads,
-//     the same decode).
+//     owns as many whole pages as fit 64 positions and the staging budget
+//     (the served launch: 4 pages of 16).  Larger pages take 64-position
+//     runs of one page and read their words from device memory directly
+//     (4-byte loads, the same decode).
 //   * Staging.  A run of whole pages is one contiguous chunk of word rows
 //     per stream: the CTA copies each chunk, and its query rows, into
 //     shared memory with 16-byte cp.async (4-byte copies where D % 4 != 0
@@ -36,25 +40,32 @@
 //   * Decode.  Element p of page g sits, per power-of-two component c of
 //     width w, in word row g * rows_pb + off_c + p mod R_c at bit (p div
 //     R_c) * w.  While the copies fly the CTA tabulates, per (stream,
-//     component, position), the staged row and the rotate that brings the
-//     field to its place in the code (a float-reciprocal divide per table
-//     entry, none per code).  A thread item is 8 d of one position: per
-//     component two 16-byte shared-memory reads, a rotate and a masked OR
-//     per code; per stream a sign extension and the chain step clip(code *
-//     2^gap + delta) (only the lower clip can bind).  The kernel is
-//     instantiated per resident stream count (1-4), so the stream loop is
-//     unrolled and the component loop runs over the stream's own
-//     components.  Codes go to a (64, D) int16 tile.
+//     component, position), the staged row and where the field sits (a
+//     float-reciprocal divide per table entry, none per code).  A thread
+//     item is 8 d of one position; the kernel is instantiated per resident
+//     stream count (1-4), so the stream loop is unrolled and the component
+//     loop runs over the stream's own components.  Two decodes:
+//     - every resident bitwidth <= 8 (NARROW): byte lanes, 4 codes per
+//       instruction.  Per component and 4 d: three byte permutes gather
+//       the field's byte of the 4 words, a rotate and a masked OR place it
+//       (fields are w-aligned, none straddles a byte).  The chain step
+//       clip(code * 2^gap + delta) runs on biased codes C = code +
+//       2^(b-1), never negative, in 16-bit lanes: C' = max(C * 2^gap + D,
+//       2^gap) - 2^gap with D = delta + 2^gap (the field's top bit
+//       flipped); only the lower clip can bind.  Codes go to a (64, D)
+//       int8 tile, the tensor cores' B operand as it stands;
+//     - wider codes: per code and component a rotate and a masked OR, per
+//       stream a sign extension and the chain step, into an int16 tile.
 //   * Contraction, by a uniform choice per CTA and query chunk of <= 64 rows:
 //     - the int8 tensor cores (mma.sync m16n8k32 s8 x s8 -> s32) when every
 //       resident bitwidth is <= 8 and every query code of the chunk lies in
 //       [-128, 127] (__syncthreads_or over the pass that also packs the
-//       queries to int8): queries are A (rows padded to 16, D to 32 with
-//       zeros), the code tile B (its low bytes); warps take (8-position,
-//       16-row) tiles.  Exact: |sum| <= 256 * 128 * 128 < 2^31;
+//       queries to int8; every CTA takes this barrier): queries are A (rows
+//       padded to 16, D to 32 with zeros), the int8 tile B; warps take
+//       (8-position, 16-row) tiles.  Exact: |sum| <= 256 * 128 * 128 < 2^31;
 //     - otherwise the CUDA cores, int32 multiply-adds in uint32 (which wrap
 //       exactly as the reference's int32 dot_general) over the same tile,
-//       each thread one position and every G-th query row (G = 256 / the
+//       each thread one position and every G-th query row (G = 512 / the
 //       CTA's positions), so every warp works at any M.
 //
 // Limits (the Python wrapper checks them first): 1..4 resident streams,
@@ -69,12 +80,11 @@ namespace {
 
 constexpr int kMaxStreams = 4;
 constexpr int kMaxComps = 5;   // a <= 16-bit field splits into <= 5 parts
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kTP = 64;        // positions per CTA: 8 n-tiles of 8, one per warp
 constexpr int kTM = 64;        // query rows per chunk: 4 m-tiles of 16
 constexpr int kMaxD = 256;
 constexpr int kStageBytes = 64 * 1024;   // staged words per CTA, at most
-constexpr int kSMs = 132;                // H100 SXM
 
 struct Stream {
   const uint32_t* words;       // (BH, npages * rows_pb, D)
@@ -126,9 +136,11 @@ __device__ __forceinline__ int div_small(int x, int d) {
   return q;
 }
 
-// int16 code tile row stride, elements: 2 * Dp + 40 bytes is an odd multiple
-// of 8 modulo 128, so 16 neighbouring positions read distinct bank pairs
-// (the CUDA-core path) and a B fragment's 8 x 4 lanes need <= 3 wavefronts
+// int16 code tile (codes over 8 bits) row stride, elements: 2 * Dp + 40
+// bytes is an odd multiple of 8 modulo 128, so the CUDA-core path's 16
+// neighbouring positions read distinct bank pairs.  The int8 tile's stride
+// is Dp + 16 bytes, whose B-fragment reads (8 positions x 4 lanes) are
+// conflict-free.
 __host__ __device__ constexpr int tile_stride(int Dp) { return Dp + 20; }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -236,12 +248,96 @@ __device__ __forceinline__ void decode(const Args& a, const int2* tab, const uin
   }
 }
 
-// <= 64 registers: 4 CTAs per SM, so the served launch (512 CTAs) is one wave
-template <int NS>
-__global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
+// The same for a launch whose every resident bitwidth is <= 8, four codes
+// to a 32-bit word as int8 lanes (the int8 tile, the tensor cores' B
+// operand as it stands).  Per component and quad: three byte permutes
+// gather the field's byte of the 4 words, one rotate and one masked OR
+// place it (fields are w-aligned, so none straddles a byte).  The chain
+// step runs on biased codes (code + 2^(b-1), never negative) in 16-bit
+// lanes: C' = max(C * 2^gap + D, 2^gap) - 2^gap with D = delta + 2^gap.
+template <bool STAGED, int NS>
+__device__ __forceinline__ void decode_narrow(const Args& a, const int2* tab,
+                                              const uint32_t* stage, uint8_t* tile, int bh,
+                                              int TPc) {
+  const int nq = a.Dw >> 2;
+  const int nh = (nq + 1) >> 1;
+  const int total = TPc * nh;
+  const int ts = a.Dp + 16;             // int8 tile row stride, bytes
+  int pl = threadIdx.x / nh;
+  int qd = threadIdx.x - pl * nh;
+  const int dpl = kThreads / nh, dqd = kThreads - dpl * nh;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int qd2 = qd + nh;
+    const bool two = qd2 < nq;
+    uint32_t cl[2], ch[2], out[2];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const Stream& st = a.s[s];
+      uint32_t u[2] = {0u, 0u};
+      const int2* te = tab + s * kMaxComps * kTP + pl;
+#pragma unroll 1
+      for (int c = 0; c < st.ncomp; ++c, te += kTP) {
+        const int2 t = *te;
+        const uint32_t sel = (static_cast<uint32_t>(t.y) >> 8) & 0xffu;
+        const uint32_t mask = ((static_cast<uint32_t>(t.y) >> 16) & 0xffu) * 0x01010101u;
+        uint32_t w[8];
+        load8<STAGED>(w, a, st, stage, t, bh, qd, qd2, two);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t x = __byte_perm(__byte_perm(w[4 * h], w[4 * h + 1], sel),
+                                         __byte_perm(w[4 * h + 2], w[4 * h + 3], sel), 0x5410);
+          u[h] |= __funnelshift_r(x, x, t.y & 31) & mask;
+        }
+      }
+      const uint32_t top = (1u << (st.code_bits - 1)) * 0x01010101u;   // the field's sign bit
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (NS == 1) {
+          out[h] = u[h];
+        } else if (s == 0) {
+          const uint32_t c = u[h] ^ top;                       // biased base codes
+          cl[h] = __byte_perm(c, 0u, 0x4140);
+          ch[h] = __byte_perm(c, 0u, 0x4342);
+        } else {
+          const uint32_t d = u[h] ^ top;                       // delta + 2^gap
+          const uint32_t g2 = (1u << a.gap[s]) * 0x00010001u;
+          cl[h] = __vmaxu2((cl[h] << a.gap[s]) + __byte_perm(d, 0u, 0x4140), g2) - g2;
+          ch[h] = __vmaxu2((ch[h] << a.gap[s]) + __byte_perm(d, 0u, 0x4342), g2) - g2;
+        }
+      }
+    }
+    // b-bit codes (biased unless NS == 1) -> int8 lanes: flip the sign bit
+    // back, then sign-extend each lane: (v & 2^(b-1)) * (2^(9-b) - 2) sets
+    // bits b..7 of a negative lane and stays inside it
+    const uint32_t half = NS == 1 ? 1u << (a.s[0].code_bits - 1)
+                                  : static_cast<uint32_t>(-a.lo[NS - 1]);   // 2^(b-1)
+    const uint32_t sbit = half * 0x01010101u;
+    const uint32_t ext = 256u / half - 2u;
+    uint8_t* row = tile + pl * ts;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v = NS == 1 ? out[h] : (__byte_perm(cl[h], ch[h], 0x6420) ^ sbit);
+      v |= (v & sbit) * ext;                                   // sign-extend each lane
+      const int d0 = 4 * (h == 0 ? qd : qd2);
+      if (d0 + 4 > a.D) v &= d0 >= a.D ? 0u : (1u << (8 * (a.D - d0))) - 1u;
+      if (h == 0 || two) *reinterpret_cast<uint32_t*>(row + d0) = v;
+    }
+    pl += dpl;
+    qd += dqd;
+    if (qd >= nh) {
+      qd -= nh;
+      ++pl;
+    }
+  }
+}
+
+// <= 64 registers: 2 CTAs per SM
+template <int NS, bool NARROW>
+__global__ void __launch_bounds__(kThreads, 2) nested_qk(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   int2* tab = reinterpret_cast<int2*>(smem);
-  int16_t* tile = reinterpret_cast<int16_t*>(smem + a.tab_bytes);
+  // NARROW (every resident bitwidth <= 8): an int8 tile, else int16
+  unsigned char* tile = smem + a.tab_bytes;
   uint32_t* stage = reinterpret_cast<uint32_t*>(smem + a.tab_bytes + a.tile_bytes);
   int32_t* q32 = reinterpret_cast<int32_t*>(smem + a.tab_bytes + a.tile_bytes + a.stage_bytes);
   int8_t* q8 = reinterpret_cast<int8_t*>(smem + a.tab_bytes + a.tile_bytes + a.stage_bytes +
@@ -303,21 +399,35 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
         tab_off = gq * st.rows_pb + st.off[c] + pp % R;
         p = pp / R;
       }
-      tab[e * kTP + pl] = make_int2(tab_off, (p * st.w[c] - st.cs[c]) & 31);
+      const int at = p * st.w[c];                  // the field's first bit in its word
+      if (NARROW) {                                // byte, rotate within it, byte mask
+        const int byte = at >> 3;
+        tab[e * kTP + pl] = make_int2(
+            tab_off, (((at & 7) - st.cs[c]) & 31) | ((byte | (byte + 4) << 4) << 8)
+                         | static_cast<int>(((1u << st.w[c]) - 1u) << st.cs[c]) << 16);
+      } else {
+        tab[e * kTP + pl] = make_int2(tab_off, (at - st.cs[c]) & 31);
+      }
     }
   }
   nq_tc::cp_async_wait_all();
   __syncthreads();
-  if (a.staged) decode<true, NS>(a, tab, stage, tile, bh, TPc);
-  else decode<false, NS>(a, tab, stage, tile, bh, TPc);
+  int16_t* tile16 = reinterpret_cast<int16_t*>(tile);
+  if (NARROW) {
+    if (a.staged) decode_narrow<true, NS>(a, tab, stage, tile, bh, TPc);
+    else decode_narrow<false, NS>(a, tab, stage, tile, bh, TPc);
+  } else {
+    if (a.staged) decode<true, NS>(a, tab, stage, tile16, bh, TPc);
+    else decode<false, NS>(a, tab, stage, tile16, bh, TPc);
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int ts = tile_stride(a.Dp);
+  const int ts = NARROW ? a.Dp + 16 : tile_stride(a.Dp);   // tile row stride, elements
   const int qs = a.Dp + 16;             // int8 query row stride, bytes
   const int nq8 = a.Dp >> 2;            // int8 query quads per row
   const int rq = threadIdx.x / nq8, qq = threadIdx.x - rq * nq8;
-  const int rstep = kThreads / nq8;     // nq8 <= 64, so rstep >= 4
+  const int rstep = kThreads / nq8;     // nq8 <= 64, so rstep >= 8
   for (int m0 = 0; m0 < a.M; m0 += kTM) {
     const int rows = min(kTM, a.M - m0);
     const int mtiles = (rows + 15) >> 4;
@@ -330,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
     }
     // one pass: range check, and the int8 A tile (zero padded) for the tensor cores
     int wide = 0;
-    if (a.tc) {
+    if (NARROW) {
       for (int r = rq; r < mtiles * 16 && qq < nq8; r += rstep) {
         const int d0 = 4 * qq;
         int4 v = make_int4(0, 0, 0, 0);
@@ -349,15 +459,14 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
     // the barrier after the decode and the query pass, taken by every CTA
     // (not short-circuited by a.tc); the choice is uniform per CTA and chunk
     const bool wide_any = __syncthreads_or(wide);
-    const bool tc = a.tc && !wide_any;
-    if (tc) {
+    if (NARROW && !wide_any) {
       // int8 tensor cores: warp tasks (8-position n-tile, 16-row m-tile)
       const int g = lane >> 2, t = lane & 3;
       const int ntiles = (TPc + 7) >> 3;
       for (int task = warp; task < ntiles * mtiles; task += kThreads / 32) {
         const int mt = task / ntiles;
         const int n0 = 8 * (task - mt * ntiles);
-        const int16_t* brow = tile + (n0 + g) * ts;
+        const uint8_t* brow = tile + (n0 + g) * ts;
         const int8_t* arow = q8 + (mt * 16 + g) * qs;
         int acc[4] = {0, 0, 0, 0};
         for (int k0 = 0; k0 < a.Dp; k0 += 32) {
@@ -366,9 +475,8 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
           af[1] = *reinterpret_cast<const uint32_t*>(arow + 8 * qs + k0 + 4 * t);
           af[2] = *reinterpret_cast<const uint32_t*>(arow + k0 + 16 + 4 * t);
           af[3] = *reinterpret_cast<const uint32_t*>(arow + 8 * qs + k0 + 16 + 4 * t);
-          const uint2 b0 = *reinterpret_cast<const uint2*>(brow + k0 + 4 * t);
-          const uint2 b1 = *reinterpret_cast<const uint2*>(brow + k0 + 16 + 4 * t);
-          mma_s8(acc, af, __byte_perm(b0.x, b0.y, 0x6420), __byte_perm(b1.x, b1.y, 0x6420));
+          mma_s8(acc, af, *reinterpret_cast<const uint32_t*>(brow + k0 + 4 * t),
+                 *reinterpret_cast<const uint32_t*>(brow + k0 + 16 + 4 * t));
         }
         const int pos = n0 + 2 * t;
 #pragma unroll
@@ -384,19 +492,29 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
     } else {
       // CUDA cores: thread = one position and the query rows mg, mg + G, ...
       const int pl = threadIdx.x % TPc;
-      const int G = kThreads / TPc;     // >= 4 row groups
-      const int16_t* crow = tile + pl * ts;
+      const int G = kThreads / TPc;     // >= 8 row groups
       for (int m = threadIdx.x / TPc; m < rows && threadIdx.x < G * TPc; m += G) {
         uint32_t acc = 0u;
         const int32_t* qr = q32 + m * a.Dw;
         for (int d0 = 0; d0 < a.Dw; d0 += 4) {
           // columns d >= D hold code 0 (the staged query there is unset)
-          const uint2 cw = *reinterpret_cast<const uint2*>(crow + d0);
+          int kc[4];
+          if (NARROW) {
+            const uint32_t cw = *reinterpret_cast<const uint32_t*>(tile + pl * ts + d0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kc[e] = static_cast<int>(cw << (24 - 8 * e)) >> 24;
+          } else {
+            const uint2 cw = *reinterpret_cast<const uint2*>(tile16 + pl * ts + d0);
+            kc[0] = static_cast<int>(cw.x << 16) >> 16;
+            kc[1] = static_cast<int>(cw.x) >> 16;
+            kc[2] = static_cast<int>(cw.y << 16) >> 16;
+            kc[3] = static_cast<int>(cw.y) >> 16;
+          }
           const int4 qv = *reinterpret_cast<const int4*>(qr + d0);
-          acc += static_cast<uint32_t>(qv.x) * static_cast<uint32_t>(static_cast<int>(cw.x << 16) >> 16)
-                 + static_cast<uint32_t>(qv.y) * static_cast<uint32_t>(static_cast<int>(cw.x) >> 16)
-                 + static_cast<uint32_t>(qv.z) * static_cast<uint32_t>(static_cast<int>(cw.y << 16) >> 16)
-                 + static_cast<uint32_t>(qv.w) * static_cast<uint32_t>(static_cast<int>(cw.y) >> 16);
+          acc += static_cast<uint32_t>(qv.x) * static_cast<uint32_t>(kc[0])
+                 + static_cast<uint32_t>(qv.y) * static_cast<uint32_t>(kc[1])
+                 + static_cast<uint32_t>(qv.z) * static_cast<uint32_t>(kc[2])
+                 + static_cast<uint32_t>(qv.w) * static_cast<uint32_t>(kc[3]);
         }
         a.out[(static_cast<size_t>(bh) * a.M + m0 + m) * a.S + j0 + pl] = static_cast<int32_t>(acc);
       }
@@ -404,10 +522,10 @@ __global__ void __launch_bounds__(kThreads, 4) nested_qk(const Args a) {
   }
 }
 
-size_t smem_bytes(int ns, int Dp, int stage_bytes, int q_rows, int Dw, int* tab, int* tile,
-                  int* q32) {
+size_t smem_bytes(int ns, int Dp, bool narrow, int stage_bytes, int q_rows, int Dw, int* tab,
+                  int* tile, int* q32) {
   *tab = round_up(ns * kMaxComps * kTP * 8, 16);
-  *tile = round_up(kTP * tile_stride(Dp) * 2, 16);
+  *tile = round_up(narrow ? kTP * (Dp + 16) : kTP * tile_stride(Dp) * 2, 16);
   *q32 = round_up(q_rows * Dw * 4, 16);
   const int q8 = round_up((q_rows + 15) / 16 * 16 * (Dp + 16), 16);
   return static_cast<size_t>(*tab) + *tile + stage_bytes + *q32 + q8;
@@ -465,21 +583,10 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
       a.lo[s] = -(1 << (bits[s] - 1));
     }
   }
-  // stage whole pages when a page has <= 64 positions and its words fit;
-  // take >= 16 positions per CTA, and more only while the grid keeps 4
-  // CTAs per SM (many short CTAs hide the copies' latency)
+  // stage as many whole pages as fit 64 positions and the staging budget
   const int page_bytes = rows_total * a.Dw * 4;
-  int ppc = 0;
-  if (page <= kTP) {
-    const int most = kTP / page < kStageBytes / page_bytes ? kTP / page
-                                                           : kStageBytes / page_bytes;
-    const long long want_ctas = 4LL * kSMs;
-    const long long spread = (static_cast<long long>(BH) * npages + want_ctas - 1) / want_ctas;
-    const int least = (16 + page - 1) / page;
-    ppc = static_cast<int>(spread > least ? spread : least);
-    if (ppc > most) ppc = most;
-  }
-  a.ppc = ppc;
+  a.ppc = page > kTP ? 0
+          : (kTP / page < kStageBytes / page_bytes ? kTP / page : kStageBytes / page_bytes);
   a.staged = a.ppc >= 1;
   int grid_x;
   if (a.staged) {
@@ -497,27 +604,31 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const size_t smem = smem_bytes(ns, a.Dp, a.stage_bytes, min(M, kTM), a.Dw, &a.tab_bytes,
-                                 &a.tile_bytes, &a.q32_bytes);
+  const size_t smem = smem_bytes(ns, a.Dp, a.tc, a.stage_bytes, min(M, kTM), a.Dw,
+                                 &a.tab_bytes, &a.tile_bytes, &a.q32_bytes);
   // opt in to the largest carve-up once (4 streams, D = 256, a full staging
   // budget and query chunk), before any graph capture
   using Kernel = void (*)(Args);
-  static const Kernel kernels[kMaxStreams] = {nested_qk<1>, nested_qk<2>, nested_qk<3>,
-                                              nested_qk<4>};
+  static const Kernel kernels[2][kMaxStreams] = {
+      {nested_qk<1, false>, nested_qk<2, false>, nested_qk<3, false>, nested_qk<4, false>},
+      {nested_qk<1, true>, nested_qk<2, true>, nested_qk<3, true>, nested_qk<4, true>}};
   static cudaError_t opt_in = [] {
     int t0, t1, t2;
-    const size_t most = smem_bytes(kMaxStreams, kMaxD, kStageBytes, kTM, kMaxD, &t0, &t1, &t2);
+    const size_t most = smem_bytes(kMaxStreams, kMaxD, false, kStageBytes, kTM, kMaxD, &t0, &t1,
+                                   &t2);
     cudaError_t err = cudaSuccess;
-    for (Kernel k : kernels) {
-      const cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(most));
-      if (err == cudaSuccess) err = e;
+    for (const auto& row : kernels) {
+      for (Kernel k : row) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(most));
+        if (err == cudaSuccess) err = e;
+      }
     }
     return err;
   }();
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const dim3 grid(grid_x, BH);
-  kernels[ns - 1]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernels[a.tc][ns - 1]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
