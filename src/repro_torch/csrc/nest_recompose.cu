@@ -11,10 +11,7 @@
 //
 // What bounds it: (h + l + 1) / 8 bytes read and 1 byte written per
 // weight, and ~10 integer operations per weight to unpack and recompose
-// it: the bytes, with the card's integer issue rate not far behind.  The
-// earlier body (one thread per output code, each unpacking its code by
-// index) read 3 words for every 1-byte code at (6, 4), with a runtime
-// divide per component, and every word reached 8-32 CTAs through L2.
+// it: the bytes, with the card's integer issue rate not far behind.
 //
 // The layout it exploits: element p of pack block b sits, per
 // power-of-two component c of width w_c, in word row b * rows_pb + off_c +

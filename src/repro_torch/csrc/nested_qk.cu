@@ -81,7 +81,7 @@ namespace {
 constexpr int kMaxStreams = 4;
 constexpr int kMaxComps = 5;   // a <= 16-bit field splits into <= 5 parts
 constexpr int kThreads = 512;
-constexpr int kTP = 64;        // positions per CTA: 8 n-tiles of 8, one per warp
+constexpr int kTP = 64;        // positions per CTA, at most: 8 n-tiles of 8
 constexpr int kTM = 64;        // query rows per chunk: 4 m-tiles of 16
 constexpr int kMaxD = 256;
 constexpr int kStageBytes = 64 * 1024;   // staged words per CTA, at most
@@ -109,7 +109,6 @@ struct Args {
   int staged;                  // 1: whole pages staged in shared memory
   int ppc;                     // staged: pages per CTA
   int cpp;                     // direct: 64-position runs per page
-  int tc;                      // every resident bitwidth <= 8
   int qvec;                    // queries: 16-byte copies
   int tab_bytes, tile_bytes, stage_bytes, q32_bytes;  // shared-memory carve-up
   Stream s[kMaxStreams];
@@ -457,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 2) nested_qk(const Args a) {
       }
     }
     // the barrier after the decode and the query pass, taken by every CTA
-    // (not short-circuited by a.tc); the choice is uniform per CTA and chunk
+    // (not short-circuited); the choice is uniform per CTA and chunk
     const bool wide_any = __syncthreads_or(wide);
     if (NARROW && !wide_any) {
       // int8 tensor cores: warp tasks (8-position n-tile, 16-row m-tile)
@@ -556,7 +555,7 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
   a.ns = ns;
   a.Dw = round_up(D, 4);
   a.Dp = round_up(D, 32);
-  a.tc = bits[ns - 1] <= 8;
+  const bool narrow = bits[ns - 1] <= 8;       // int8 codes: the NARROW kernels
   a.qvec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
   int rows_total = 0;
   for (int s = 0; s < ns; ++s) {
@@ -604,7 +603,7 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const size_t smem = smem_bytes(ns, a.Dp, a.tc, a.stage_bytes, min(M, kTM), a.Dw,
+  const size_t smem = smem_bytes(ns, a.Dp, narrow, a.stage_bytes, min(M, kTM), a.Dw,
                                  &a.tab_bytes, &a.tile_bytes, &a.q32_bytes);
   // opt in to the largest carve-up once (4 streams, D = 256, a full staging
   // budget and query chunk), before any graph capture
@@ -628,7 +627,7 @@ int nq_nested_qk(const void* q, const void* const* streams, const int* bits, int
   }();
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   const dim3 grid(grid_x, BH);
-  kernels[a.tc][ns - 1]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernels[narrow][ns - 1]<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
