@@ -42,9 +42,10 @@
 //     R_c) * w.  While the copies fly the CTA tabulates, per (stream,
 //     component, position), the staged row and where the field sits (a
 //     float-reciprocal divide per table entry, none per code).  A thread
-//     item is 8 d of one position; the kernel is instantiated per resident
-//     stream count (1-4), so the stream loop is unrolled and the component
-//     loop runs over the stream's own components.  Two decodes:
+//     item is 16 d (8 d for wider codes) of one position; the kernel is
+//     instantiated per resident stream count (1-4), so the stream loop is
+//     unrolled and the component loop runs over the stream's own
+//     components.  Two decodes:
 //     - every resident bitwidth <= 8 (NARROW): byte lanes, 4 codes per
 //       instruction.  Per component and 4 d: three byte permutes gather
 //       the field's byte of the 4 words, a rotate and a masked OR place it
@@ -167,24 +168,26 @@ __device__ __forceinline__ void stage_queries(const Args& a, int32_t* q32, int b
   }
 }
 
-// The words of one component for 8 d of a position: quads qd and qd2 (qd2
-// only where ``two``)
-template <bool STAGED>
-__device__ __forceinline__ void load8(uint32_t (&w)[8], const Args& a, const Stream& st,
-                                      const uint32_t* stage, int2 t, int bh, int qd, int qd2,
-                                      bool two) {
+// The words of one component for Q quads (4 d each) of a position: quads
+// qd + k * step, k < Q, those at or past nq left zero
+template <bool STAGED, int Q>
+__device__ __forceinline__ void load_quads(uint32_t (&w)[4 * Q], const Args& a, const Stream& st,
+                                           const uint32_t* stage, int2 t, int bh, int qd,
+                                           int step, int nq) {
   if constexpr (STAGED) {
-    const uint4 v0 = *reinterpret_cast<const uint4*>(stage + t.x + 4 * qd);
-    const uint4 v1 = two ? *reinterpret_cast<const uint4*>(stage + t.x + 4 * qd2)
-                         : make_uint4(0u, 0u, 0u, 0u);
-    w[0] = v0.x; w[1] = v0.y; w[2] = v0.z; w[3] = v0.w;
-    w[4] = v1.x; w[5] = v1.y; w[6] = v1.z; w[7] = v1.w;
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const uint4 v = qd + k * step < nq
+                          ? *reinterpret_cast<const uint4*>(stage + t.x + 4 * (qd + k * step))
+                          : make_uint4(0u, 0u, 0u, 0u);
+      w[4 * k] = v.x; w[4 * k + 1] = v.y; w[4 * k + 2] = v.z; w[4 * k + 3] = v.w;
+    }
   } else {
     const uint32_t* src = st.words + (static_cast<size_t>(bh) * a.npages * st.rows_pb + t.x) * a.D;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int d = 4 * (e < 4 ? qd : qd2) + (e & 3);
-      w[e] = (d < a.D && (e < 4 || two)) ? __ldg(src + d) : 0u;
+    for (int e = 0; e < 4 * Q; ++e) {
+      const int d = 4 * (qd + (e >> 2) * step) + (e & 3);
+      w[e] = d < a.D ? __ldg(src + d) : 0u;
     }
   }
 }
@@ -217,7 +220,7 @@ __device__ __forceinline__ void decode(const Args& a, const int2* tab, const uin
         const int2 t = *te;
         const uint32_t mask = st.mask[c];
         uint32_t w[8];
-        load8<STAGED>(w, a, st, stage, t, bh, qd, qd2, two);
+        load_quads<STAGED, 2>(w, a, st, stage, t, bh, qd, nh, nq);
 #pragma unroll
         for (int e = 0; e < 8; ++e) u[e] |= __funnelshift_r(w[e], w[e], t.y) & mask;
       }
@@ -247,9 +250,9 @@ __device__ __forceinline__ void decode(const Args& a, const int2* tab, const uin
   }
 }
 
-// The same for a launch whose every resident bitwidth is <= 8, four codes
-// to a 32-bit word as int8 lanes (the int8 tile, the tensor cores' B
-// operand as it stands).  Per component and quad: three byte permutes
+// The same for a launch whose every resident bitwidth is <= 8, 16 d per
+// item, four codes to a 32-bit word as int8 lanes (the int8 tile, the
+// tensor cores' B operand as it stands).  Per component and quad: three byte permutes
 // gather the field's byte of the 4 words, one rotate and one masked OR
 // place it (fields are w-aligned, so none straddles a byte).  The chain
 // step runs on biased codes (code + 2^(b-1), never negative) in 16-bit
@@ -258,50 +261,49 @@ template <bool STAGED, int NS>
 __device__ __forceinline__ void decode_narrow(const Args& a, const int2* tab,
                                               const uint32_t* stage, uint8_t* tile, int bh,
                                               int TPc) {
+  constexpr int Q = 4;                  // quads per item: 16 d of one position
   const int nq = a.Dw >> 2;
-  const int nh = (nq + 1) >> 1;
-  const int total = TPc * nh;
+  const int step = (nq + Q - 1) / Q;    // item (pl, qd) takes quads qd + k * step
+  const int total = TPc * step;
   const int ts = a.Dp + 16;             // int8 tile row stride, bytes
-  int pl = threadIdx.x / nh;
-  int qd = threadIdx.x - pl * nh;
-  const int dpl = kThreads / nh, dqd = kThreads - dpl * nh;
+  int pl = threadIdx.x / step;
+  int qd = threadIdx.x - pl * step;
+  const int dpl = kThreads / step, dqd = kThreads - dpl * step;
   for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int qd2 = qd + nh;
-    const bool two = qd2 < nq;
-    uint32_t cl[2], ch[2], out[2];
+    uint32_t cl[Q], ch[Q], out[Q];
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       const Stream& st = a.s[s];
-      uint32_t u[2] = {0u, 0u};
+      uint32_t u[Q] = {};
       const int2* te = tab + s * kMaxComps * kTP + pl;
 #pragma unroll 1
       for (int c = 0; c < st.ncomp; ++c, te += kTP) {
         const int2 t = *te;
         const uint32_t sel = (static_cast<uint32_t>(t.y) >> 8) & 0xffu;
         const uint32_t mask = ((static_cast<uint32_t>(t.y) >> 16) & 0xffu) * 0x01010101u;
-        uint32_t w[8];
-        load8<STAGED>(w, a, st, stage, t, bh, qd, qd2, two);
+        uint32_t w[4 * Q];
+        load_quads<STAGED, Q>(w, a, st, stage, t, bh, qd, step, nq);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t x = __byte_perm(__byte_perm(w[4 * h], w[4 * h + 1], sel),
-                                         __byte_perm(w[4 * h + 2], w[4 * h + 3], sel), 0x5410);
-          u[h] |= __funnelshift_r(x, x, t.y & 31) & mask;
+        for (int k = 0; k < Q; ++k) {
+          const uint32_t x = __byte_perm(__byte_perm(w[4 * k], w[4 * k + 1], sel),
+                                         __byte_perm(w[4 * k + 2], w[4 * k + 3], sel), 0x5410);
+          u[k] |= __funnelshift_r(x, x, t.y & 31) & mask;
         }
       }
       const uint32_t top = (1u << (st.code_bits - 1)) * 0x01010101u;   // the field's sign bit
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int k = 0; k < Q; ++k) {
         if (NS == 1) {
-          out[h] = u[h];
+          out[k] = u[k];
         } else if (s == 0) {
-          const uint32_t c = u[h] ^ top;                       // biased base codes
-          cl[h] = __byte_perm(c, 0u, 0x4140);
-          ch[h] = __byte_perm(c, 0u, 0x4342);
+          const uint32_t c = u[k] ^ top;                       // biased base codes
+          cl[k] = __byte_perm(c, 0u, 0x4140);
+          ch[k] = __byte_perm(c, 0u, 0x4342);
         } else {
-          const uint32_t d = u[h] ^ top;                       // delta + 2^gap
+          const uint32_t d = u[k] ^ top;                       // delta + 2^gap
           const uint32_t g2 = (1u << a.gap[s]) * 0x00010001u;
-          cl[h] = __vmaxu2((cl[h] << a.gap[s]) + __byte_perm(d, 0u, 0x4140), g2) - g2;
-          ch[h] = __vmaxu2((ch[h] << a.gap[s]) + __byte_perm(d, 0u, 0x4342), g2) - g2;
+          cl[k] = __vmaxu2((cl[k] << a.gap[s]) + __byte_perm(d, 0u, 0x4140), g2) - g2;
+          ch[k] = __vmaxu2((ch[k] << a.gap[s]) + __byte_perm(d, 0u, 0x4342), g2) - g2;
         }
       }
     }
@@ -314,17 +316,17 @@ __device__ __forceinline__ void decode_narrow(const Args& a, const int2* tab,
     const uint32_t ext = 256u / half - 2u;
     uint8_t* row = tile + pl * ts;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t v = NS == 1 ? out[h] : (__byte_perm(cl[h], ch[h], 0x6420) ^ sbit);
+    for (int k = 0; k < Q; ++k) {
+      uint32_t v = NS == 1 ? out[k] : (__byte_perm(cl[k], ch[k], 0x6420) ^ sbit);
       v |= (v & sbit) * ext;                                   // sign-extend each lane
-      const int d0 = 4 * (h == 0 ? qd : qd2);
+      const int d0 = 4 * (qd + k * step);
       if (d0 + 4 > a.D) v &= d0 >= a.D ? 0u : (1u << (8 * (a.D - d0))) - 1u;
-      if (h == 0 || two) *reinterpret_cast<uint32_t*>(row + d0) = v;
+      if (qd + k * step < nq) *reinterpret_cast<uint32_t*>(row + d0) = v;
     }
     pl += dpl;
     qd += dqd;
-    if (qd >= nh) {
-      qd -= nh;
+    if (qd >= step) {
+      qd -= step;
       ++pl;
     }
   }
