@@ -35,6 +35,19 @@ Phases (each raises on failure; the script then exits non-zero):
    with greedy tokens identical; the bf16 kernel path's prefill logits
    within 3e-2 of it and of the plain bf16 pass.  What a kernel that
    drops one delta stream would read is printed beside them.
+3b. Ship the phase-2 store as one artifact (``save_artifact`` at rung 2,
+   into ``build/``, removed at the end) and serve it as a deployment does:
+   a cold boot of ``ServeEngine.from_artifact`` with only the manifest and
+   the base segment on disk (a ``FilePager`` onto the card behind a 100
+   Mbit/s ``ThrottledPager`` on a virtual clock), phase 2's tokens at rung
+   0, then at rungs 1 and 2 as ``delta_0`` and ``delta_1`` arrive and
+   ``poll_delivery`` pages exactly each segment's bytes (each poll's
+   disk-to-card rate beside the in-memory pager's); ``warmup``; a
+   ``Scheduler`` over a 48-request burst trace under the CLI's ``load``
+   composition, after which no kernel library, decode-body plan or counter
+   buffer is new; and a kv-aware ``Scheduler`` over 16 requests of 512
+   prompt tokens on the nested KV cache.  Every switch pages its expected
+   bytes and every packed_linear runs on its rung's kernel.
 4. Time the launch floor (a one-element ``zero_()`` under CUDA-graph
    replay).  Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
    (3, 5, 6, 8), M = 6 and 48; every row beside a control with the same
@@ -136,6 +149,12 @@ BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 8, 8, 64
 BATCH_LONG, PROMPT_LONG, KV_PAGE = 2, 2048, 16
 LONG_QUEUE = (0, 8, 8, 0, 0)
 RENDER_TOP_TOL = 0.02       # the reference bench's top-rung render limit
+# the artifact phase: a 100 Mbit/s link on the virtual clock, the CLI's
+# "--policy load" dwell, a 48-request burst trace, and a kv-aware run of 16
+# requests x 512 prompt tokens
+LINK_BYTES_PER_S = 12.5e6
+SCHED_DWELL, SCHED_REQUESTS = 4, 48
+KV_SCHED_REQUESTS, KV_PROMPT = 16, 512
 
 
 def log(msg: str) -> None:
@@ -387,6 +406,42 @@ def packed_linears_per_forward(store) -> int:
                for path, leaf in store.nested_leaves() if "embed" not in path)
 
 
+def checked_generate(engine, reqs, rung, per_forward, what):
+    """One ``generate`` of a short batch under the budget that lands on
+    ``rung``; checks the rung, every packed_linear on the rung's kernel (the
+    32-row prefill's on the CUDA-core body, its LM head and every decode
+    step's on the decode body), no plain version, and the tokens in range.
+    Returns (wall s, launches, decode-body launches) of the call."""
+    from repro_torch.kernels import dispatch
+
+    store, vocab = engine.store, engine.cfg.vocab_size
+    forwards = 1 + NEW_TOKENS
+    want_dec = per_forward * NEW_TOKENS + 1
+    before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
+    before_dec = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    engine.generate(reqs, memory_budget_bytes=budget_for(store, rung))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    delta = {n: (c.launches - before[n][0], c.plain_launches - before[n][1])
+             for n, c in dispatch.COUNTERS.items()}
+    want = {n: (per_forward * forwards if n in KERNELS and KERNELS[n][0] == min(rung, 2)
+                else 0, 0) for n in dispatch.COUNTERS}
+    if store.rung != rung or delta != want:
+        raise AssertionError(f"{what}: rung {store.rung} (want {rung}), "
+                             f"launches {delta}, want {want}")
+    dec = {n: c.dec_launches - before_dec[n] for n, c in dispatch.COUNTERS.items()}
+    if dec != {n: want_dec if want[n][0] else 0 for n in dec}:
+        raise AssertionError(f"{what}: decode-body launches {dec}, want {want_dec} "
+                             f"on the rung's kernel")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < vocab for t in r.out_tokens):
+            raise AssertionError(f"{what}: bad tokens {r.out_tokens}")
+    return wall, delta, dec
+
+
 def phase_serve(cfg):
     from repro_torch.core.recipe import QuantRecipe, quantize
     from repro_torch.core.switching import NestQuantStore
@@ -413,36 +468,11 @@ def phase_serve(cfg):
     forwards = 1 + NEW_TOKENS
     log(f"[serve] {per_forward} packed_linear calls per forward, {forwards} "
         f"forwards per generate")
-    # per generate: the 32-row prefill's matmuls on the CUDA-core body, its
-    # LM head (M = 4, the last token of each request) and every decode
-    # step's on the decode body
-    want_dec = per_forward * NEW_TOKENS + 1
     dispatch.reset_counters()                      # the main path starts here
     phases = []
     for phase, rung in enumerate(SERVE_SCHEDULE):
-        before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
-        before_dec = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
         reqs = make_requests(phase, cfg.vocab_size)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        engine.generate(reqs, memory_budget_bytes=budget_for(store, rung))
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        delta = {n: (c.launches - before[n][0], c.plain_launches - before[n][1])
-                 for n, c in dispatch.COUNTERS.items()}
-        want = {n: (per_forward * forwards if n in KERNELS and KERNELS[n][0] == min(rung, 2)
-                    else 0, 0) for n in dispatch.COUNTERS}
-        if store.rung != rung or delta != want:
-            raise AssertionError(f"phase {phase}: rung {store.rung} (want {rung}), "
-                                 f"launches {delta}, want {want}")
-        dec = {n: c.dec_launches - before_dec[n] for n, c in dispatch.COUNTERS.items()}
-        if dec != {n: want_dec if want[n][0] else 0 for n in dec}:
-            raise AssertionError(f"phase {phase}: decode-body launches {dec}, want {want_dec} "
-                                 f"on the rung's kernel")
-        for r in reqs:
-            if len(r.out_tokens) != NEW_TOKENS or not all(
-                    0 <= t < cfg.vocab_size for t in r.out_tokens):
-                raise AssertionError(f"phase {phase}: bad tokens {r.out_tokens}")
+        wall, delta, dec = checked_generate(engine, reqs, rung, per_forward, f"phase {phase}")
         phases.append({"rung": rung, "mode": store.mode, "wall_s": wall,
                        "page_in": store.ledger.page_in_bytes,
                        "page_out": store.ledger.page_out_bytes,
@@ -601,6 +631,287 @@ def phase_reference(cfg, store, phases):
             failures.append(rung)
     if failures:
         raise AssertionError(f"reference pass failed at rungs {failures}: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: one on-disk artifact, progressive cold boot, warm-up, scheduled
+# burst trace and a kv-aware scheduled run
+# ---------------------------------------------------------------------------
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _build_state():
+    """What a serve must leave alone after warm-up: the loaded kernel
+    libraries, the decode-body plans and the arrival counters' buffer."""
+    from repro_torch.kernels import build
+
+    buf = build._dec_counters.get(torch.cuda.current_device())
+    return {"libraries": sorted(build._libs), "dec_plans": len(build._dec_plans),
+            "counters_ptr": None if buf is None else buf.data_ptr(),
+            "counters_numel": None if buf is None else buf.numel()}
+
+
+def _load_policy():
+    """The JAX package's CLI composition for ``--policy load``."""
+    from repro_torch.serving import HysteresisPolicy, LoadAdaptivePolicy
+    return HysteresisPolicy(LoadAdaptivePolicy(high_depth=BATCH), dwell=SCHED_DWELL)
+
+
+def _scheduled_launches(report, per_forward):
+    """K1-K3 launches a scheduler run must show: every batch's forwards on
+    the kernel of the rung it was served at."""
+    want = {n: 0 for n in KERNELS}
+    for s in report.steps:
+        name = next(n for n, v in KERNELS.items() if v[0] == min(s["rung"], 2))
+        want[name] += per_forward * (1 + NEW_TOKENS)
+    return want
+
+
+def _check_report(report, n_requests, vocab, what):
+    if len(report.requests) != n_requests:
+        raise AssertionError(f"{what}: served {len(report.requests)} of {n_requests}")
+    for r in report.requests:
+        toks = r.request.out_tokens
+        if len(toks) != r.request.max_new_tokens or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{what}: request {r.request.uid} bad tokens {toks}")
+    for rec in report.switch_records + report.kv_switch_records:
+        if (rec["page_in"], rec["page_out"]) != (rec["expected_in"], rec["expected_out"]):
+            raise AssertionError(f"{what}: switch record {rec} pages other bytes than expected")
+
+
+def phase_artifact(cfg, store, phases, per_forward):
+    """Ship the phase-2 store as one artifact and serve it as a deployment
+    would (``ServeEngine.from_artifact`` + ``Scheduler``):
+
+    a. ``to_rung(2)`` and ``save_artifact`` into ``build/``;
+    b. boot with only the manifest and the base segment on disk, through a
+       ``FilePager`` onto the card wrapped in a 100 Mbit/s
+       ``ThrottledPager`` on a ``VirtualClock``; serve phase 2's rung-0
+       requests (tokens identical), then deliver ``delta_0`` and
+       ``delta_1`` one by one, ``poll_delivery`` after each (page-in = the
+       segment's bytes) and serve phase 2's requests of that rung (tokens
+       identical); each poll's disk-to-card rate beside the same streams
+       through the phase-2 store's ``InMemoryPager``;
+    c. ``warmup``, then record the kernel libraries, the decode-body plans
+       and the arrival counters' buffer;
+    d. a ``Scheduler`` over a 48-request burst trace under the CLI's
+       ``load`` composition: every request served, every switch paging its
+       expected bytes, the first batch's tokens equal to a direct
+       ``generate`` at its rung, nothing built and the counters kept;
+    e. a kv-aware ``Scheduler`` over 16 requests of 512 prompt tokens on a
+       nested KV cache, its budget the rung-2 weights plus two sequences at
+       KV rung 2: every weight and KV switch paging its expected bytes.
+
+    Every K1-K3 launch of the phase is counted and checked against the
+    rung each call served at; no plain version runs.  The artifact is
+    removed at the end and the phase-2 store goes back to its rung."""
+    import os
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.recipe import QuantRecipe
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import (BudgetPolicy, KVCacheConfig, LoadGenerator, Request,
+                                     Scheduler, ServeEngine, ServiceModel, calibrate_qps)
+    from repro_torch.storage import (FilePager, ThrottledPager, VirtualClock, open_artifact,
+                                     save_artifact)
+
+    t_phase = time.perf_counter()
+    out = {}
+    prev_rung = store.rung
+    root = ROOT / "build" / "artifact_smoke"
+    art_dir, aside = root / "artifact", root / "aside"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # -- a. save ---------------------------------------------------------
+        store.to_rung(2)
+        manifest, save_s = _timed(lambda: save_artifact(
+            store.nested_params, str(art_dir), recipe=QuantRecipe(bits=BITS)))
+        sizes = {name: seg["nbytes"] for name, seg in manifest["segments"].items()}
+        if sizes != {"base": store.rung_resident_bytes(0), "delta_0": store.delta_bytes(0),
+                     "delta_1": store.delta_bytes(1)}:
+            raise AssertionError(f"segment bytes {sizes} differ from the store's ladder")
+        out["save"] = {"segments": sizes, "seconds": save_s}
+        log(f"[artifact] saved {', '.join(f'{k} {v / 1e9:.3f} GB' for k, v in sizes.items())}"
+            f" in {save_s:.2f}s ({sum(sizes.values()) / save_s / 1e9:.2f} GB/s from the card)")
+
+        # -- b. progressive cold boot ---------------------------------------
+        aside.mkdir(parents=True)
+        for k in range(2):
+            os.replace(art_dir / f"delta_{k}.seg", aside / f"delta_{k}.seg")
+        art = open_artifact(str(art_dir))
+        clock = VirtualClock()
+        pager = ThrottledPager(FilePager(art, device=DEVICE),
+                               bandwidth_bytes_per_s=LINK_BYTES_PER_S, clock=clock)
+        engine, boot_s = _timed(lambda: ServeEngine.from_artifact(
+            cfg, art, pager=pager, max_batch=BATCH, max_len=MAX_LEN, device=DEVICE))
+        if art.segments_read != {"base"} or set(art.bytes_read) != {"manifest", "base"}:
+            raise AssertionError(f"cold boot read {art.bytes_read}, want the manifest and "
+                                 f"the base only")
+        log(f"[artifact] cold boot read {art.bytes_read} in {boot_s:.2f}s "
+            f"({art.bytes_read['base'] / boot_s / 1e9:.2f} GB/s disk to card)")
+        dispatch.reset_counters()                  # this path starts here
+        walls = {}
+        # phase 2 served make_requests(p) at SERVE_SCHEDULE[p]
+        for step, (rung, p) in enumerate(((0, 1), (1, 2), (2, 0))):
+            if rung:
+                k = rung - 1
+                os.replace(aside / f"delta_{k}.seg", art_dir / f"delta_{k}.seg")
+                rep, poll_s = _timed(engine.poll_delivery)
+                want = manifest["segments"][f"delta_{k}"]["nbytes"]
+                if rep["rung"] != rung or rep["page_in"] != want or \
+                        want != engine.store.delta_bytes(k) or rep["failed"]:
+                    raise AssertionError(f"poll {k}: {rep}, want rung {rung} and page-in "
+                                         f"{want} = bytes(delta_{k})")
+                paths = [path for path, _ in store.nested_leaves()]
+                words, mem_s = _timed(lambda: [store.pager.fetch(path, k) for path in paths])
+                mem_bytes = sum(w.numel() * 4 for w in words)
+                del words
+                if mem_bytes != want:
+                    raise AssertionError(f"in-memory delta_{k}: {mem_bytes} bytes, want {want}")
+                out[f"poll_{k}"] = {"rung": rung, "page_in": rep["page_in"], "seconds": poll_s,
+                                    "gb_per_s": want / poll_s / 1e9,
+                                    "in_memory_seconds": mem_s,
+                                    "in_memory_gb_per_s": want / mem_s / 1e9}
+                log(f"[artifact] delta_{k} delivered: poll -> rung {rep['rung']}, page-in "
+                    f"{rep['page_in']} B in {poll_s:.3f}s ({want / poll_s / 1e9:.2f} GB/s disk "
+                    f"to card); the same streams through the InMemoryPager {mem_s:.3f}s "
+                    f"({want / mem_s / 1e9:.2f} GB/s)")
+            reqs = make_requests(p, cfg.vocab_size)
+            walls[rung], _, _ = checked_generate(engine, reqs, rung, per_forward,
+                                                 f"artifact rung {rung}")
+            toks = [r.out_tokens for r in reqs]
+            if toks != phases[p]["tokens"]:
+                raise AssertionError(f"artifact rung {rung}: tokens {toks} differ from phase "
+                                     f"2's {phases[p]['tokens']}")
+        if pager.bytes_moved != engine.store.ledger.page_in_bytes:
+            raise AssertionError(f"link moved {pager.bytes_moved} B, ledger page-in "
+                                 f"{engine.store.ledger.page_in_bytes} B")
+        out["boot"] = {"seconds": boot_s, "bytes_read": dict(art.bytes_read),
+                       "generate_wall_s": walls, "link_bytes_moved": pager.bytes_moved,
+                       "link_simulated_s": pager.simulated_seconds,
+                       "virtual_clock_s": clock.now()}
+        log(f"[artifact] rungs 0, 1, 2 served phase 2's tokens; generate walls {walls}; "
+            f"100 Mbit/s link (virtual): {pager.bytes_moved} B in "
+            f"{pager.simulated_seconds:.1f}s simulated = the ledger's page-in")
+
+        # -- c. warm-up -------------------------------------------------------
+        calls, warm_s = _timed(lambda: engine.warmup(prompt_len=PROMPT, batch=BATCH))
+        built = _build_state()
+        out["warmup"] = {"calls": calls, "seconds": warm_s, **built}
+        log(f"[artifact] warmup: {calls} calls in {warm_s:.2f}s; {built}")
+
+        # -- d. scheduled burst trace ----------------------------------------
+        svc = ServiceModel()
+        es = engine.store
+        engine.policy = _load_policy()
+        qps = calibrate_qps(es, svc, steps=NEW_TOKENS, max_batch=BATCH, utilization=0.4)
+        burst = 1.05 * svc.capacity_rps(es.rung_resident_bytes(0), NEW_TOKENS, BATCH)
+        trace = LoadGenerator("burst", qps=qps, n_requests=SCHED_REQUESTS,
+                              vocab_size=cfg.vocab_size, seed=0, prompt_len=PROMPT,
+                              new_tokens=NEW_TOKENS, burst_qps=burst)
+        sched = Scheduler(engine, trace, svc, max_batch=BATCH)
+        before = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
+        # device activity only, summed from the raw events: the ~27
+        # full-width generates make ~10^5 device events, and building the
+        # profiler's per-op tables over them takes minutes
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            report, sched_s = _timed(sched.run)
+        t_sum = time.perf_counter()
+        busy_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == DeviceType.CUDA) / 1e6
+        sum_s = time.perf_counter() - t_sum
+        del prof
+        got = {n: dispatch.COUNTERS[n].launches - before[n] for n in KERNELS}
+        if got != _scheduled_launches(report, per_forward):
+            raise AssertionError(f"scheduled run launches {got}, want "
+                                 f"{_scheduled_launches(report, per_forward)}")
+        _check_report(report, SCHED_REQUESTS, cfg.vocab_size, "scheduled run")
+        # the first batch again, directly at its rung, with the same fillers
+        first = report.steps[0]
+        done = report.requests[:first["batch"]]
+        reqs = [Request(r.request.uid, r.request.prompt, NEW_TOKENS) for r in done]
+        reqs += [Request(-1, done[-1].request.prompt, NEW_TOKENS)
+                 for _ in range(first["filler"])]
+        engine.policy = BudgetPolicy()
+        checked_generate(engine, reqs, first["rung"], per_forward, "first batch again")
+        if [r.out_tokens for r in reqs[:len(done)]] != [r.request.out_tokens for r in done]:
+            raise AssertionError("the first scheduled batch's tokens differ from a direct "
+                                 "generate at its rung")
+        after = _build_state()
+        if after != built:
+            raise AssertionError(f"a serve after warmup changed the build state: "
+                                 f"{built} -> {after}")
+        walk = [s["rung"] for s in report.steps]
+        summary = report.summary()
+        out["scheduler"] = {
+            "summary": summary, "rung_walk": walk, "wall_s": sched_s,
+            "device_busy_ms": busy_ms if busy_ms > 0 else None,
+            "device_busy_share": busy_ms / 1e3 / sched_s if busy_ms > 0 else None,
+            "launches": got, "switch_records": report.switch_records,
+            "qps": qps, "burst_qps": burst,
+            "downshift_and_recovery": min(walk) < walk[0] and walk[-1] == walk[0]}
+        log(f"[sched] {report.table()}")
+        log(f"[sched] rung walk {walk}; switches {report.switch_records}")
+        log(f"[sched] wall {sched_s:.2f}s under the profiler, device busy "
+            f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms ({busy_ms / 1e3 / sched_s:.1%})'}"
+            f" (summed in {sum_s:.1f}s); virtual elapsed {summary['elapsed_s']:.2f}s (the "
+            f"service model's clock, not "
+            f"the card's); launches {got}; first batch re-served identically; build state "
+            f"unchanged {after}")
+        if not out["scheduler"]["downshift_and_recovery"]:
+            log("[sched] no downshift-and-climb-back in this walk (see PERF.md)")
+
+        # -- e. kv-aware scheduled run ---------------------------------------
+        kv_engine = ServeEngine(cfg, es, max_batch=BATCH, max_len=KV_PROMPT + NEW_TOKENS,
+                                policy=_load_policy(), model=engine.model,
+                                kv=KVCacheConfig(bits=(4, 6, 8), page=KV_PAGE, rounding="rtn"))
+        kv_calls, kv_warm_s = _timed(lambda: kv_engine.warmup(prompt_len=KV_PROMPT,
+                                                              batch=BATCH))
+        budget = es.rung_resident_bytes(2) + 2 * kv_engine.kv_bytes_per_seq(2)
+        kv_trace = LoadGenerator("burst", qps=qps, n_requests=KV_SCHED_REQUESTS,
+                                 vocab_size=cfg.vocab_size, seed=0, prompt_len=KV_PROMPT,
+                                 new_tokens=NEW_TOKENS, burst_qps=burst)
+        before = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
+        kv_report, kv_s = _timed(Scheduler(kv_engine, kv_trace, svc, max_batch=BATCH,
+                                           memory_budget_bytes=budget, kv_aware=True).run)
+        got_kv = {n: dispatch.COUNTERS[n].launches - before[n] for n in KERNELS}
+        if got_kv != _scheduled_launches(kv_report, per_forward):
+            raise AssertionError(f"kv-aware run launches {got_kv}, want "
+                                 f"{_scheduled_launches(kv_report, per_forward)}")
+        _check_report(kv_report, KV_SCHED_REQUESTS, cfg.vocab_size, "kv-aware run")
+        if not kv_report.kv_switch_records:
+            log("[sched-kv] the KV rung did not move in this run")
+        caps = [(s["admit_cap"], s["kv_rung"]) for s in kv_report.steps]
+        out["kv_scheduler"] = {
+            "summary": kv_report.summary(), "wall_s": kv_s, "warmup_calls": kv_calls,
+            "warmup_s": kv_warm_s, "budget_bytes": budget, "admit_cap_kv_rung": caps,
+            "rung_walk": [s["rung"] for s in kv_report.steps], "launches": got_kv,
+            "switch_records": kv_report.switch_records,
+            "kv_switch_records": kv_report.kv_switch_records}
+        log(f"[sched-kv] {kv_report.table()}")
+        log(f"[sched-kv] warmup {kv_calls} calls in {kv_warm_s:.2f}s; budget {budget} B; "
+            f"(admit_cap, kv_rung) per step {caps}; weight rungs "
+            f"{out['kv_scheduler']['rung_walk']}; KV switches {kv_report.kv_switch_records}; "
+            f"wall {kv_s:.2f}s; launches {got_kv}")
+        out["launches"] = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches)
+                           for n in KERNELS}
+        if any(dispatch.COUNTERS[n].plain_launches for n in dispatch.COUNTERS):
+            raise AssertionError("a plain version ran on the artifact path")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        store.to_rung(prev_rung)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[artifact] phase 3b took {out['seconds']:.1f}s; K1-K3 launches (all bodies, "
+        f"decode body) {out['launches']}")
     return out
 
 
@@ -1225,6 +1536,9 @@ def main() -> int:
     profile_info = phase_profile(engine, store, cfg, packed_linears_per_forward(store))
     reference = phase_reference(cfg, store, phases)
     del engine
+    artifact = phase_artifact(cfg, store, phases, packed_linears_per_forward(store))
+    launches = {n: (launches[n][0] + artifact["launches"][n][0],
+                    launches[n][1] + artifact["launches"][n][1]) for n in KERNELS}
     peak_before_long = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     long_engine_, dense, long_info = phase_long_serve(cfg, store,
@@ -1251,7 +1565,8 @@ def main() -> int:
             f"{v['dense_bf16_matmul_ms']:.3f}, bound {v['bound_ms']:.3f})" for n, v in by.items()))
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
-              "reference": reference, "long_serve": long_info, "served_kv": served_kv,
+              "reference": reference, "artifact": artifact,
+              "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose,
               "kernels": kernels, "decode_steps": steps,

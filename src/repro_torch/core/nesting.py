@@ -185,6 +185,10 @@ class NestedTensor:
         rung = check_rung(rung, self.num_rungs)
         return dequantize(self.codes_at(rung), self.rung_scale(rung), dtype)
 
+    def full_bit(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Dequantized top-rung weight (every delta stream resident)."""
+        return self.rung_weight(self.top, dtype)
+
     def gather_rows(self, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantized logical rows ``idx`` along the packed K axis, read
         straight from the packed words (the embedding gather).  Returns

@@ -20,3 +20,11 @@ def dequantize(w_int: torch.Tensor, scale: torch.Tensor,
                dtype=torch.float32) -> torch.Tensor:
     """Eq. 3: w_hat = s * w_int."""
     return (w_int.float() * scale).to(dtype)
+
+
+def sqnr_db(w: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
+    """Signal-to-quantization-noise ratio in dB (a quality proxy), in f32
+    on the tensors' device."""
+    w = w.float()
+    err = w - w_hat.float()
+    return 10.0 * torch.log10(torch.sum(w * w) / torch.clamp(torch.sum(err * err), min=1e-30))

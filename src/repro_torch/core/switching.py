@@ -272,6 +272,61 @@ class NestQuantStore:
     def nested_leaves(self) -> List[Tuple[str, NestedTensor]]:
         return [(p, self._flat[self._leaf_index[p]]) for p in self._leaf_paths]
 
+    def hydrated_leaves(self) -> List[Tuple[str, NestedTensor]]:
+        """Like :meth:`nested_leaves` but with EVERY delta level present:
+        missing streams are fetched through the pager transiently (and
+        evicted again, also when a fetch fails); residency and ledger are
+        untouched.  Off the serving path (quality probes, export)."""
+        out = []
+        for path in self._leaf_paths:
+            leaf: NestedTensor = self._flat[self._leaf_index[path]]
+            if leaf.resident_levels < len(leaf.deltas):
+                ds = list(leaf.deltas)
+                self._fetch_transient(path, ds, range(leaf.resident_levels, len(ds)))
+                leaf = leaf.with_deltas(tuple(ds))
+            out.append((path, leaf))
+        return out
+
+    def _fetch_transient(self, path: str, ds: list, levels) -> None:
+        """Fill ``ds[level]`` from the pager for each of ``levels`` and evict
+        each fetched stream again, also when a later fetch fails."""
+        fetched = []
+        try:
+            for i in levels:
+                ds[i] = self.pager.fetch(path, i)
+                fetched.append(i)
+        finally:
+            for i in fetched:
+                self.pager.evict(path, i)
+
+    def rung_view(self, rung: int, *, stamp=None):
+        """The packed tree AS IF uniform rung ``rung`` were resident,
+        without changing residency (no ledger events): each nested leaf
+        carries exactly its first ``min(rung, top)`` delta streams -
+        streams not resident are fetched transiently through the pager and
+        evicted again, streams resident beyond the view are dropped from
+        the copy - stamped ``stamp`` (an int or a ``{keystr: rung}`` map,
+        default ``rung``; clamped to the view).  Its leaves match
+        ``params()`` after ``to_rung(rung)``, which is what engine warm-up
+        runs against."""
+        rung = check_rung(rung, self.num_rungs)
+        paths = {i: p for p, i in self._leaf_index.items()}
+        out = []
+        for i, leaf in enumerate(self._flat):
+            if not isinstance(leaf, NestedTensor):
+                out.append(leaf)
+                continue
+            path = paths[i]
+            r = min(rung, leaf.top)
+            ds = list(leaf.deltas)
+            self._fetch_transient(path, ds, [j for j in range(r) if ds[j] is None])
+            ds = ds[:r] + [None] * (len(ds) - r)
+            s = stamp.get(path, r) if isinstance(stamp, dict) else (
+                r if stamp is None else stamp)
+            s = min(check_rung(s, self.num_rungs), r)
+            out.append(leaf.with_deltas(tuple(ds)).with_rung(s))
+        return tree.unflatten(self.nested_params, out)
+
     def resolve_assignment(self, assignment: RungAssignment) -> Dict[str, int]:
         return {p: assignment.rung_for(p, self.num_rungs, len(self._leaf_streams[p]))
                 for p in self._leaf_paths}

@@ -1,7 +1,8 @@
-"""Serving engine: batched requests, prefill/greedy decode, rung switching
-and the nested KV cache; the part of ``repro/serving/engine.py`` these
-paths run (``Request``, ``EngineStats``, ``ServeEngine.__init__``/
-``ensure_mode``/``generate`` and the KV hooks).
+"""Serving engine: batched requests, prefill/greedy decode, rung switching,
+the nested KV cache, cold boot from an artifact with progressive delivery,
+and warm-up; counterpart of ``repro/serving/engine.py`` without
+speculative decoding (``SpecConfig``, ``DecodeProfile``: ROADMAP.md queue 1,
+item 9).
 
 At every request boundary the policy sees the memory budget and the
 recent switch history, and the store pages exactly the delta streams its
@@ -20,17 +21,19 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.switching import NestQuantStore
-from ..device import torch_dtype
+from ..device import resolve_device, torch_dtype
 from ..models.model import Model, make_model
+from ..storage.artifact import ArtifactError
 from ..storage.pager import PagerError
 from .kv_cache import (KVCacheConfig, NestedKVCache, dense_kv_bytes_per_token,
                        kv_bytes_per_token)
 from .policies import BudgetPolicy, ResourceSignal, RungPolicy, SignalTracker, \
     resolve_kv_decide
 
-# a failed rung switch rolls back in the store, so the engine keeps
-# serving at the rung it already has
-SWITCH_FAILURES = (PagerError,)
+# a failed rung switch (a pager fault, an undelivered or corrupted
+# segment) rolls back in the store, so the engine keeps serving at the rung
+# it already has
+SWITCH_FAILURES = (PagerError, ArtifactError)
 
 MODE_HISTORY_CAP = 512
 
@@ -52,6 +55,11 @@ class EngineStats:
     last_failure: str = ""
     mode_history: deque = field(default_factory=lambda: deque(maxlen=MODE_HISTORY_CAP))
     mode_counts: Dict[str, int] = field(default_factory=dict)
+    # scheduler: batches a Scheduler dispatched, real requests it admitted,
+    # and the filler clones it padded batches with (served to no client)
+    sched_steps: int = 0
+    sched_admitted: int = 0
+    sched_filler: int = 0
     # nested KV cache
     kv_switches: int = 0          # committed cache rung moves
     kv_switch_failures: int = 0   # cache switch attempts rolled back
@@ -86,8 +94,111 @@ class ServeEngine:
         self.max_len = max_len
         self.policy = policy if policy is not None else BudgetPolicy()
         self.stats = EngineStats()
+        self.artifact = None          # set by from_artifact
+        # what a generate call dispatched, for the scheduler's cost model:
+        # the speculative decoder's profile, so None until item 9
+        self.last_profile = None
         self._tracker = SignalTracker()
         self._params = None
+
+    # -- deployment --------------------------------------------------------
+    @classmethod
+    def from_artifact(cls, cfg: ModelConfig, path, *, pager=None,
+                      policy: Optional[RungPolicy] = None, max_batch: int = 8,
+                      max_len: int = 128, device=None,
+                      verify: bool = True) -> "ServeEngine":
+        """Cold-boot on ``device`` (default: the card) from a saved artifact:
+        reads ONLY ``manifest.json`` and the base segment and serves at
+        rung 0 at once; delta streams page in through ``pager`` (default:
+        a :class:`~repro_torch.storage.pager.FilePager` over the same
+        artifact, landing on ``device``) on a budget upgrade, or rung by
+        rung through :meth:`poll_delivery` as delta segments arrive."""
+        from ..storage.artifact import Artifact, open_artifact
+        from ..storage.pager import FilePager
+        device = resolve_device(device)
+        art = path if isinstance(path, Artifact) else open_artifact(path)
+        store = NestQuantStore(
+            art.load_base_tree(device), mode="part", device=device,
+            pager=pager if pager is not None else FilePager(art, verify=verify,
+                                                            device=device))
+        eng = cls(cfg, store, max_batch=max_batch, max_len=max_len, policy=policy)
+        eng.artifact = art
+        return eng
+
+    def poll_delivery(self) -> Dict[str, object]:
+        """Progressive delivery: climb one adjacent rung at a time while the
+        pager has the next delta level available.  A climb step that fails
+        rolls back in the store and ends this poll; the next poll
+        re-probes.  Refreshes the cached serving params.  Returns
+        {'from_rung', 'rung', 'modes', 'page_in', 'failed'} for this poll
+        (page_in = observed, ledgered bytes)."""
+        start = self.store.rung
+        in0 = self.store.ledger.page_in_bytes
+        reached: List[str] = []
+        failed = ""
+        while (self.store.rung < self.store.num_rungs - 1
+               and self.store.max_available_rung() > self.store.rung):
+            try:
+                self.store.to_rung(self.store.rung + 1)
+            except SWITCH_FAILURES as e:
+                failed = str(e)
+                self.stats.switch_failures += 1
+                self.stats.last_failure = failed
+                self._tracker.note(False, failed=True)
+                break
+            self.stats.switches += 1
+            self.stats.record_mode(self.store.mode)
+            reached.append(self.store.mode)
+        if reached:
+            self._params = self.store.params()
+        return {"from_rung": start, "rung": self.store.rung, "modes": reached,
+                "page_in": self.store.ledger.page_in_bytes - in0,
+                "failed": failed}
+
+    # -- warm-up -----------------------------------------------------------
+    def warmup(self, prompt_len, *, batch: Optional[int] = None, rungs=None) -> int:
+        """Run every (rung, prompt length) the serve loop will dispatch once,
+        on throwaway buffers, so a later serve builds nothing.
+
+        The JAX package pre-traces its jitted steps here.  The card's
+        equivalent: the first launch of a kernel builds and loads the
+        kernel libraries, the first decode-body launch of a shape fills its
+        plan (``kernels/build.py::dec_plan``) and may grow the device's
+        arrival counters (``build.dec_counters``), which would replace the
+        buffer a captured graph holds.  So this loads every kernel library
+        (on the card), then runs the prefill of each prompt length and one
+        decode step at each rung on
+        :meth:`~repro_torch.core.switching.NestQuantStore.rung_view` trees,
+        whose leaves match ``store.params()`` at that rung (no residency
+        change, no ledger event), and with a nested KV cache runs its
+        quantize and render for each prompt length.  ``prompt_len`` is an
+        int or the prompt lengths after left-padding; ``batch`` defaults to
+        ``max_batch`` (what a bucketing Scheduler dispatches).  Returns the
+        number of warm-up calls, as the JAX package counts them."""
+        B = self.max_batch if batch is None else batch
+        plens = ([prompt_len] if isinstance(prompt_len, int)
+                 else sorted(set(prompt_len)))
+        rungs = range(self.store.num_rungs) if rungs is None else sorted(set(rungs))
+        if self.device.type == "cuda":
+            from ..kernels import build
+            for source in build.SIGNATURES:
+                build.library(source)
+        tok1 = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
+        calls = 0
+        for r in rungs:
+            params = self.store.rung_view(r)
+            for S in plens:
+                self.model.prefill(params, {"tokens": torch.zeros(
+                    (B, S), dtype=torch.int64, device=self.device)})
+                calls += 1
+            self.model.decode_step(params, {"tokens": tok1},
+                                   self.model.make_cache(B, self.max_len))
+            calls += 1
+        if self.kv is not None:
+            for S in plens:
+                calls += self.kv.warm(self.cfg.num_layers, B, S, self.cfg.num_kv_heads,
+                                      self.cfg.head_dim, device=self.device)
+        return calls
 
     # -- switching ---------------------------------------------------------
     def ensure_mode(self, memory_budget_bytes: Optional[int] = None,

@@ -36,6 +36,7 @@ from ..core.decompose import (ROUNDINGS, chain_decompose, chain_recompose,
                               delta_bits, normalize_bits)
 from ..core.quantizer import int_range
 from ..core.switching import SwitchLedger
+from ..device import resolve_device
 from ..storage.pager import InMemoryPager
 
 
@@ -374,3 +375,28 @@ class NestedKVCache:
             out.append(_render_kv(streams, scale, bits=self.config.bits,
                                   page=self.config.page, rung=r))
         return out[0], out[1]
+
+    def warm(self, num_layers: int, batch: int, positions: int,
+             num_kv_heads: int, head_dim: int, rungs=None, device=None) -> int:
+        """Run the quantize and the render of every rung once on throwaway
+        buffers of this geometry on ``device`` (default: the card); pages,
+        rung, ledger and pager are untouched.  The JAX package pre-traces
+        its jitted versions here; these are plain tensor functions with
+        nothing to trace, so the run brings the device's allocator pool to
+        the sizes a first ingest and render take.  Returns the JAX
+        package's call count."""
+        P = self.config.page
+        n = positions // P
+        if n == 0:
+            return 0
+        slab = torch.zeros((num_layers, batch, n * P, num_kv_heads, head_dim),
+                           dtype=torch.float32, device=resolve_device(device))
+        streams, scale = _quantize_kv(slab, bits=self.config.bits, page=P,
+                                      rounding=self.config.rounding)
+        calls = 1
+        rungs = range(self.config.num_rungs) if rungs is None else sorted(set(rungs))
+        for r in rungs:
+            _render_kv(tuple(streams[:1 + r]), scale, bits=self.config.bits,
+                       page=P, rung=r)
+            calls += 1
+        return calls

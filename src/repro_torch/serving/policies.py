@@ -1,20 +1,35 @@
-"""Rung-selection policies; the part of ``repro/serving/policies.py`` the
-serving path needs: :class:`ResourceSignal` (with the nested KV cache's
-fields), :class:`DeliveryHealth`, the :class:`RungPolicy` protocol,
-:class:`BudgetPolicy`, :class:`StaticRungPolicy`,
-:class:`LoadAdaptivePolicy` (weight and KV rungs), :func:`resolve_kv_decide`
-and :class:`SignalTracker`.
+"""Rung-selection policies; counterpart of ``repro/serving/policies.py``.
 
-A policy turns a resource signal (device-memory budget, queue depth,
-recent switch history) into a per-leaf
-:class:`~repro_torch.core.switching.RungAssignment`; the engine applies it.
+A :class:`RungPolicy` turns a :class:`ResourceSignal` (memory budget,
+queue depth, recent switch history) into a per-leaf
+:class:`~repro_torch.core.switching.RungAssignment`; the engine (or
+:func:`simulate_policy`) applies it and ledgers the page traffic.
+
+* :class:`BudgetPolicy` - the highest uniform rung fitting the budget.
+* :class:`HysteresisPolicy` - wraps any policy; within ``dwell`` decisions
+  of the last residency change only downgrades pass.
+* :class:`QualityFloorPolicy` - wraps any policy; raises leaves whose rung
+  would fall below a quality floor (SQNR dB or Pearson correlation against
+  the full-bit weight).
+* :class:`LoadAdaptivePolicy` - one rung down when the backlog builds, one
+  up when it drains (weight and nested KV cache rungs).
+* :class:`StaticRungPolicy` - one rung forever.
+
+``FailureAwarePolicy`` waits for the fault tier (ROADMAP.md queue 1,
+item 11): ``make_policy("failure")`` raises.
 """
 from __future__ import annotations
 
+import math
+import warnings
+import weakref
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Protocol, Tuple, runtime_checkable
+from typing import Dict, List, Optional, Protocol, Sequence, Tuple, runtime_checkable
 
+import torch
+
+from ..core.quantizer import sqnr_db
 from ..core.switching import NestQuantStore, RungAssignment
 
 
@@ -122,6 +137,112 @@ class LoadAdaptivePolicy:
         return cur
 
 
+class HysteresisPolicy:
+    """Dwell-window wrapper: after any residency change, upgrades are held
+    for ``dwell`` further decisions while downgrades pass at once (a
+    shrinking budget is a hard constraint; a recovering one can wait)."""
+
+    def __init__(self, inner: Optional[RungPolicy] = None, dwell: int = 4):
+        if dwell < 0:
+            raise ValueError(f"dwell must be >= 0, got {dwell}")
+        self.inner = inner if inner is not None else BudgetPolicy()
+        self.dwell = dwell
+
+    def decide(self, store: NestQuantStore,
+               signal: ResourceSignal) -> RungAssignment:
+        want = self.inner.decide(store, signal)
+        cur = store.leaf_rungs()
+        tgt = store.resolve_assignment(want)
+        if tgt == cur:
+            return want
+        in_dwell = (signal.recent_switches
+                    and signal.step - signal.recent_switches[-1] < self.dwell)
+        if not in_dwell:
+            return want
+        held = {p: min(tgt[p], cur[p]) for p in cur}   # downgrades only
+        return RungAssignment(default=store.rung, exact=tuple(held.items()))
+
+
+def _pearson(x: torch.Tensor, y: torch.Tensor) -> float:
+    """``core.similarity.pearson`` in float64 on the tensors' device."""
+    x, y = x.double().reshape(-1), y.double().reshape(-1)
+    xc, yc = x - x.mean(), y - y.mean()
+    denom = math.sqrt(float((xc * xc).sum()) * float((yc * yc).sum()))
+    return float((xc * yc).sum() / denom) if denom else 0.0
+
+
+class QualityFloorPolicy:
+    """Quality-floor wrapper: leaves whose rung would fall below the floor
+    are raised to their lowest acceptable rung, whatever the inner policy
+    asked for.
+
+    ``metric='sqnr'`` floors the per-leaf SQNR in dB of the rung weight
+    against the full-bit weight; ``'pearson'`` floors their Pearson
+    correlation.  A leaf no rung of which meets the floor is pinned to its
+    top rung.  The proxies are computed on the store's device, from
+    :meth:`~repro_torch.core.switching.NestQuantStore.hydrated_leaves`
+    (paged-out streams fetched transiently), once per store on the first
+    decision, and cached; :meth:`floor_rungs` warms the cache up front."""
+
+    METRICS = ("sqnr", "pearson")
+
+    def __init__(self, inner: Optional[RungPolicy] = None,
+                 floor: float = 20.0, metric: str = "sqnr"):
+        if metric not in self.METRICS:
+            raise ValueError(f"metric {metric!r} not in {self.METRICS}")
+        self.inner = inner if inner is not None else BudgetPolicy()
+        self.floor = floor
+        self.metric = metric
+        # id(store) -> (weakref guard, quality map, floor map); the guard
+        # detects a recycled id, dead entries are swept on a miss
+        self._cache: Dict[int, tuple] = {}
+
+    def _entry(self, store: NestQuantStore) -> tuple:
+        hit = self._cache.get(id(store))
+        if hit is not None and hit[0]() is store:
+            return hit
+        self._cache = {k: v for k, v in self._cache.items() if v[0]() is not None}
+        qual: Dict[str, Tuple[float, ...]] = {}
+        for path, leaf in store.hydrated_leaves():
+            full = leaf.full_bit(torch.float32)
+            scores = []
+            for r in range(leaf.num_rungs - 1):
+                w = leaf.rung_weight(r, torch.float32)
+                scores.append(float(sqnr_db(full, w)) if self.metric == "sqnr"
+                              else _pearson(full, w))
+            scores.append(float("inf") if self.metric == "sqnr" else 1.0)
+            qual[path] = tuple(scores)
+        floors = {path: next((r for r, q in enumerate(scores) if q >= self.floor),
+                             len(scores) - 1)
+                  for path, scores in qual.items()}
+        entry = (weakref.ref(store), qual, floors)
+        self._cache[id(store)] = entry
+        return entry
+
+    def leaf_quality(self, store: NestQuantStore) -> Dict[str, Tuple[float, ...]]:
+        """Per-leaf quality proxy at every rung (the top rung is exact:
+        +inf SQNR / 1.0 correlation)."""
+        return self._entry(store)[1]
+
+    def floor_rungs(self, store: NestQuantStore) -> Dict[str, int]:
+        """Lowest acceptable rung per leaf (its top when even that misses)."""
+        return self._entry(store)[2]
+
+    def decide(self, store: NestQuantStore,
+               signal: ResourceSignal) -> RungAssignment:
+        want = self.inner.decide(store, signal)
+        # floors are judged against the FULL ladder: while an artifact is
+        # still being delivered, pass the inner decision through
+        if store.max_available_rung() < store.num_rungs - 1:
+            return want
+        floors = self.floor_rungs(store)
+        tgt = store.resolve_assignment(want)
+        raised = {p: max(r, floors[p]) for p, r in tgt.items()}
+        if raised == tgt:
+            return want
+        return RungAssignment(default=want.default, exact=tuple(raised.items()))
+
+
 def resolve_kv_decide(policy, kv, signal: ResourceSignal) -> Optional[int]:
     """The cache-rung verdict of the first policy in a wrapper chain
     (``.inner`` links, outside-in) that has a ``kv_decide``; None when
@@ -177,3 +298,50 @@ class SignalTracker:
             self.consecutive_failures = 0
             self.switch_steps.append(self.step)
         self.step += 1
+
+
+def _failure_not_ported(**kwargs):
+    raise NotImplementedError("FailureAwarePolicy is not ported yet (ROADMAP.md "
+                              "queue 1, item 11)")
+
+
+POLICIES = {"budget": BudgetPolicy, "hysteresis": HysteresisPolicy,
+            "quality": QualityFloorPolicy, "load": LoadAdaptivePolicy,
+            "static": StaticRungPolicy, "failure": _failure_not_ported}
+
+
+def make_policy(name: str, **kwargs) -> RungPolicy:
+    """CLI-facing factory: 'budget' | 'hysteresis' | 'quality' | 'load' |
+    'static' | 'failure' (not ported yet: raises)."""
+    if name not in POLICIES:
+        raise ValueError(f"unknown policy {name!r}; pick from {sorted(POLICIES)}")
+    return POLICIES[name](**kwargs)
+
+
+def simulate_policy(policy: RungPolicy, store: NestQuantStore,
+                    budgets: Sequence[Optional[int]]) -> Dict[str, object]:
+    """Drive ``policy`` over a budget trace WITHOUT decoding (deprecated, as
+    in the JAX package: a traffic-shaped run belongs to the
+    :class:`~repro_torch.serving.scheduler.Scheduler`).  Returns
+    {'switches', 'page_in', 'page_out', 'modes'}, 'switches' counting the
+    decisions that moved residency."""
+    warnings.warn(
+        "simulate_policy is deprecated: use serving.scheduler.Scheduler "
+        "for traffic-driven runs, or drive store.apply(policy.decide(...))"
+        " directly for budget traces (removal: two minor releases after "
+        "0.8)", DeprecationWarning, stacklevel=2)
+    tracker = SignalTracker()
+    in0, out0 = store.ledger.page_in_bytes, store.ledger.page_out_bytes
+    switches = 0
+    modes: List[str] = []
+    for budget in budgets:
+        report = store.apply(policy.decide(store, tracker.signal(
+            memory_budget_bytes=budget)))
+        moved = report["moves"] > 0
+        switches += int(moved)
+        tracker.note(moved)
+        modes.append(store.mode)
+    return {"switches": switches,
+            "page_in": store.ledger.page_in_bytes - in0,
+            "page_out": store.ledger.page_out_bytes - out0,
+            "modes": modes}

@@ -3,7 +3,8 @@ the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their three
 bodies - decode at M <= 8, CUDA cores at M 9-63 and f32 above M 8, tensor
 cores at bf16 prefill M - the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
-recompose K6), and the kernel routes' refusals.
+recompose K6), the kernel routes' refusals, artifact fetches onto the card,
+and a serve after ``ServeEngine.warmup`` that builds nothing.
 
 Marked ``gpu``: these need an NVIDIA H100 and nvcc, and skip elsewhere.
 Whether a card is present is decided inside the fixture, never at import,
@@ -13,6 +14,7 @@ so every test worker collects the same tests.  Run on the card with
 
 This file imports no JAX: the machine with the card has none.
 """
+import dataclasses
 import math
 
 import pytest
@@ -676,3 +678,72 @@ def test_new_kernel_routes_raise_instead_of_falling_back(cuda):
     nt = nest_quantize(torch.randn(512, 64, device=cuda), bits=(8, 4), rounding="rtn")
     with pytest.raises(ValueError):
         nr.nest_recompose(nt.w_base, nt.deltas[0], n=9, h=4, K=512, block_k=nt.block)
+
+
+# ---------------------------------------------------------------------------
+# storage and warm-up on the card
+# ---------------------------------------------------------------------------
+def test_file_pager_fetches_land_on_the_card_bit_exact(cuda, tmp_path):
+    """Every FilePager fetch lands on the card equal to the in-memory
+    pager's stream, and a store booted from the artifact climbs to the
+    same packed tree."""
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.storage import FilePager, InMemoryPager, load_store, save_artifact
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    tree = {"blocks": {"q": nest_quantize(torch.randn(3, 1536, 1536, generator=g,
+                                                      device=cuda) / 40, bits=(8, 6, 4))},
+            "head": nest_quantize(torch.randn(1536, 256, generator=g, device=cuda) / 40,
+                                  bits=(8, 6, 4)),
+            "norm": torch.randn(1536, generator=g, device=cuda).to(torch.bfloat16)}
+    save_artifact(tree, str(tmp_path / "art"))
+    mem = InMemoryPager.from_tree(tree)
+    fp = FilePager(str(tmp_path / "art"), device="cuda")
+    for (path, lvl), host in mem._streams.items():
+        got = fp.fetch(path, lvl)
+        assert got.is_cuda and torch.equal(got, mem.fetch(path, lvl))
+        assert torch.equal(got.cpu(), host.cpu())
+    store = load_store(str(tmp_path / "art"), device="cuda").to_rung(2)
+    want = NestQuantStore(tree, mode="full", device="cuda")
+    for (p, a), (q, b) in zip(store.nested_leaves(), want.nested_leaves()):
+        assert p == q and torch.equal(a.w_base, b.w_base) and torch.equal(a.scale, b.scale)
+        assert all(torch.equal(x, y) for x, y in zip(a.deltas, b.deltas))
+    assert torch.equal(store.nested_params["norm"], tree["norm"])
+
+
+def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
+    """After ``warmup`` a generate at every rung loads no kernel library,
+    fills no decode-body plan and keeps the arrival counters' buffer, with
+    every packed_linear on a kernel (2 layers of qwen2-1.5b at full width)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    store = NestQuantStore(quantize(init_params(cfg, seed=0, device=cuda),
+                                    QuantRecipe(bits=(8, 6, 4)), device=cuda),
+                           mode="part", device=cuda)
+    engine = ServeEngine(cfg, store, max_batch=4, max_len=32)
+    assert engine.warmup(8, batch=4) == 6
+    dev = torch.cuda.current_device()
+    libs, plans = sorted(build._libs), dict(build._dec_plans)
+    buf = build._dec_counters[dev]
+    ptr, numel = buf.data_ptr(), buf.numel()
+    need = [store.rung_resident_bytes(r) for r in range(3)]
+    dispatch.reset_counters()
+    for rung in (0, 1, 2, 1):
+        budget = need[-1] * 2 if rung == 2 else need[rung]
+        reqs = [Request(i, torch.arange(8, dtype=torch.int32).numpy() + i, max_new_tokens=4)
+                for i in range(4)]
+        engine.generate(reqs, memory_budget_bytes=budget)
+        torch.cuda.synchronize()
+        assert store.rung == rung
+        assert sorted(build._libs) == libs and build._dec_plans == plans
+        assert build._dec_counters[dev] is buf
+        assert (buf.data_ptr(), buf.numel()) == (ptr, numel)
+    assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
+    assert all(dispatch.counter(n).launches > 0
+               for n in ("packed_matmul", "nested_matmul", "ladder_matmul"))
