@@ -48,6 +48,25 @@ Phases (each raises on failure; the script then exits non-zero):
    buffer is new; and a kv-aware ``Scheduler`` over 16 requests of 512
    prompt tokens on the nested KV cache.  Every switch pages its expected
    bytes and every packed_linear runs on its rung's kernel.
+3c. Self-speculative decoding and delivery faults on the phase-2 store.
+   Rows: q/o, k/v, gate/up, down and the LM head at rungs 0-2, bf16 and
+   f32 - the rows of a ``DECODE_ROWS`` call at M = 12 and 20 (a verify
+   chunk of batch 4, k = 2 and 4: the decode body once per group of 8
+   rows) equal bit for bit the same rows of M = 4 and M = 1 decode calls;
+   each bf16 verify call timed beside the k + 1 decode calls it replaces.
+   Serve: 4 requests x 8 prompt tokens x 16 new tokens at rung 2 in bf16
+   and f32, ``SpecConfig(k=4, draft=0)`` and ``SpecConfig(k=2, draft=1)``
+   emit the plain ``generate``'s tokens, every draft step on its rung's
+   kernel and every verify on the decode body in groups, no plain launch;
+   rounds, acceptance, wall and device busy printed.  Faults: the store's
+   pager behind ``ResilientPager(ChaosPager(...))`` (transient faults,
+   flipped bits, an outage of delta_1) on one ``VirtualClock`` with a
+   ``Scheduler`` under ``make_policy("failure")``, 24 requests from rung
+   0: every request completes, every failed switch leaves every resident
+   stream on the card bit-identical and the ledger unchanged, no step
+   upgrades above the deliverable rung, the served streams end equal to
+   the pristine ones; a forced failed upgrade rolls back the same way and
+   a flipped bit is caught by the CRC and healed by a retry.
 4. Time the launch floor (a one-element ``zero_()`` under CUDA-graph
    replay).  Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
    (3, 5, 6, 8), M = 6 and 48; every row beside a control with the same
@@ -916,6 +935,339 @@ def phase_artifact(cfg, store, phases, per_forward):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: self-speculative decoding and fault-tolerant delivery
+# ---------------------------------------------------------------------------
+# the leaf of each main-path shape in the served tree (layer 0 of the stacks)
+SHAPE_LEAVES = {"q/o": ("blocks", "q"), "k/v": ("blocks", "k"),
+                "gate/up": ("blocks", "mlp", "w_gate"), "down": ("blocks", "mlp", "w_down"),
+                "lm_head": ("lm_head",)}
+VERIFY_KS = (2, 4)          # verify chunks of batch 4: M = 12 and 20
+SPEC_NEW_TOKENS = 16
+SPEC_CONFIGS = ((4, 0), (2, 1))                     # (k, draft rung)
+FAULT_REQUESTS, FAULT_SEED = 24, 5
+
+
+def _leaf(params, keys):
+    node = params
+    for k in keys:
+        node = node[k]
+    node = node["w"]
+    return node.layer(0) if len(node.shape) == 3 else node
+
+
+def _profiled(fn):
+    """(fn(), wall s, device busy ms) of one call under the profiler (device
+    activity only; busy summed from its raw CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall = _timed(fn)
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return out, wall, busy
+
+
+def verify_passes(rows, cfg):
+    """K1-K3 time of one verify pass per forward (every main-path shape times
+    its uses) at M = 12 and 20, beside the k + 1 decode calls at M = 4 it
+    replaces, per rung, bf16 (single weight copies: L2 may hold the small
+    shapes, unlike the cold-L2 decode rows of phase 1)."""
+    uses = {shape: u for shape, _, _, u, _ in main_path_shapes(cfg)}
+    out = {}
+    for rung in range(3):
+        sel = [r for r in rows if r["rung"] == rung and r["dtype"] == "bfloat16"]
+        tot = lambda key: sum(r[key] * uses[r["shape"]] for r in sel)  # noqa: E731
+        out[f"rung{rung} bfloat16"] = {
+            f"k={k}": {"verify_ms": tot(f"verify_m{BATCH * (k + 1)}_ms"),
+                       "decodes_ms": (k + 1) * tot("decode_m4_ms")} for k in VERIFY_KS}
+    for key, v in out.items():
+        log(f"[spec-verify] {key}: " + "; ".join(
+            f"{k} verify {x['verify_ms']:.3f} ms per forward vs {x['decodes_ms']:.3f} ms for "
+            f"the decode steps it replaces" for k, x in v.items()))
+    return out
+
+
+def spec_rows(store, gen):
+    """Every main-path shape at rungs 0-2, bf16 and f32: the rows of a
+    ``DECODE_ROWS`` call at M = 12 and 20 (batch 4 x k + 1 for k = 2, 4)
+    equal bit for bit the same rows of M = 4 and M = 1 decode calls, one
+    decode-body launch per group of 8 rows and none elsewhere; in bf16 each
+    verify call timed (CUDA-graph replay) beside the k + 1 decode calls at
+    M = 4 it replaces (f32 rows are checked, not timed: the decode body's
+    time does not depend on the activation dtype, PERF.md)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.layers import packed_linear
+
+    params = store.params()
+    rows = []
+    for shape, keys in SHAPE_LEAVES.items():
+        top = _leaf(params, keys)
+        out_dtype = torch.float32 if shape == "lm_head" else None
+        for rung in range(3):
+            nt = top.with_rung(rung)
+            counter = dispatch.counter(("packed_matmul", "nested_matmul",
+                                        "ladder_matmul")[rung])
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(20, nt.K, generator=gen, device=DEVICE).to(dtype)
+                one = torch.cat([packed_linear(x[i:i + 1], nt, out_dtype) for i in range(20)])
+                four = torch.cat([packed_linear(x[i:i + 4], nt, out_dtype)
+                                  for i in range(0, 20, 4)])
+                timed = dtype == torch.bfloat16
+                d4_ms = (time_graph_ms(lambda i: packed_linear(x[:4], nt, out_dtype), 10, reps=3)
+                         if timed else None)
+                row = {"shape": shape, "K": nt.K, "N": nt.shape[-1], "rung": rung,
+                       "dtype": str(dtype).replace("torch.", ""), "decode_m4_ms": d4_ms}
+                for k in VERIFY_KS:
+                    M = BATCH * (k + 1)
+                    before = (counter.launches, counter.dec_launches, counter.plain_launches)
+                    got = packed_linear(x[:M], nt, out_dtype, route=dispatch.DECODE_ROWS)
+                    groups = -(-M // dispatch.DEC_MAX_M)
+                    after = (counter.launches, counter.dec_launches, counter.plain_launches)
+                    if after != (before[0] + groups, before[1] + groups, before[2]):
+                        raise AssertionError(f"verify {shape} rung {rung} {dtype} M={M}: "
+                                             f"launches {before} -> {after}")
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got, one[:M]) and torch.equal(got, four[:M])):
+                        raise AssertionError(f"verify {shape} rung {rung} {dtype} M={M}: rows "
+                                             f"differ from the decode calls' rows")
+                    row[f"verify_m{M}_ms"] = time_graph_ms(
+                        lambda i: packed_linear(x[:M], nt, out_dtype,
+                                                route=dispatch.DECODE_ROWS), 10, reps=3) \
+                        if timed else None
+                rows.append(row)
+                log(f"[spec-rows] {shape:8s} rung {rung} {row['dtype']:8s} rows bit-identical" + (
+                    f"; verify M=12 {row['verify_m12_ms']:.4f} ms (3 decodes at M=4 "
+                    f"{3 * d4_ms:.4f}), M=20 {row['verify_m20_ms']:.4f} ms (5 decodes "
+                    f"{5 * d4_ms:.4f})" if timed else ""))
+    return rows
+
+
+def spec_serve(cfg, store, per_forward):
+    """4 requests x 8 prompt tokens x 16 new tokens at rung 2, max_len 64,
+    bf16 and f32: plain ``generate`` and speculative ``generate`` with
+    SpecConfig(k=4, draft=0) and SpecConfig(k=2, draft=1) on the same
+    engine give the same tokens; every draft step's packed_linear on the
+    draft rung's kernel (decode body), every verify pass on the decode body
+    in groups of 8 rows, no plain launch.  Rounds, acceptance, wall and
+    device busy of each (one run under the profiler) are recorded; no limit
+    is set on them.  Returns (results, K1-K3 (launches, decode-body
+    launches) summed over the speculative generates)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import Request, ServeEngine, SpecConfig, StaticRungPolicy
+
+    names = ("packed_matmul", "nested_matmul", "ladder_matmul")
+    out, total = {}, {n: (0, 0) for n in names}
+    for dtype in ("bfloat16", "float32"):
+        engine = ServeEngine(dataclasses.replace(cfg, compute_dtype=dtype), store,
+                             max_batch=BATCH, max_len=MAX_LEN, policy=StaticRungPolicy(2))
+
+        def reqs():
+            rng = np.random.default_rng(300)
+            return [Request(i, rng.integers(0, cfg.vocab_size, size=PROMPT).astype(np.int32),
+                            max_new_tokens=SPEC_NEW_TOKENS) for i in range(BATCH)]
+        plain, wall, busy = _profiled(lambda: [r.out_tokens for r in engine.generate(reqs())])
+        res = {"plain": {"wall_s": wall, "device_busy_ms": busy, "tokens": plain}}
+        for k, draft in SPEC_CONFIGS:
+            spec = SpecConfig(k=k, draft=draft)
+            dispatch.reset_counters()              # this path starts here
+            toks, wall, busy = _profiled(lambda: [r.out_tokens for r in engine.generate(
+                reqs(), speculate=spec)])
+            got = {n: (dispatch.counter(n).launches, dispatch.counter(n).dec_launches)
+                   for n in names}
+            total = {n: (total[n][0] + got[n][0], total[n][1] + got[n][1]) for n in names}
+            prof = engine.last_profile
+            if toks != plain:
+                raise AssertionError(f"speculative {dtype} k={k} draft={draft}: tokens {toks} "
+                                     f"differ from plain greedy {plain}")
+            groups = -(-BATCH * (k + 1) // dispatch.DEC_MAX_M)
+            want = {n: (0, 0) for n in names}
+            want[names[draft]] = (per_forward * prof.draft_steps,) * 2
+            want["ladder_matmul"] = (per_forward * (1 + groups * prof.verify_passes),
+                                     1 + per_forward * groups * prof.verify_passes)
+            if got != want or any(dispatch.counter(n).plain_launches
+                                  or dispatch.counter(n).tc_launches for n in names):
+                raise AssertionError(f"speculative {dtype} k={k} draft={draft}: launches "
+                                     f"{got}, want {want} and no plain or tensor-core launch")
+            res[f"k{k}_draft{draft}"] = {
+                "wall_s": wall, "rounds": prof.verify_passes, "draft_steps": prof.draft_steps,
+                "acceptance": prof.acceptance, "launches": got, "device_busy_ms": busy}
+            log(f"[spec] {dtype} k={k} draft={draft}: tokens = plain greedy; {prof.verify_passes} "
+                f"rounds, acceptance {prof.acceptance:.3f}; wall {wall:.3f}s, device busy "
+                f"{res[f'k{k}_draft{draft}']['device_busy_ms']:.1f} ms (plain: wall "
+                f"{res['plain']['wall_s']:.3f}s, busy {res['plain']['device_busy_ms']:.1f} ms); "
+                f"launches {got}")
+        out[dtype] = res
+    return out, total
+
+
+def _corrupt_then_clean_seed(nbytes: int, p: float) -> int:
+    """The first seed whose ChaosPager draws corrupt a first fetch of an
+    ``nbytes`` stream and leave the second clean (numpy's draws replayed)."""
+    for seed in range(1000):
+        rng = np.random.default_rng(seed)
+        if rng.random(3)[2] < p:
+            rng.integers(nbytes)
+            rng.integers(8)
+            if rng.random(3)[2] >= p:
+                return seed
+    raise AssertionError("no seed corrupts once and then heals")
+
+
+def _resident(store):
+    """Clones of every resident stream on the card, leaf by leaf."""
+    return [(p, leaf.w_base.clone(), [d.clone() for d in leaf.deltas if d is not None])
+            for p, leaf in store.nested_leaves()]
+
+
+def _check_rolled_back(store, snap, events, what):
+    if store.ledger.events != events:
+        raise AssertionError(f"{what}: a failed switch changed the ledger")
+    for (p, w, ds), (q, leaf) in zip(snap, store.nested_leaves()):
+        now = [d for d in leaf.deltas if d is not None]
+        if p != q or not torch.equal(w, leaf.w_base) or len(now) != len(ds) or \
+                not all(torch.equal(a, b) for a, b in zip(ds, now)):
+            raise AssertionError(f"{what}: a failed switch changed {p}'s resident streams")
+
+
+def fault_run(cfg, store, per_forward):
+    """The phase-2 store's InMemoryPager behind ResilientPager(ChaosPager)
+    (transient faults, flipped bits, an outage of delta_1) on one
+    VirtualClock with the Scheduler, under ``make_policy("failure")``,
+    over a 24-request burst from rung 0: every request completes; a failed
+    switch leaves every resident stream on the card bit-identical and the
+    ledger as it was; no step upgrades above the deliverable rung; the
+    served tree ends equal to the pristine streams.  Then two faults the
+    seeded run may not have drawn, forced: an upgrade whose every fetch
+    fails rolls back the same way, and one stream's flipped bit is caught
+    by the CRC and healed by a retry."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import (HysteresisPolicy, LoadAdaptivePolicy, LoadGenerator,
+                                     Scheduler, ServeEngine, ServiceModel, calibrate_qps,
+                                     make_policy)
+    from repro_torch.storage import (ChaosPager, Outage, PagerError, ResilientPager,
+                                     RetryPolicy, VirtualClock)
+
+    inner = store.pager
+    store.to_rung(0)
+    svc = ServiceModel()
+    qps = calibrate_qps(store, svc, steps=NEW_TOKENS, max_batch=BATCH, utilization=0.4)
+    burst = 1.05 * svc.capacity_rps(store.rung_resident_bytes(0), NEW_TOKENS, BATCH)
+    trace = LoadGenerator("burst", qps=qps, n_requests=FAULT_REQUESTS, vocab_size=cfg.vocab_size,
+                          seed=0, prompt_len=PROMPT, new_tokens=NEW_TOKENS, burst_qps=burst)
+    arr = trace.arrivals()
+    clk = VirtualClock()
+    chaos = ChaosPager(inner, seed=FAULT_SEED, p_transient=0.35, p_corrupt=0.1, clock=clk,
+                       outages=(Outage(arr[6].t, arr[18].t, level=1),))
+    pager = ResilientPager(chaos, RetryPolicy(max_attempts=2, backoff_base_s=1e-4,
+                                              quarantine_after=3, quarantine_s=2e-3),
+                           seed=FAULT_SEED + 1, clock=clk)
+    out = {}
+    store.pager = pager
+    try:
+        # the JAX package's storm composition: downshift in the burst, climb
+        # back through the faults
+        policy = make_policy("failure", cooldown=4, inner=HysteresisPolicy(
+            LoadAdaptivePolicy(high_depth=BATCH), dwell=2))
+        engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN, policy=policy)
+        sched = Scheduler(engine, trace, svc, max_batch=BATCH, clock=clk)
+        sched.start()
+        before = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
+        rung, failed_checked = store.rung, 0
+        t0 = time.perf_counter()
+        while not sched.done:
+            snap, events = _resident(store), list(store.ledger.events)
+            rec = sched.step()
+            if rec["switch_failures"]:
+                _check_rolled_back(store, snap, events, f"step {rec['step']}")
+                failed_checked += 1
+            if rec["rung"] > max(rec["avail_rung"], rung):
+                raise AssertionError(f"step {rec['step']}: upgraded to rung {rec['rung']} "
+                                     f"above the deliverable rung {rec['avail_rung']}")
+            rung = rec["rung"]
+            del snap
+        wall = time.perf_counter() - t0
+        report = sched.report()
+        _check_report(report, FAULT_REQUESTS, cfg.vocab_size, "fault run")
+        got = {n: dispatch.COUNTERS[n].launches - before[n] for n in KERNELS}
+        if got != _scheduled_launches(report, per_forward):
+            raise AssertionError(f"fault run launches {got}, want "
+                                 f"{_scheduled_launches(report, per_forward)}")
+        for p, leaf in store.nested_leaves():
+            for lvl in range(leaf.resident_levels):
+                if not torch.equal(leaf.deltas[lvl], inner.fetch(p, lvl)):
+                    raise AssertionError(f"{p} delta {lvl}: served words differ from the "
+                                         f"pristine stream")
+        corrupt = sum(h.corrupt for h in pager.health.values())
+        # from rung 1, an upgrade every fetch of which fails
+        store.pager = inner
+        store.to_rung(1)
+        store.pager = ResilientPager(ChaosPager(inner, p_transient=1.0),
+                                     RetryPolicy(max_attempts=2, backoff_base_s=0.0))
+        snap, events = _resident(store), list(store.ledger.events)
+        try:
+            store.to_rung(2)
+        except PagerError:
+            _check_rolled_back(store, snap, events, "forced failed upgrade")
+        else:
+            raise AssertionError("an upgrade through an always-failing pager committed")
+        del snap
+        # one stream, a seed whose first fetch flips a bit and second does not
+        path = next(p for p, _ in store.nested_leaves())
+        pristine = inner.fetch(path, 0)
+        seed = _corrupt_then_clean_seed(pristine.numel() * 4, 0.5)
+        heal = ResilientPager(ChaosPager(inner, seed=seed, p_corrupt=0.5),
+                              RetryPolicy(max_attempts=2, backoff_base_s=0.0))
+        healed = heal.fetch(path, 0)
+        h = heal.health[(path, 0)]
+        if not (torch.equal(healed, pristine) and h.corrupt == 1 and heal.retries == 1
+                and heal.inner.faults["corrupt"] == 1):
+            raise AssertionError(f"a flipped bit was not caught and healed: {h}")
+        walk = [s["rung"] for s in report.steps]
+        out = {"requests": len(report.requests), "steps": len(report.steps), "rung_walk": walk,
+               "avail_walk": [s["avail_rung"] for s in report.steps],
+               "switch_failures": engine.stats.switch_failures,
+               "failed_steps_checked": failed_checked, "faults": dict(chaos.faults),
+               "fetches": chaos.fetches, "crc_caught": corrupt, "retries": pager.retries,
+               "quarantines": pager.quarantines, "fault_s": report.fault_s,
+               "switch_records": report.switch_records, "wall_s": wall, "launches": got,
+               "heal_seed": seed}
+        log(f"[faults] {report.table()}")
+        log(f"[faults] rung walk {walk}, deliverable {out['avail_walk']}; "
+            f"{engine.stats.switch_failures} switches failed and rolled back "
+            f"({failed_checked} steps checked bit for bit); faults {chaos.faults} over "
+            f"{chaos.fetches} fetches, {corrupt} caught by the CRC, {pager.retries} retries, "
+            f"{pager.quarantines} quarantines; served streams equal the pristine ones; a forced "
+            f"failed upgrade rolled back bit for bit; a flipped bit (seed {seed}) caught and "
+            f"healed; wall {wall:.2f}s; launches {got}")
+    finally:
+        store.pager = inner
+    return out
+
+
+def phase_spec_faults(cfg, store, per_forward, gen):
+    """Phase 3c: the decode route's rows at the verify shapes, speculative
+    serving against plain greedy, and a scheduled run through injected
+    delivery faults, on phase 2's store (back at its rung at the end)."""
+    t_phase = time.perf_counter()
+    prev = store.rung
+    store.to_rung(2)
+    try:
+        rows = spec_rows(store, gen)
+        verify = verify_passes(rows, cfg)
+        serve, spec_launches = spec_serve(cfg, store, per_forward)
+        faults = fault_run(cfg, store, per_forward)
+    finally:
+        store.to_rung(prev)
+    launches = {n: (spec_launches[n][0] + faults["launches"][n],
+                    spec_launches[n][1] + faults["launches"][n]) for n in KERNELS}
+    seconds = time.perf_counter() - t_phase
+    log(f"[spec] phase 3c took {seconds:.1f}s")
+    return {"rows": rows, "verify_passes": verify, "serve": serve, "faults": faults,
+            "launches": launches, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: K4-K6 against their plain versions at this slice's shapes
 # ---------------------------------------------------------------------------
 def kv_streams(x, bits, page):
@@ -1537,8 +1889,10 @@ def main() -> int:
     reference = phase_reference(cfg, store, phases)
     del engine
     artifact = phase_artifact(cfg, store, phases, packed_linears_per_forward(store))
-    launches = {n: (launches[n][0] + artifact["launches"][n][0],
-                    launches[n][1] + artifact["launches"][n][1]) for n in KERNELS}
+    spec = phase_spec_faults(cfg, store, packed_linears_per_forward(store), gen)
+    launches = {n: (launches[n][0] + artifact["launches"][n][0] + spec["launches"][n][0],
+                    launches[n][1] + artifact["launches"][n][1] + spec["launches"][n][1])
+                for n in KERNELS}
     peak_before_long = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     long_engine_, dense, long_info = phase_long_serve(cfg, store,
@@ -1565,7 +1919,7 @@ def main() -> int:
             f"{v['dense_bf16_matmul_ms']:.3f}, bound {v['bound_ms']:.3f})" for n, v in by.items()))
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
-              "reference": reference, "artifact": artifact,
+              "reference": reference, "artifact": artifact, "spec_faults": spec,
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose,

@@ -299,6 +299,17 @@ class NestQuantStore:
             for i in fetched:
                 self.pager.evict(path, i)
 
+    def params_for(self, rungs):
+        """Serving tree stamped ``rungs`` per leaf (an int or a ``{keystr:
+        rung}`` map; unmapped leaves keep their stamp), clamped to the
+        CURRENT residency: the speculative draft's read of what is
+        resident.  A metadata flip: no paging, no ledger event."""
+        if isinstance(rungs, int):
+            rungs = {p: rungs for p in self._leaf_paths}
+        clamped = {p: max(0, min(int(r), self._leaf_rungs[p]))
+                   for p, r in rungs.items() if p in self._leaf_rungs}
+        return set_tree_rung(self.nested_params, clamped)
+
     def rung_view(self, rung: int, *, stamp=None):
         """The packed tree AS IF uniform rung ``rung`` were resident,
         without changing residency (no ledger events): each nested leaf

@@ -24,8 +24,10 @@
 // slots per word); every narrower component's word for the same elements
 // is its row r mod R_c.  The caller picks the body (kernels/dispatch.py
 // matmul_route: M <= 8 the decode body, bf16 at M >= TC_MIN_M the tensor
-// cores, the rest the CUDA cores; the C entry points' `body` argument);
-// nothing here switches from one to another.
+// cores, the rest the CUDA cores; the decode route of a decode step or a
+// speculative verify pass names the decode body for groups of <= 8 rows;
+// the C entry points' `body` argument); nothing here switches from one to
+// another.
 //
 // Decode body (stream_matmul_dec; M <= 8, bf16 and f32).  Every packed word
 // is used for 2*M <= 16 flops, so the bound is the bytes of the words (4 /
@@ -69,6 +71,20 @@
 //     between launches) to all the tile's items adds every slot of the tile
 //     in (block, CTA) order, applies the scale, casts, and resets the count.
 //     No float atomics, no second pass.
+//   * rows that do not depend on M: the plan (items, chunks, column tile,
+//     grid) is a function of the bitwidths, N, K, the pack block, the
+//     streams' alignment and the device alone - the grid takes the 8-row
+//     instantiation's occupancy at every M - and a row's FMAs, shuffles and
+//     slot sums run in one order whatever rows sit beside it.  So row m of
+//     a launch at any M <= 8 is bit for bit the same row of a launch at any
+//     other M.  The speculative verify pass (S = k + 1 positions of B
+//     sequences, M = B * S > 8) needs exactly that: its rows must equal the
+//     decode steps' (dispatch.DECODE_ROWS).  The wrapper launches this body
+//     once per group of <= 8 rows rather than adding a row-group grid axis:
+//     each group is then the very launch a decode step makes, with its
+//     workspace and the per-tile arrival counters (which a grid axis would
+//     have to split per group) unchanged, at the price of reading the
+//     words once per group;
 //   What still bounds it: the unpack and the 2*M FMAs per code run at a
 //   fraction of the SMs' instruction rate (no ncu on the card's machine to
 //   say which stall), and short launches (k/v, q/o) pay a launch and one round trip
@@ -1062,16 +1078,21 @@ size_t dec_smem_bytes(const Args& a, int mb) {
          + (4ull + static_cast<size_t>(a.nk) * a.cpb) * sizeof(int);        // flag, slots
 }
 
-// CTAs of one instantiation that fit an SM at this shared memory; the
-// opt-in above 48 KB happens once per instantiation, before any graph
-// capture (the body has no static shared memory, so all 227 KB may be
-// dynamic)
+// The opt-in above 48 KB of dynamic shared memory, once per instantiation,
+// before any graph capture (the body has no static shared memory, so all
+// 227 KB may be dynamic); the occupancy query and the launch both take it
 template <int NS, int MB>
-int dec_occupancy_body(size_t smem) {
+cudaError_t dec_opt_in() {
   static cudaError_t opt_in = cudaFuncSetAttribute(
       stream_matmul_dec<NS, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcMaxSmem);
+  return opt_in;
+}
+
+// CTAs of one instantiation that fit an SM at this shared memory
+template <int NS, int MB>
+int dec_occupancy_body(size_t smem) {
   int n = 0;
-  if (opt_in != cudaSuccess ||
+  if (dec_opt_in<NS, MB>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stream_matmul_dec<NS, MB>, kDecThreads,
                                                     smem) != cudaSuccess) {
     return 1;
@@ -1093,6 +1114,8 @@ int dec_mb(int M) { return M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8; }
 
 template <int NS, int MB>
 int launch_dec_body(const Args& a, size_t smem, cudaStream_t stream) {
+  const cudaError_t opt_in = dec_opt_in<NS, MB>();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   stream_matmul_dec<NS, MB><<<a.nctas, kDecThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1108,8 +1131,9 @@ int launch_dec_ns(const Args& a, int ns, size_t smem, cudaStream_t stream) {
 }
 
 // Decode route: the tile, chunk, item and grid plan of one launch, from
-// Args filled by make_args().  nq_dec_workspace() reads the same plan, so
-// the wrapper allocates exactly the partials the launch writes.
+// Args filled by make_args().  It reads bits, N, K, the pack block, the
+// streams' alignment and the device, never M.  nq_dec_workspace() reads the
+// same plan, so the wrapper allocates exactly the partials the launch writes.
 void dec_plan(Args& a, int ns) {
   static int sms = [] {
     int dev = 0, n = 132;
@@ -1168,12 +1192,12 @@ void dec_plan(Args& a, int ns) {
   a.cpb = a.rmin >> a.g_log;
   a.nitems = items();
   // one CTA per item, or, above kDecPersist items per resident CTA, as many
-  // CTAs as fit the SMs at once, each looping over an equal run of items
-  const long fit = static_cast<long>(sms) *
-      (dec_mb(a.M) == 1 ? dec_occupancy_ns<1>(ns, dec_smem_bytes(a, 1))
-       : dec_mb(a.M) == 2 ? dec_occupancy_ns<2>(ns, dec_smem_bytes(a, 2))
-       : dec_mb(a.M) == 4 ? dec_occupancy_ns<4>(ns, dec_smem_bytes(a, 4))
-                          : dec_occupancy_ns<8>(ns, dec_smem_bytes(a, 8)));
+  // CTAs as fit the SMs at once, each looping over an equal run of items.
+  // The fit is the 8-row instantiation's at every M, so the grid - and with
+  // it which items each CTA adds into its partial slot - does not depend on
+  // M: a row's sum is formed in the same order at every M <= 8
+  const long fit = static_cast<long>(sms) * dec_occupancy_ns<kDecMaxM>(
+      ns, dec_smem_bytes(a, kDecMaxM));
   a.nctas = static_cast<int>(a.nitems > kDecPersist * fit ? fit : a.nitems);
   int vw = 4;                                        // 16-byte copies unless misaligned
   for (bool fits = false; !fits && vw > 1;) {

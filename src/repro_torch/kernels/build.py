@@ -126,8 +126,8 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
-# the decode body's plan per (device, bits, M, N, K, block): f32 partials
-# per activation row and column tiles; and its per-column-tile arrival
+# the decode body's plan per (device, bits, N, K, block): f32 partials per
+# activation row and column tiles; and its per-column-tile arrival
 # counters per device (int32, 0 between launches: the last CTA of a tile
 # resets its own)
 _dec_plans: Dict[tuple, tuple] = {}
@@ -135,18 +135,19 @@ _dec_counters: Dict[int, "object"] = {}
 DEC_COUNTERS_MIN = 8192
 
 
-def dec_plan(device, bits, M: int, N: int, K: int, block: int):
-    """(partial floats per activation row, column tiles) of one decode-body
+def dec_plan(device, bits, N: int, K: int, block: int):
+    """(partial floats per activation row, column tiles) of a decode-body
     launch (``nq_dec_workspace``, the plan the launch itself follows);
-    cached per shape."""
-    key = (device.index, tuple(bits), M, N, K, block)
+    cached per shape.  The plan does not depend on M, so every row count
+    up to ``DEC_MAX_M`` shares it (the entry point is asked at M = 1)."""
+    key = (device.index, tuple(bits), N, K, block)
     if key not in _dec_plans:
         arr = (ctypes.c_int * len(bits))(*bits)
         tiles = ctypes.c_int(0)
         n = library("nest_matmul.cu").nq_dec_workspace(
-            ctypes.addressof(arr), len(bits), M, N, K, block, ctypes.byref(tiles))
+            ctypes.addressof(arr), len(bits), 1, N, K, block, ctypes.byref(tiles))
         if n < 1:
-            raise ValueError(f"the decode body refuses bits {tuple(bits)}, M={M}, N={N}, "
+            raise ValueError(f"the decode body refuses bits {tuple(bits)}, N={N}, "
                              f"K={K}, block={block}")
         _dec_plans[key] = (n, tiles.value)
     return _dec_plans[key]
@@ -168,8 +169,10 @@ def dec_counters(device, tiles: int):
     return buf
 
 
-def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits):
-    """Output, f32 partials, arrival counters and the current stream handle
+def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits,
+                          out=None):
+    """Output (``out`` where the caller gives one: a row slice of a larger
+    output), f32 partials, arrival counters and the current stream handle
     for one stream-matmul launch on ``body`` (0 CUDA cores, 1 tensor cores,
     2 decode; ``dispatch.BODY``).  The CUDA-core body splits K over every
     pack block: (nk, M, N) partials added by a second pass.  The decode
@@ -180,13 +183,14 @@ def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, b
     import torch
 
     M = x.shape[0]
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if out is None:
+        out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = counters = None
     nk = -(-K // block)
     if body == 0 and nk > 1:
         partial = torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
     elif body == 2:
-        per_row, tiles = dec_plan(x.device, bits, M, N, K, block)
+        per_row, tiles = dec_plan(x.device, bits, N, K, block)
         partial = torch.empty(per_row * M, dtype=torch.float32, device=x.device)
         counters = dec_counters(x.device, tiles)
     return out, partial, counters, torch.cuda.current_stream(x.device).cuda_stream

@@ -20,6 +20,13 @@ decided before the launch: M <= ``DEC_MAX_M`` (decode) takes the decode
 body in bf16 and f32, bf16 with M >= ``TC_MIN_M`` the tensor-core body,
 and everything else (bf16 at M 9-63, f32 above M 8) the CUDA-core body.
 A launch that the chosen body refuses raises; it never runs another body.
+
+The decode phase names its route instead (``DECODE_ROWS``, the wrappers'
+``route=``): the decode body launched once per group of at most
+``DEC_MAX_M`` rows.  The decode body's plan does not depend on M, so a row
+of a group is bit for bit that row of any other decode-body launch: a
+decode step (B <= 8 rows, one group) and the speculative verify pass
+(B * (k + 1) rows) give a position the same logits.
 """
 from __future__ import annotations
 
@@ -84,8 +91,10 @@ def takes_kernel(x: torch.Tensor) -> bool:
 
 
 PLAIN, CUDA_CORE, TENSOR_CORE, DECODE = "plain", "cuda_core", "tensor_core", "decode"
+# the decode body in groups of at most DEC_MAX_M rows, one launch per group
+DECODE_ROWS = "decode_rows"
 # the C entry points' ``body`` argument of each kernel route
-BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2}
+BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2, DECODE_ROWS: 2}
 # Largest M the K1-K3 decode body takes (bf16 and f32): one 8-row x tile
 # per CTA, each packed word unpacked once for all rows.
 DEC_MAX_M = 8
@@ -114,11 +123,12 @@ def matmul_route(M: int, dtype: torch.dtype, device) -> str:
 
 
 def kernel_route(x: torch.Tensor, route) -> str:
-    """The kernel body a K1-K3 wrapper launches for ``x`` (a CUDA tensor
+    """The kernel route a K1-K3 wrapper launches for ``x`` (a CUDA tensor
     outside ``reference_pass``): ``route`` where the caller names one (the
-    chip check and the tests compare the bodies at one shape), else
-    :func:`matmul_route`.  A named tensor-core route takes bf16 only, a
-    named decode route M <= ``DEC_MAX_M`` only."""
+    decode phase names ``DECODE_ROWS``; the chip check and the tests compare
+    the bodies at one shape), else :func:`matmul_route`.  A named
+    tensor-core route takes bf16 only, a named decode route M <=
+    ``DEC_MAX_M`` only; ``DECODE_ROWS`` takes any M."""
     if route is None:
         return matmul_route(x.shape[0], x.dtype, x.device)
     if route not in BODY:
@@ -134,6 +144,23 @@ def count_launch(counter: LaunchCounter, route: str) -> None:
     counter.launches += 1
     counter.tc_launches += int(route == TENSOR_CORE)
     counter.dec_launches += int(route == DECODE)
+
+
+def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
+                  counter: LaunchCounter, launch) -> torch.Tensor:
+    """Run ``launch(x_rows, out_rows, body)`` (one K1-K3 kernel launch into
+    a row slice of the (M, N) output) on ``route``: once, or for
+    ``DECODE_ROWS`` once per group of at most ``DEC_MAX_M`` rows on the
+    decode body; each launch is counted."""
+    out = torch.empty((x.shape[0], N), dtype=out_dtype, device=x.device)
+    if route != DECODE_ROWS:
+        launch(x, out, BODY[route])
+        count_launch(counter, route)
+        return out
+    for g in range(0, x.shape[0], DEC_MAX_M):
+        launch(x[g:g + DEC_MAX_M], out[g:g + DEC_MAX_M], BODY[DECODE])
+        count_launch(counter, DECODE)
+    return out
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)

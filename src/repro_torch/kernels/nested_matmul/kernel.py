@@ -23,10 +23,10 @@ SOURCE = "nest_matmul.cu"
 
 
 def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
-                  block_k: int, out_dtype, body: int) -> torch.Tensor:
+                  block_k: int, out_dtype, body: int, out=None) -> torch.Tensor:
     N = words_high.shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
-        x, N, K, block_k, out_dtype, body, (h, n))
+        x, N, K, block_k, out_dtype, body, (h, n), out)
     err = build.library(SOURCE).nq_nested_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), build.ptr(words_high),
         build.ptr(words_low), n, h, build.ptr(scale), build.ptr(out),
@@ -37,10 +37,10 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
 
 
 def ladder_matmul(x, streams, scale, *, bits, K: int, block_k: int,
-                  out_dtype, body: int) -> torch.Tensor:
+                  out_dtype, body: int, out=None) -> torch.Tensor:
     N = streams[0].shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
-        x, N, K, block_k, out_dtype, body, bits)
+        x, N, K, block_k, out_dtype, body, bits, out)
     ptrs = (ctypes.c_void_p * len(streams))(*[s.data_ptr() for s in streams])
     bit_arr = (ctypes.c_int * len(bits))(*bits)
     err = build.library(SOURCE).nq_ladder_matmul(

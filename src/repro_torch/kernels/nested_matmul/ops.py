@@ -23,10 +23,11 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
                                 K=K, block=block_k, out_dtype=out_dtype)
-        y = kernel.nested_matmul(x2, words_high, words_low, scale, n=n, h=h,
-                                 K=K, block_k=block_k, out_dtype=out_dtype,
-                                 body=dispatch.BODY[route])
-        dispatch.count_launch(NESTED_COUNTER, route)
+        y = dispatch.launch_matmul(
+            x2, words_high.shape[1], out_dtype, route, NESTED_COUNTER,
+            lambda xs, out, body: kernel.nested_matmul(
+                xs, words_high, words_low, scale, n=n, h=h, K=K, block_k=block_k,
+                out_dtype=out_dtype, body=body, out=out))
     else:
         y = ref.nested_matmul_ref(x2, words_high, words_low, scale, n=n, h=h,
                                   K=K, block_k=block_k, out_dtype=out_dtype)
@@ -50,10 +51,11 @@ def ladder_matmul(x, streams, scale, *, bits, K: int,
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
-        y = kernel.ladder_matmul(x2, streams, scale, bits=bits, K=K,
-                                 block_k=block_k, out_dtype=out_dtype,
-                                 body=dispatch.BODY[route])
-        dispatch.count_launch(LADDER_COUNTER, route)
+        y = dispatch.launch_matmul(
+            x2, streams[0].shape[1], out_dtype, route, LADDER_COUNTER,
+            lambda xs, out, body: kernel.ladder_matmul(
+                xs, streams, scale, bits=bits, K=K, block_k=block_k,
+                out_dtype=out_dtype, body=body, out=out))
     else:
         y = ref.ladder_matmul_ref(x2, streams, scale, bits=bits, K=K,
                                   block_k=block_k, out_dtype=out_dtype)

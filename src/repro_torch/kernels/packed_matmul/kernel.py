@@ -20,10 +20,11 @@ SOURCE = "nest_matmul.cu"
 
 
 def packed_matmul(x: torch.Tensor, words: torch.Tensor, scale: torch.Tensor, *,
-                  k: int, K: int, block_k: int, out_dtype, body: int) -> torch.Tensor:
+                  k: int, K: int, block_k: int, out_dtype, body: int,
+                  out=None) -> torch.Tensor:
     N = words.shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
-        x, N, K, block_k, out_dtype, body, (k,))
+        x, N, K, block_k, out_dtype, body, (k,), out)
     err = build.library(SOURCE).nq_packed_matmul(
         build.ptr(x), int(x.dtype == torch.bfloat16), build.ptr(words), k,
         build.ptr(scale), build.ptr(out), int(out_dtype == torch.float32),

@@ -39,8 +39,8 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
     """y = x @ dequant(words), x (..., K).  A CUDA tensor launches the K1
     kernel (or raises on operands it does not take) on the body
     ``dispatch.kernel_route`` picks - by M and dtype, or ``route`` where
-    the chip check or a test names one; a CPU tensor runs the plain
-    version."""
+    the chip check, a test or the decode phase (``DECODE_ROWS``) names
+    one; a CPU tensor runs the plain version."""
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
@@ -48,10 +48,11 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
-        y = kernel.packed_matmul(x2, words, scale, k=k, K=K, block_k=block_k,
-                                 out_dtype=out_dtype,
-                                 body=dispatch.BODY[route])
-        dispatch.count_launch(COUNTER, route)
+        y = dispatch.launch_matmul(
+            x2, words.shape[1], out_dtype, route, COUNTER,
+            lambda xs, out, body: kernel.packed_matmul(
+                xs, words, scale, k=k, K=K, block_k=block_k, out_dtype=out_dtype,
+                body=body, out=out))
     else:
         y = ref.packed_matmul_ref(x2, words, scale, k=k, K=K, block_k=block_k,
                                   out_dtype=out_dtype)

@@ -19,13 +19,15 @@ def pdot(x: torch.Tensor, w: torch.Tensor, preferred=None) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None) -> torch.Tensor:
+def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None,
+                  route=None) -> torch.Tensor:
     """Matmul straight from the packed words, dispatched on the stamped
     rung: rung 0 -> packed_matmul on the base stream with the inflated
     scale s*2^(n-h); rung 1 -> the dual-stream nested_matmul; deeper rungs
-    -> the ladder_matmul.  Takes one 2-D weight (a per-layer view); a leaf
-    with stacked leading dims (MoE expert stacks) raises rather than
-    leaving the kernels."""
+    -> the ladder_matmul.  ``route`` names the kernel route on the card
+    (the decode phase's ``dispatch.DECODE_ROWS``; None: by M and dtype).
+    Takes one 2-D weight (a per-layer view); a leaf with stacked leading
+    dims (MoE expert stacks) raises rather than leaving the kernels."""
     if nt.w_base.ndim != 2:
         raise NotImplementedError(
             f"packed_linear takes a 2-D weight, got a stacked leaf of shape {nt.shape}; "
@@ -35,22 +37,23 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None) -> torch.Te
     rung_scale = nt.rung_scale(r).reshape(1, -1)
     if r == 0:
         return packed_ops.packed_matmul(x, nt.w_base, rung_scale, k=nt.bits[0],
-                                        K=nt.K, block_k=nt.block, out_dtype=out_dtype)
+                                        K=nt.K, block_k=nt.block, out_dtype=out_dtype,
+                                        route=route)
     if r == 1:
         return nested_ops.nested_matmul(x, nt.w_base, nt.deltas[0], rung_scale,
                                         n=nt.bits[1], h=nt.bits[0], K=nt.K,
-                                        block_k=nt.block, out_dtype=out_dtype)
+                                        block_k=nt.block, out_dtype=out_dtype, route=route)
     return nested_ops.ladder_matmul(x, (nt.w_base,) + nt.deltas[:r], rung_scale,
                                     bits=nt.bits[:r + 1], K=nt.K,
-                                    block_k=nt.block, out_dtype=out_dtype)
+                                    block_k=nt.block, out_dtype=out_dtype, route=route)
 
 
-def linear(x: torch.Tensor, w, b=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b=None, route=None) -> torch.Tensor:
     """y = x @ w (+ b): the matmul in x's dtype, the bias added in the
     matmul's output dtype, the sum cast to x's dtype (the reference's
-    cast order)."""
+    cast order).  ``route``: as in :func:`packed_linear`."""
     if isinstance(w, NestedTensor):
-        y = packed_linear(x, w)
+        y = packed_linear(x, w, route=route)
     else:
         y = pdot(x, w.to(x.dtype))
     if b is not None:
@@ -109,10 +112,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def mlp(x, params, act: str):
+def mlp(x, params, act: str, route=None):
     if act == "swiglu":
-        g = linear(x, params["w_gate"]["w"])
-        u = linear(x, params["w_up"]["w"])
-        return linear(silu(g) * u, params["w_down"]["w"])
-    u = linear(x, params["w_up"]["w"])
-    return linear(gelu(u), params["w_down"]["w"])
+        g = linear(x, params["w_gate"]["w"], route=route)
+        u = linear(x, params["w_up"]["w"], route=route)
+        return linear(silu(g) * u, params["w_down"]["w"], route=route)
+    u = linear(x, params["w_up"]["w"], route=route)
+    return linear(gelu(u), params["w_down"]["w"], route=route)

@@ -11,7 +11,17 @@ Public surface, built by :func:`make_model`:
   init(seed)                          -> params
   prefill(params, inputs)             -> (last_logits f32, cache)
   decode_step(params, inputs, cache)  -> (logits f32, cache)  (cache updated in place)
+  decode_chunk(params, inputs, cache) -> (logits f32 (B,S,V), cache)  (the same)
   make_cache(batch_size, max_len)     -> cache
+
+The decode phase (``decode_step`` and the speculative verify pass
+``decode_chunk``) names the K1-K3 route ``dispatch.DECODE_ROWS``: the
+decode body in groups of at most 8 rows, whose rows do not depend on how
+many rows a launch holds.  ``decode_chunk`` computes everything else
+(norms, attention) through the very calls a decode step makes, one
+position at a time, so position j of a chunk has bit for bit the logits
+j sequential decode steps give it (the verify contract of
+``repro/models/model.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.nesting import NestedTensor
 from ..device import resolve_device, torch_dtype
+from ..kernels import dispatch
 from ..kernels.flash_attention import ops as flash_ops
 from .attention import decode_attention, full_attention
 from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
@@ -95,10 +106,10 @@ def layer_params(blocks, i: int):
 # ===========================================================================
 # Attention sub-block
 # ===========================================================================
-def _qkv(x, lp, cfg):
-    q = linear(x, lp["q"]["w"], lp["q"].get("b"))
-    k = linear(x, lp["k"]["w"], lp["k"].get("b"))
-    v = linear(x, lp["v"]["w"], lp["v"].get("b"))
+def _qkv(x, lp, cfg, route=None):
+    q = linear(x, lp["q"]["w"], lp["q"].get("b"), route=route)
+    k = linear(x, lp["k"]["w"], lp["k"].get("b"), route=route)
+    v = linear(x, lp["v"]["w"], lp["v"].get("b"), route=route)
     B, S = x.shape[:2]
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
             k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
@@ -129,7 +140,8 @@ def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
     are written into ``k_cache``/``v_cache`` (B,Smax,Hkv,hd) IN PLACE at
     ``pos`` - where the reference returns updated copies."""
     B = x.shape[0]
-    q, k, v = _qkv(x, lp, cfg)
+    route = dispatch.DECODE_ROWS
+    q, k, v = _qkv(x, lp, cfg, route)
     p = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, p, cfg.rope_theta)
     k = apply_rope(k, p, cfg.rope_theta)
@@ -137,7 +149,35 @@ def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
     v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
     o = decode_attention(q, k_cache, v_cache, pos)
     o = o.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return linear(o, lp["o"]["w"])
+    return linear(o, lp["o"]["w"], route=route)
+
+
+def _per_position(fn, h):
+    """``fn`` on each position's (B, 1, ...) slice of h (B, S, ...), as a
+    decode step calls it, concatenated along S: a reduction over a row
+    (a norm, a softmax) then runs on the launch a decode step runs."""
+    return torch.cat([fn(h[:, j:j + 1].contiguous()) for j in range(h.shape[1])], dim=1)
+
+
+def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
+    """S-token attention against the cache (the speculative verify pass),
+    x: (B,S,d).  The chunk's K/V are written into the cache IN PLACE at
+    ``pos``..``pos + S - 1`` first; query row j then attends through the
+    decode step's own call (``decode_attention`` at ``pos + j``), whose
+    mask gives every later position an exact zero weight, so row j equals
+    the decode step at that position bit for bit."""
+    B, S = x.shape[:2]
+    route = dispatch.DECODE_ROWS
+    q, k, v = _qkv(x, lp, cfg, route)
+    positions = torch.arange(pos, pos + S, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k_cache[:, pos:pos + S] = k.to(k_cache.dtype)
+    v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
+    o = torch.cat([decode_attention(q[:, j:j + 1].contiguous(), k_cache, v_cache, pos + j)
+                   for j in range(S)], dim=1)
+    o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    return linear(o, lp["o"]["w"], route=route)
 
 
 # ===========================================================================
@@ -167,7 +207,22 @@ def transformer_decode(params, x, cfg, cache, pos: int):
         lp = layer_params(params["blocks"], i)
         h = h + attn_decode(norm(h, lp["attn_norm"], cfg.norm), lp, cfg,
                             cache["k"][i], cache["v"][i], pos)
-        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act)
+        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act,
+                    route=dispatch.DECODE_ROWS)
+    return h
+
+
+def transformer_decode_chunk(params, x, cfg, cache, pos: int):
+    """S decode positions in one pass over every layer (x: (B,S,d)): each
+    weight matmul streams its words once per 8-row group where S decode
+    steps would stream them S times; ``cache`` is updated in place."""
+    h = x
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["blocks"], i)
+        a = _per_position(lambda t: norm(t, lp["attn_norm"], cfg.norm), h)
+        h = h + attn_decode_chunk(a, lp, cfg, cache["k"][i], cache["v"][i], pos)
+        m = _per_position(lambda t: norm(t, lp["mlp_norm"], cfg.norm), h)
+        h = h + mlp(m, lp["mlp"], cfg.act, route=dispatch.DECODE_ROWS)
     return h
 
 
@@ -188,11 +243,11 @@ def embed_inputs(params, inputs, cfg):
     return h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(h.dtype)
 
 
-def lm_logits(params, h, cfg):
-    """Logits in f32."""
+def lm_logits(params, h, cfg, route=None):
+    """Logits in f32 (``route``: as in ``layers.packed_linear``)."""
     w = params["lm_head"]["w"]
     if isinstance(w, NestedTensor):
-        return packed_linear(h, w, out_dtype=torch.float32)
+        return packed_linear(h, w, out_dtype=torch.float32, route=route)
     return pdot(h, w.to(h.dtype), preferred=torch.float32)
 
 
@@ -230,12 +285,22 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
         h = embed_inputs(params, inputs, cfg)
         h = transformer_decode(params, h, cfg, cache, pos)
         h = norm(h, params["final_norm"], cfg.norm)
-        logits = lm_logits(params, h, cfg)
+        logits = lm_logits(params, h, cfg, route=dispatch.DECODE_ROWS)
         cache["pos"] = pos + 1
         return logits, cache
 
     def decode_chunk(params, inputs, cache):
-        _not_ported("decode_chunk (the speculative verify pass)", "9")
+        """Decode inputs['tokens'] (B,S) in one cached pass -> (logits
+        (B,S,V) f32, cache).  Position j's logits are bit for bit those
+        of j sequential ``decode_step`` calls at that position; the cache
+        is written in place and ``pos`` advances by S."""
+        pos = int(cache["pos"])
+        h = embed_inputs(params, inputs, cfg)
+        h = transformer_decode_chunk(params, h, cfg, cache, pos)
+        h = _per_position(lambda t: norm(t, params["final_norm"], cfg.norm), h)
+        logits = lm_logits(params, h, cfg, route=dispatch.DECODE_ROWS)
+        cache["pos"] = pos + inputs["tokens"].shape[1]
+        return logits, cache
 
     def make_cache(batch_size: int, max_len: int, dtype=None):
         dt = torch_dtype(dtype or cfg.compute_dtype)

@@ -147,14 +147,22 @@ class NestedKVCache:
     the previous batch's pages and quantizes a new prompt region (cache
     lifecycle, not a switch: nothing is ledgered); ``render`` recomposes
     the paged region at a resident rung; ``rewind`` drops pages past a
-    position without fetching anything."""
+    position without fetching anything.
+
+    ``pager`` (default: a fresh :class:`InMemoryPager`) may be a wrapper
+    (``ChaosPager``, ``ResilientPager``, ``ThrottledPager``): fetches go
+    through it, deposits and retirements to the first pager down its
+    ``.inner`` chain that has ``put``.  ``ledger`` and ``tag`` (the stream
+    paths' prefix) let a caller share a ledger or a pager's namespace."""
 
     TENSORS = ("k", "v")
 
-    def __init__(self, config: Optional[KVCacheConfig] = None):
+    def __init__(self, config: Optional[KVCacheConfig] = None, *,
+                 pager=None, ledger: Optional[SwitchLedger] = None, tag: str = "kv"):
         self.config = config if config is not None else KVCacheConfig()
-        self.pager = InMemoryPager({})
-        self.ledger = SwitchLedger()
+        self.pager = pager if pager is not None else InMemoryPager({})
+        self.ledger = ledger if ledger is not None else SwitchLedger()
+        self.tag = tag
         self.rung = self.config.num_rungs - 1
         self.pages: List[KVPage] = []
         self.rewound_pages = 0
@@ -165,14 +173,30 @@ class NestedKVCache:
         self._geom: Optional[Tuple[int, int, int, int]] = None  # L, B, Hkv, hd
 
     # -- pager plumbing ----------------------------------------------------
+    def _backing(self):
+        """The first pager down the ``.inner`` chain that has ``put`` (the
+        wrappers delegate fetches but take no deposits)."""
+        p, seen = self.pager, set()
+        while p is not None and id(p) not in seen:
+            seen.add(id(p))
+            if hasattr(p, "put"):
+                return p
+            p = getattr(p, "inner", None)
+        raise TypeError(
+            f"pager {type(self.pager).__name__} (nor any .inner) exposes put(); the "
+            "nested KV cache needs a deposit-capable backing pager such as InMemoryPager")
+
     def _path(self, page_index: int, tensor: str) -> str:
-        return f"kv/g{self._gen}/p{page_index}/{tensor}"
+        return f"{self.tag}/g{self._gen}/p{page_index}/{tensor}"
 
     def _discard(self, pages) -> None:
+        backing = self._backing()
+        if not hasattr(backing, "discard"):
+            return
         for pg in pages:
             for t in self.TENSORS:
                 for i in range(self.config.num_rungs - 1):
-                    self.pager.discard(self._path(pg.index, t), i)
+                    backing.discard(self._path(pg.index, t), i)
 
     # -- byte metadata -----------------------------------------------------
     def stream_bytes(self, level: int) -> int:
@@ -237,6 +261,7 @@ class NestedKVCache:
         packed = {t: _quantize_kv(slab[:, :, :span], bits=self.config.bits, page=P,
                                   rounding=self.config.rounding)
                   for t, slab in (("k", k), ("v", v))}
+        backing = self._backing()
         rpb = [packing.blocked_rows(P, w) for w in self.config.widths]
         for i in range(n):
             base, deltas, scales = {}, {}, {}
@@ -248,7 +273,7 @@ class NestedKVCache:
                 for d, words in enumerate(streams[1:]):
                     r = rpb[1 + d]
                     w = words[:, :, i * r:(i + 1) * r].contiguous()
-                    self.pager.put(self._path(i, t), d, w)
+                    backing.put(self._path(i, t), d, w)
                     dl.append(w if d < self.rung else None)
                 deltas[t] = dl
             self.pages.append(KVPage(index=i, start=i * P, base=base,

@@ -14,9 +14,9 @@ queue depth, recent switch history) into a per-leaf
 * :class:`LoadAdaptivePolicy` - one rung down when the backlog builds, one
   up when it drains (weight and nested KV cache rungs).
 * :class:`StaticRungPolicy` - one rung forever.
-
-``FailureAwarePolicy`` waits for the fault tier (ROADMAP.md queue 1,
-item 11): ``make_policy("failure")`` raises.
+* :class:`FailureAwarePolicy` - wraps any policy; never upgrades above the
+  pager's deliverable rung, and holds upgrades for a cooldown after a
+  delivery failure.
 """
 from __future__ import annotations
 
@@ -136,6 +136,12 @@ class LoadAdaptivePolicy:
             return min(cur + 1, kv.config.num_rungs - 1)
         return cur
 
+    def draft_ok(self, signal: ResourceSignal) -> bool:
+        """Whether a batch may draft speculatively: drafts spend extra
+        dispatches per emitted token, which pays only on a drained queue;
+        a deep or aging backlog wants plain batched decode."""
+        return not self._pressured(signal) and signal.queue_depth <= self.low_depth
+
 
 class HysteresisPolicy:
     """Dwell-window wrapper: after any residency change, upgrades are held
@@ -243,6 +249,57 @@ class QualityFloorPolicy:
         return RungAssignment(default=want.default, exact=tuple(raised.items()))
 
 
+class FailureAwarePolicy:
+    """Never upgrade into a link that is failing.  Two clamps on top of any
+    inner policy; downgrades pass untouched (shedding needs no fetch):
+
+    * availability - upgrade targets are capped at the pager's deliverable
+      ceiling (``delivery_health.available_rung``, else
+      ``store.max_available_rung()``); leaves already resident above it
+      are held, not shed;
+    * cooldown - after a delivery failure, upgrades hold for ``cooldown``
+      further decisions, then re-probe one inner-policy step at a time."""
+
+    def __init__(self, inner: Optional[RungPolicy] = None, cooldown: int = 8):
+        if cooldown < 0:
+            raise ValueError(f"cooldown must be >= 0, got {cooldown}")
+        self.inner = inner if inner is not None else LoadAdaptivePolicy()
+        self.cooldown = cooldown
+
+    def decide(self, store: NestQuantStore,
+               signal: ResourceSignal) -> RungAssignment:
+        want = self.inner.decide(store, signal)
+        dh = signal.delivery_health
+        cur = store.leaf_rungs()
+        tgt = store.resolve_assignment(want)
+        avail = (dh.available_rung if dh.available_rung is not None
+                 else store.max_available_rung())
+        in_cooldown = (dh.last_failure_step is not None
+                       and signal.step - dh.last_failure_step < self.cooldown)
+        out = {}
+        for p, r in tgt.items():
+            if r > cur[p]:                     # upgrade: clamp to health
+                r = cur[p] if in_cooldown else min(r, max(avail, cur[p]))
+            out[p] = r
+        if out == tgt:
+            return want
+        return RungAssignment(default=store.rung, exact=tuple(out.items()))
+
+
+def resolve_draft_ok(policy, signal: ResourceSignal) -> Optional[bool]:
+    """The drafting verdict of the first policy in a wrapper chain
+    (``.inner`` links, outside-in) that has a ``draft_ok``; None when none
+    does (the Scheduler then drafts only on an empty backlog)."""
+    seen = set()
+    while policy is not None and id(policy) not in seen:
+        seen.add(id(policy))
+        fn = getattr(policy, "draft_ok", None)
+        if callable(fn):
+            return bool(fn(signal))
+        policy = getattr(policy, "inner", None)
+    return None
+
+
 def resolve_kv_decide(policy, kv, signal: ResourceSignal) -> Optional[int]:
     """The cache-rung verdict of the first policy in a wrapper chain
     (``.inner`` links, outside-in) that has a ``kv_decide``; None when
@@ -300,19 +357,14 @@ class SignalTracker:
         self.step += 1
 
 
-def _failure_not_ported(**kwargs):
-    raise NotImplementedError("FailureAwarePolicy is not ported yet (ROADMAP.md "
-                              "queue 1, item 11)")
-
-
 POLICIES = {"budget": BudgetPolicy, "hysteresis": HysteresisPolicy,
             "quality": QualityFloorPolicy, "load": LoadAdaptivePolicy,
-            "static": StaticRungPolicy, "failure": _failure_not_ported}
+            "static": StaticRungPolicy, "failure": FailureAwarePolicy}
 
 
 def make_policy(name: str, **kwargs) -> RungPolicy:
     """CLI-facing factory: 'budget' | 'hysteresis' | 'quality' | 'load' |
-    'static' | 'failure' (not ported yet: raises)."""
+    'static' | 'failure'."""
     if name not in POLICIES:
         raise ValueError(f"unknown policy {name!r}; pick from {sorted(POLICIES)}")
     return POLICIES[name](**kwargs)

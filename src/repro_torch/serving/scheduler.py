@@ -1,7 +1,6 @@
 """Load-adaptive serving: an admission-controlled continuous-batching
-scheduler that drives rung switching from real traffic; counterpart of
-``repro/serving/scheduler.py`` without speculative batches (ROADMAP.md
-queue 1, item 9).
+scheduler that drives rung switching (and speculative drafting) from real
+traffic; counterpart of ``repro/serving/scheduler.py``.
 
 A seeded :class:`LoadGenerator` produces an open-loop arrival trace on a
 VIRTUAL clock, a :class:`RequestQueue` holds the backlog, and each
@@ -28,7 +27,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .engine import Request, ServeEngine
+from .engine import Request, ServeEngine, SpecConfig
+from .policies import ResourceSignal, resolve_draft_ok
 
 TRACES = ("poisson", "burst", "diurnal")
 
@@ -191,6 +191,19 @@ class ServiceModel:
             return 0.0
         return moves * self.switch_latency_s + page_bytes / (self.page_gbps * 1e9)
 
+    def speculative_seconds(self, profile) -> float:
+        """Virtual seconds of one speculatively decoded batch from the
+        engine's :class:`~repro_torch.serving.engine.DecodeProfile` of what
+        was dispatched: each draft step streams the draft rung's resident
+        bytes, each verify pass (and each plain step) the full residency
+        once.  No acceptance rate is assumed: a rejected round costs its
+        drafts."""
+        return (self.batch_overhead_s
+                + (profile.draft_steps * profile.draft_bytes
+                   + profile.verify_passes * profile.verify_bytes
+                   + profile.steps * profile.verify_bytes)
+                / (self.weight_gbps * 1e9))
+
     def capacity_rps(self, resident_bytes: int, steps: int,
                      max_batch: int) -> float:
         """Saturation throughput (requests/s) at full batches."""
@@ -290,10 +303,9 @@ class SchedulerReport:
         unless the run was coupled to a pager clock)."""
         return sum(float(s.get("fault_s", 0.0)) for s in self.steps)
 
-    # speculative batches are not ported (item 9): these stay 0, and keep
-    # the summary's keys the JAX package's
     @property
     def spec_steps(self) -> int:
+        """Batches served speculatively (the rest took plain decode)."""
         return sum(1 for s in self.steps if s.get("speculative"))
 
     @property
@@ -359,7 +371,11 @@ class Scheduler:
     ``stats.sched_filler``, never returned, and cost nothing on the virtual
     clock).  ``clock`` couples the virtual time to a pager's clock: each
     step sets it to ``now`` and charges what the fetch path slept back as
-    ``fault_s``.  ``kv_aware`` caps admission by the nested KV cache's
+    ``fault_s``.  ``speculate`` (an int ``k`` or a
+    :class:`~repro_torch.serving.engine.SpecConfig`) arms drafting: a batch
+    drafts when the policy chain's ``draft_ok`` says so for its backlog (no
+    policy with one: when the backlog is empty), and is charged what it
+    dispatched.  ``kv_aware`` caps admission by the nested KV cache's
     bytes per sequence beside the weight residency and charges every
     decode step the batch's cache bytes."""
 
@@ -370,9 +386,6 @@ class Scheduler:
                  memory_budget_bytes: Optional[int] = None,
                  bucket_batches: bool = True, clock=None,
                  speculate=None, kv_aware: bool = False):
-        if speculate is not None:
-            raise NotImplementedError("speculative batches are not ported yet "
-                                      "(ROADMAP.md queue 1, item 9)")
         if max_batch is None:
             max_batch = engine.max_batch
         if max_batch > engine.max_batch:
@@ -391,6 +404,9 @@ class Scheduler:
         self.memory_budget_bytes = memory_budget_bytes
         self.bucket_batches = bucket_batches
         self.clock = clock
+        if speculate is not None and not isinstance(speculate, SpecConfig):
+            speculate = SpecConfig(k=int(speculate))
+        self.speculate = speculate
         self.kv_aware = kv_aware
         self._started = False
 
@@ -495,8 +511,17 @@ class Scheduler:
             self.clock.set(now)
             t0 = self.clock.now()       # set() is monotone: may run ahead of now
         avail_rung = store.max_available_rung()
+        # drafting on or off: the policy chain's verdict on this backlog
+        spec = None
+        if self.speculate is not None:
+            ok = resolve_draft_ok(eng.policy, ResourceSignal(queue_depth=depth,
+                                                             backlog_age_s=age))
+            if ok if ok is not None else depth == 0:
+                spec = self.speculate
         eng.generate(reqs, self.memory_budget_bytes, queue_depth=depth,
-                     backlog_age_s=age)
+                     backlog_age_s=age, speculate=spec)
+        profile = eng.last_profile
+        speculative = bool(spec is not None and profile is not None and profile.speculative)
         if self.clock is not None:
             fault_s = self.clock.now() - t0
         failed = eng.stats.switch_failures - failures0
@@ -539,9 +564,12 @@ class Scheduler:
         if self.kv_aware:
             switch_s += self.service.switch_seconds(kv_page_in + kv_page_out, kv_moves)
         kv_bytes = eng.kv_bytes_per_seq() * len(batch) if self.kv_aware else 0
-        batch_s = self.service.batch_seconds(
-            store.resident_bytes(), max(s.request.max_new_tokens for s in batch),
-            kv_bytes=kv_bytes)
+        if speculative:
+            batch_s = self.service.speculative_seconds(profile)
+        else:
+            batch_s = self.service.batch_seconds(
+                store.resident_bytes(), max(s.request.max_new_tokens for s in batch),
+                kv_bytes=kv_bytes)
         now += switch_s + batch_s
         for s in batch:
             s.done_s = now
@@ -561,8 +589,10 @@ class Scheduler:
                "batch_s": batch_s, "fault_s": fault_s,
                "switch_failures": failed,
                "avail_rung": avail_rung, "clock_s": t0,
-               "speculative": False, "spec_drafted": 0, "spec_accepted": 0,
-               "spec_rounds": 0}
+               "speculative": speculative,
+               "spec_drafted": profile.drafted if speculative else 0,
+               "spec_accepted": profile.accepted if speculative else 0,
+               "spec_rounds": profile.verify_passes if speculative else 0}
         self._steps.append(rec)
         self._now = now
         return rec

@@ -60,8 +60,10 @@ def test_generate_walks_rungs_token_identical_with_exact_ledger(engines):
 
 def test_engine_refuses_what_is_not_ported(engines):
     _, peng = engines
-    with pytest.raises(NotImplementedError, match="item 9"):
-        peng.generate([Request(0, np.zeros(3, np.int32))], speculate=2)
+    from repro_torch.models.model import make_model
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ServeEngine(get_config("mamba2-780m").reduced(), peng.store,
+                    model=make_model(get_config("mamba2-780m").reduced(), device="cpu"))
     with pytest.raises(TypeError, match="KVCacheConfig or a NestedKVCache"):
         ServeEngine(peng.cfg, peng.store, kv=object())
     with pytest.raises(ValueError):

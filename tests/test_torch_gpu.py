@@ -4,7 +4,9 @@ bodies - decode at M <= 8, CUDA cores at M 9-63 and f32 above M 8, tensor
 cores at bf16 prefill M - the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
 recompose K6), the kernel routes' refusals, artifact fetches onto the card,
-and a serve after ``ServeEngine.warmup`` that builds nothing.
+a serve after ``ServeEngine.warmup`` that builds nothing, the decode route's
+rows independent of M (the speculative verify pass), speculative tokens
+equal to plain greedy, and a corrupted fetch on the card rolled back.
 
 Marked ``gpu``: these need an NVIDIA H100 and nvcc, and skip elsewhere.
 Whether a card is present is decided inside the fixture, never at import,
@@ -747,3 +749,153 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
     assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
     assert all(dispatch.counter(n).launches > 0
                for n in ("packed_matmul", "nested_matmul", "ladder_matmul"))
+
+
+# ---------------------------------------------------------------------------
+# the decode route in row groups (the speculative verify pass)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", [(1536, 256), (8960, 1536), (1536, 151936)])
+@pytest.mark.parametrize("rung", [0, 1, 2])
+def test_decode_rows_route_rows_do_not_depend_on_m(cuda, rung, K, N, dtype):
+    """Rows of a ``DECODE_ROWS`` launch at M = 12 and 20 (batch 4, k = 2 and
+    4) equal bit for bit the same rows of M = 4 and M = 1 decode launches:
+    one decode-body launch per group of <= 8 rows, none on another body."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + rung)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=(8, 6, 4), rounding="rtn")
+    out_dtype = torch.float32 if N == 151936 else dtype
+    x = torch.randn(20, K, generator=g, device=cuda).to(dtype)
+    one = torch.cat([_run_rung(nt, rung, x[i:i + 1].contiguous(), out_dtype=out_dtype)[0]
+                     for i in range(20)])
+    four = torch.cat([_run_rung(nt, rung, x[i:i + 4].contiguous(), out_dtype=out_dtype)[0]
+                      for i in range(0, 20, 4)])
+    for M in (12, 20):
+        counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[rung]]
+        before = (counter.launches, counter.dec_launches, counter.tc_launches)
+        got, _ = _run_rung(nt, rung, x[:M], route=dispatch.DECODE_ROWS, out_dtype=out_dtype)
+        groups = -(-M // dispatch.DEC_MAX_M)
+        assert (counter.launches, counter.dec_launches, counter.tc_launches) == \
+            (before[0] + groups, before[1] + groups, before[2])
+        torch.cuda.synchronize()
+        assert torch.equal(got, one[:M]), (rung, K, N, dtype, M, "M = 1 rows")
+        assert torch.equal(got, four[:M]), (rung, K, N, dtype, M, "M = 4 rows")
+
+
+@pytest.mark.parametrize("bits,K,N,block", [
+    ((8,), 1536, 1536, 512), ((4, 6), 1536, 256, 512), ((4, 6, 8), 8960, 1536, 512),
+    ((4, 6, 8), 1536, 151936, 512), ((2, 5, 9, 16), 1000, 192, 64)])
+def test_decode_plan_does_not_depend_on_m(cuda, bits, K, N, block):
+    """The decode body's plan (partial floats per row, column tiles) is the
+    same at every M from 1 to 8, and the wrapper's cache keys it without M."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    lib = build.library("nest_matmul.cu")
+    arr = (ctypes.c_int * len(bits))(*bits)
+    plans = set()
+    for M in range(1, dispatch.DEC_MAX_M + 1):
+        tiles = ctypes.c_int(0)
+        n = lib.nq_dec_workspace(ctypes.addressof(arr), len(bits), M, N, K, block,
+                                 ctypes.byref(tiles))
+        plans.add((n, tiles.value))
+    assert len(plans) == 1 and next(iter(plans))[0] > 0, plans
+    assert build.dec_plan(cuda, bits, N, K, block) == next(iter(plans))
+
+
+def _spec_engine(cuda, dtype, num_layers=2):
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeEngine, StaticRungPolicy
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=num_layers,
+                              compute_dtype=dtype)
+    store = NestQuantStore(quantize(init_params(cfg, seed=0, device=cuda),
+                                    QuantRecipe(bits=(8, 6, 4)), device=cuda),
+                           mode="full", device=cuda)
+    return ServeEngine(cfg, store, max_batch=4, max_len=48, policy=StaticRungPolicy(-1))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_speculative_tokens_identical_to_plain_greedy_on_the_card(cuda, dtype):
+    """Two layers of qwen2-1.5b at full width, rung 2: speculative decoding
+    with drafts at rungs 0 and 1 emits the plain greedy tokens, every
+    K1-K3 launch on the decode body and no plain version."""
+    import numpy as np
+
+    from repro_torch.serving import Request, SpecConfig
+
+    engine = _spec_engine(cuda, dtype)
+
+    def reqs():
+        rng = np.random.default_rng(7)
+        return [Request(i, rng.integers(0, engine.cfg.vocab_size, 8).astype(np.int32),
+                        max_new_tokens=12) for i in range(4)]
+    plain = [r.out_tokens for r in engine.generate(reqs())]
+    for spec in (SpecConfig(k=4, draft=0), SpecConfig(k=2, draft=1)):
+        dispatch.reset_counters()
+        out = [r.out_tokens for r in engine.generate(reqs(), speculate=spec)]
+        assert out == plain, (dtype, spec)
+        p = engine.last_profile
+        assert p.speculative and p.draft_steps == spec.k * p.verify_passes
+        cs = [dispatch.counter(n) for n in ("packed_matmul", "nested_matmul",
+                                            "ladder_matmul")]
+        assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
+        # the prefill (32 rows) takes the CUDA-core body, its LM head (4 rows)
+        # and every draft step the decode body, each verify pass the decode
+        # body once per group of 8 of its 4 * (k + 1) rows
+        per_forward = 2 * 7 + 1
+        groups = -(-4 * (spec.k + 1) // dispatch.DEC_MAX_M)
+        assert sum(c.launches - c.dec_launches for c in cs) == per_forward - 1
+        assert cs[spec.draft].launches == cs[spec.draft].dec_launches == \
+            per_forward * p.draft_steps
+        assert cs[2].launches == per_forward * (1 + groups * p.verify_passes)
+
+
+def test_chaos_corruption_on_the_card_is_caught_and_rolled_back(cuda):
+    """A ChaosPager flips a bit of a copy on the card: the ResilientPager's
+    CRC catches it, a switch that cannot heal rolls back leaving every
+    resident stream and the ledger as they were, and a retry heals."""
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.storage import (ChaosPager, CorruptStreamError, InMemoryPager,
+                                     ResilientPager, RetryPolicy)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"a": {"w": nest_quantize(torch.randn(1536, 256, generator=g, device=cuda),
+                                     bits=(8, 6, 4))},
+            "b": {"w": nest_quantize(torch.randn(512, 1536, generator=g, device=cuda),
+                                     bits=(8, 6, 4))}}
+    inner = InMemoryPager.from_tree(tree)
+    path, level = next(iter(inner._streams))
+    pristine = inner.fetch(path, level).clone()
+    chaos = ChaosPager(inner, seed=0, p_corrupt=1.0)
+    bad = chaos.fetch(path, level)
+    assert bad.is_cuda and not torch.equal(bad, pristine)
+    flips = torch.bitwise_xor(bad, pristine).reshape(-1).view(torch.uint8).cpu()
+    assert int(sum(bin(int(b)).count("1") for b in flips.tolist())) == 1
+    assert torch.equal(inner.fetch(path, level), pristine)
+
+    def snapshot(store):
+        return [(p, leaf.w_base.clone(), tuple(d.clone() for d in leaf.deltas if d is not None))
+                for p, leaf in store.nested_leaves()]
+
+    store = NestQuantStore(tree, mode="part", device=cuda, pager=ResilientPager(
+        ChaosPager(InMemoryPager.from_tree(tree), seed=0, p_corrupt=1.0),
+        RetryPolicy(max_attempts=2, backoff_base_s=0.0, quarantine_after=10 ** 6)))
+    pre, events = snapshot(store), list(store.ledger.events)
+    with pytest.raises(CorruptStreamError, match="CRC-32"):
+        store.to_rung(2)
+    assert store.rung == 0 and store.ledger.events == events
+    for (p, w, ds), (q, w2, ds2) in zip(pre, snapshot(store)):
+        assert p == q and torch.equal(w, w2) and len(ds) == len(ds2) == 0
+    healing = ResilientPager(ChaosPager(InMemoryPager.from_tree(tree), seed=0, p_corrupt=0.5),
+                             RetryPolicy(max_attempts=8, backoff_base_s=0.0,
+                                         quarantine_after=10 ** 6))
+    store = NestQuantStore(tree, mode="part", device=cuda, pager=healing).to_rung(2)
+    assert sum(h.corrupt for h in healing.health.values()) > 0
+    want = NestQuantStore(tree, mode="full", device=cuda)
+    for (p, a), (q, b) in zip(store.nested_leaves(), want.nested_leaves()):
+        assert p == q and all(torch.equal(x, y) for x, y in zip(a.deltas, b.deltas))

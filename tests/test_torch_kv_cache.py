@@ -253,3 +253,62 @@ def test_engine_takes_a_cache_or_a_config_only(kv_engines):
     assert ServeEngine(peng.cfg, peng.store, kv=kv).kv is kv
     with pytest.raises(TypeError):
         ServeEngine(peng.cfg, peng.store, kv=object())
+
+
+def test_cache_over_wrapper_pagers_rolls_back_and_fences_like_the_reference():
+    """A cache over a ResilientPager(ChaosPager(...)) deposits into the
+    InMemoryPager under the wrappers (the ``.inner`` walk) at paths under its
+    ``tag``, records into the ledger it was given, and a corrupted upgrade
+    rolls back: rung, ledger and rendering as before, the stream quarantined
+    (the ceiling drops); the healed link upgrades with the JAX cache's exact
+    ledger.  A pager chain with no ``put`` raises."""
+    from repro.storage import pager as jpager
+    from repro_torch.core.switching import SwitchLedger
+    from repro_torch.storage import (ChaosPager, CorruptStreamError, InMemoryPager,
+                                     ResilientPager, RetryPolicy)
+
+    rng = np.random.default_rng(3)
+    k = rng.normal(size=(2, 1, 2 * PAGE, 2, 8)).astype(np.float32)
+    v = rng.normal(size=k.shape).astype(np.float32)
+    backing, ledger = InMemoryPager({}), SwitchLedger()
+    pc = NestedKVCache(KVCacheConfig(bits=(4, 8), page=PAGE), pager=ResilientPager(
+        ChaosPager(backing, seed=0)), ledger=ledger, tag="kv7")
+    jc = jkv.NestedKVCache(jkv.KVCacheConfig(bits=(4, 8), page=PAGE))
+    assert pc.ingest(torch.from_numpy(k), torch.from_numpy(v)) == \
+        jc.ingest(jnp.asarray(k), jnp.asarray(v)) == 2
+    assert sorted(backing._streams) == [(f"kv7/g1/p{i}/{t}", 0) for i in (0, 1)
+                                        for t in ("k", "v")]
+    pc.to_rung(0)
+    jc.to_rung(0)
+    assert pc.ledger is ledger and ledger.events == jc.ledger.events
+    before, events = pc.render(), list(ledger.events)
+    pc.pager = ResilientPager(ChaosPager(backing, seed=0, p_corrupt=1.0),
+                              RetryPolicy(max_attempts=2, backoff_base_s=0.0, jitter=0.0,
+                                          quarantine_after=1))
+    jc.pager = jpager.ResilientPager(
+        jpager.ChaosPager(jc.pager, seed=0, p_corrupt=1.0),
+        jpager.RetryPolicy(max_attempts=2, backoff_base_s=0.0, jitter=0.0,
+                           quarantine_after=1))
+    for cache, err in ((pc, CorruptStreamError), (jc, jpager.CorruptStreamError)):
+        with pytest.raises(err):
+            cache.to_rung(1)
+        assert cache.rung == 0 and cache.max_available_rung() == 0
+    assert ledger.events == events == jc.ledger.events
+    for a, b in zip(before, pc.render()):
+        assert torch.equal(a, b)
+    pc.pager, jc.pager = backing, jc.pager.inner.inner
+    assert pc.max_available_rung() == 1
+    pc.to_rung(1)
+    jc.to_rung(1)
+    assert ledger.events == jc.ledger.events
+    assert ledger.events[-1] == (0, 1, 2 * len(pc.pages) * pc.stream_bytes(1), 0)
+    pc.rewind(0)
+    assert backing._streams == {}                    # retired through the walk too
+
+    class NoPut:
+        def fetch(self, path, level):
+            raise AssertionError("never reached")
+
+    with pytest.raises(TypeError, match="put"):
+        NestedKVCache(KVCacheConfig(bits=(4, 8), page=PAGE), pager=ChaosPager(NoPut())
+                      ).ingest(torch.from_numpy(k), torch.from_numpy(v))

@@ -1,8 +1,9 @@
 """Port parity of the policy tier and its store helpers: HysteresisPolicy
 decisions over a budget trace, QualityFloorPolicy floors (SQNR and Pearson)
 that leave ledger and pager residency as they were, ``hydrated_leaves`` and
-``rung_view`` against the JAX store's, the numpy similarity functions, and
-the ``make_policy`` names."""
+``rung_view`` against the JAX store's, the numpy similarity functions,
+``LoadAdaptivePolicy.draft_ok`` and ``resolve_draft_ok``, the
+``FailureAwarePolicy``'s clamps, and the ``make_policy`` names."""
 import importlib
 import re
 
@@ -175,10 +176,71 @@ def test_similarity_functions_equal_the_reference():
 
 def test_make_policy_names_and_refusals():
     assert sorted(ppol.POLICIES) == sorted(jpol.POLICIES)
-    for name in ("budget", "hysteresis", "quality", "load", "static"):
+    for name in ("budget", "hysteresis", "quality", "load", "static", "failure"):
         assert type(ppol.make_policy(name)).__name__ == type(jpol.make_policy(name)).__name__
     assert ppol.make_policy("static", rung=1).rung == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ppol.make_policy("failure")
+    assert ppol.make_policy("failure", cooldown=3).cooldown == 3
+    with pytest.raises(ValueError, match="cooldown"):
+        ppol.make_policy("failure", cooldown=-1)
     with pytest.raises(ValueError, match="unknown policy"):
         ppol.make_policy("nope")
+
+
+@pytest.mark.parametrize("high,low,age", [(8, 0, None), (4, 2, None), (4, 0, 0.5)])
+def test_draft_ok_and_its_chain_walk_equal_the_reference(high, low, age):
+    """Drafting is on only on a drained, unpressured queue, as in the JAX
+    package; ``resolve_draft_ok`` finds it through wrappers and answers
+    None for a chain without one."""
+    pp = ppol.LoadAdaptivePolicy(high_depth=high, low_depth=low, max_age_s=age)
+    jp = jpol.LoadAdaptivePolicy(high_depth=high, low_depth=low, max_age_s=age)
+    pchain = ppol.FailureAwarePolicy(ppol.HysteresisPolicy(pp, dwell=2))
+    jchain = jpol.FailureAwarePolicy(jpol.HysteresisPolicy(jp, dwell=2))
+    seen = set()
+    for depth in range(0, high + 2):
+        for backlog in (0.0, 0.4, 0.6):
+            ps = ppol.ResourceSignal(queue_depth=depth, backlog_age_s=backlog)
+            js = jpol.ResourceSignal(queue_depth=depth, backlog_age_s=backlog)
+            assert pp.draft_ok(ps) == jp.draft_ok(js)
+            assert ppol.resolve_draft_ok(pchain, ps) == jpol.resolve_draft_ok(jchain, js) \
+                == pp.draft_ok(ps)
+            seen.add(pp.draft_ok(ps))
+    assert seen == {True, False}
+    assert ppol.resolve_draft_ok(ppol.HysteresisPolicy(ppol.BudgetPolicy()),
+                                 ppol.ResourceSignal()) is None
+
+
+@pytest.mark.parametrize("cooldown", [0, 2, 4])
+def test_failure_aware_decisions_equal_the_reference(mixed, cooldown):
+    """Over a budget trace with delivery failures and a ceiling that drops
+    and recovers, FailureAwarePolicy caps upgrades at the deliverable rung,
+    holds them through the cooldown, never sheds what is resident, and
+    moves both stores to the same residency with the same ledger."""
+    jstore, pstore = _stores(mixed, "part")
+    budgets = _budgets(pstore)
+    jtr, ptr = jpol.SignalTracker(), ppol.SignalTracker()
+    pp = ppol.FailureAwarePolicy(ppol.BudgetPolicy(), cooldown=cooldown)
+    jp = jpol.FailureAwarePolicy(jpol.BudgetPolicy(), cooldown=cooldown)
+    avails = [2, 2, 1, 0, 0, 1, 2, None]
+    failures = {3, 9}
+    for i, budget in enumerate(budgets):
+        avail = avails[i % len(avails)]
+        ps = ptr.signal(memory_budget_bytes=budget, available_rung=avail)
+        js = jtr.signal(memory_budget_bytes=budget, available_rung=avail)
+        pa, ja = pp.decide(pstore, ps), jp.decide(jstore, js)
+        want = pstore.resolve_assignment(pa)
+        assert want == jstore.resolve_assignment(ja), i
+        cur = pstore.leaf_rungs()
+        cap = pstore.max_available_rung() if avail is None else avail
+        for path, r in want.items():
+            assert r <= max(cap, cur[path]), (i, path)
+        if i in failures:
+            ptr.note(False, failed=True)
+            jtr.note(False, failed=True)
+            continue
+        pm = pstore.apply(pa)["moves"] > 0
+        jm = jstore.apply(ja)["moves"] > 0
+        assert pm == jm
+        ptr.note(pm)
+        jtr.note(jm)
+    assert pstore.leaf_rungs() == jstore.leaf_rungs()
+    assert pstore.ledger.events == jstore.ledger.events and pstore.ledger.events

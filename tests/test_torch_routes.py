@@ -1,5 +1,6 @@
 """The K1-K3 route choice (plain, decode body, CUDA-core body or
-tensor-core body) as a pure function of M, dtype and device; the per-route launch counters; and
+tensor-core body) as a pure function of M, dtype and device; the decode
+route in row groups; the per-route launch counters; and
 the plain route at prefill-like M against the JAX package (its Pallas
 kernels in interpret mode, its flash op at a ragged S)."""
 import jax.numpy as jnp
@@ -62,7 +63,10 @@ def test_kernel_route_names_and_refusals():
         with pytest.raises(ValueError):
             dispatch.kernel_route(x, DEC)
     assert dispatch.kernel_route(torch.zeros(dispatch.DEC_MAX_M, 8), DEC) == DEC
-    assert [dispatch.BODY[r] for r in (CC, TC, DEC)] == [0, 1, 2]
+    for M in (1, dispatch.DEC_MAX_M + 1, 64):                # any M, bf16 or f32
+        assert dispatch.kernel_route(torch.zeros(M, 8), dispatch.DECODE_ROWS) == \
+            dispatch.DECODE_ROWS
+    assert [dispatch.BODY[r] for r in (CC, TC, DEC, dispatch.DECODE_ROWS)] == [0, 1, 2, 2]
     for bad in ("tensor", PLAIN):
         with pytest.raises(ValueError):
             dispatch.kernel_route(x16, bad)
@@ -81,6 +85,34 @@ def test_launch_counts_per_route_and_reset():
     dispatch.reset_counters()
     assert (probe.launches, probe.tc_launches, probe.dec_launches) == (0, 0, 0)
     del dispatch.COUNTERS["route_probe"]
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 12, 20, 17])
+def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
+    """``DECODE_ROWS`` launches the decode body once per group of at most
+    DEC_MAX_M rows, each into its row slice of one output, counting each
+    launch as a decode-body launch; a named body launches once."""
+    x = torch.arange(M * 3, dtype=torch.float32).reshape(M, 3)
+    calls = []
+
+    def launch(xs, out, body):
+        calls.append((xs.data_ptr(), xs.shape[0], body, xs.is_contiguous()))
+        out.copy_(xs[:, :2] * 2)
+
+    c = dispatch.LaunchCounter("probe")
+    y = dispatch.launch_matmul(x, 2, torch.float32, dispatch.DECODE_ROWS, c, launch)
+    groups = -(-M // dispatch.DEC_MAX_M)
+    assert [n for _, n, _, _ in calls] == \
+        [min(dispatch.DEC_MAX_M, M - g * dispatch.DEC_MAX_M) for g in range(groups)]
+    assert all(b == dispatch.BODY[DEC] and cont for _, _, b, cont in calls)
+    assert [p for p, _, _, _ in calls] == \
+        [x[g * dispatch.DEC_MAX_M:].data_ptr() for g in range(groups)]
+    assert torch.equal(y, x[:, :2] * 2)
+    assert (c.launches, c.dec_launches, c.tc_launches) == (groups, groups, 0)
+    calls.clear()
+    dispatch.launch_matmul(x, 2, torch.float32, CC, c, launch)
+    assert len(calls) == 1 and calls[0][1:3] == (M, dispatch.BODY[CC])
+    assert (c.launches, c.dec_launches) == (groups + 1, groups)
 
 
 @pytest.mark.parametrize("bits,rung", [((4, 6, 8), 2), ((2, 4, 6, 8), 3)])

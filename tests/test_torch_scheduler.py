@@ -2,8 +2,9 @@
 trace under the CLI's ``load`` composition (HysteresisPolicy around
 LoadAdaptivePolicy) the same report - summary, every step record, every
 switch record - and the same greedy tokens per request as the JAX
-package's, with and without kv-aware admission; ``warmup`` returns the
-JAX package's call count."""
+package's, with and without kv-aware admission, and with speculative
+drafting gated per batch by ``draft_ok``; ``warmup`` returns the JAX
+package's call count."""
 import importlib
 
 import jax.numpy as jnp
@@ -14,12 +15,14 @@ from repro.serving import HysteresisPolicy as JaxHysteresis
 from repro.serving import KVCacheConfig as JaxKVConfig
 from repro.serving import LoadAdaptivePolicy as JaxLoad
 from repro.serving import ServeEngine as JaxEngine
+from repro.serving import SpecConfig as JaxSpec
 from repro.serving import scheduler as jsched
 from repro_torch.configs import get_config
 from repro_torch.core.switching import NestQuantStore
 from repro_torch.serving import (TRACES, HysteresisPolicy, KVCacheConfig,
                                  LoadAdaptivePolicy, LoadGenerator, Request,
-                                 Scheduler, ServeEngine, ServiceModel, calibrate_qps)
+                                 Scheduler, ServeEngine, ServiceModel, SpecConfig,
+                                 calibrate_qps)
 from torch_parity import jax_tree_to_torch, reduced_qwen2
 
 jsw = importlib.import_module("repro.core.switching")
@@ -140,8 +143,7 @@ def test_warmup_call_count_equals_the_reference(runs, kv):
 def test_scheduler_refusals(runs):
     peng, _ = runs["port"]
     trace = LoadGenerator("poisson", qps=1.0, n_requests=2, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Scheduler(peng, trace, speculate=2)
+    assert Scheduler(peng, trace, speculate=2).speculate == SpecConfig(k=2)
     with pytest.raises(ValueError, match="over-admits"):
         Scheduler(peng, trace, max_batch=MAX_BATCH + 1)
     sched = Scheduler(peng, trace)
@@ -160,3 +162,39 @@ def test_scheduler_refusals(runs):
     assert calibrate_qps(peng.store, ServiceModel(), steps=2, max_batch=4, rung=0) > \
         calibrate_qps(peng.store, ServiceModel(), steps=2, max_batch=4)
     assert len(Request(0, np.zeros(1, np.int32)).out_tokens) == 0
+
+
+def test_speculative_gating_report_equals_the_reference(runs):
+    """``speculate=`` arms drafting and the policy chain's ``draft_ok``
+    gates it per batch (drained queue: draft; backlog: plain decode): the
+    report - every step's ``speculative``/``spec_*`` fields and its
+    virtual-clock charge from the DecodeProfile - the engine's counters and
+    the tokens equal the JAX package's float for float."""
+    jcfg, _, nested = reduced_qwen2()
+    cfg = get_config("qwen2-1.5b").reduced()
+    jref = runs["jax"][0]
+    jeng = JaxEngine(jcfg, jsw.NestQuantStore(nested, mode="full", dtype=jnp.float32),
+                     max_batch=MAX_BATCH, max_len=32, model=jref.model,
+                     compiled=jref.compiled,
+                     policy=JaxHysteresis(JaxLoad(high_depth=MAX_BATCH), dwell=4))
+    peng = ServeEngine(cfg, NestQuantStore(jax_tree_to_torch(nested), mode="full",
+                                           device="cpu"),
+                       max_batch=MAX_BATCH, max_len=32,
+                       policy=HysteresisPolicy(LoadAdaptivePolicy(high_depth=MAX_BATCH),
+                                               dwell=4))
+    reps = []
+    for mod, eng, spec in ((jsched, jeng, JaxSpec(k=2, draft=0)),
+                           (importlib.import_module("repro_torch.serving.scheduler"), peng,
+                            SpecConfig(k=2, draft=0))):
+        svc, trace = _trace(mod, eng.store, cfg.vocab_size)
+        reps.append(mod.Scheduler(eng, trace, svc, speculate=spec).run())
+    jrep, prep = reps
+    assert prep.summary() == jrep.summary()
+    assert prep.steps == jrep.steps and prep.switch_records == jrep.switch_records
+    assert 0 < prep.spec_steps < len(prep.steps)
+    assert prep.spec_drafted > 0 and 0 < prep.spec_acceptance <= 1
+    assert [(r.request.uid, r.request.out_tokens, r.done_s) for r in prep.requests] == \
+        [(r.request.uid, r.request.out_tokens, r.done_s) for r in jrep.requests]
+    for key in ("spec_rounds", "spec_draft_steps", "spec_drafted", "spec_accepted",
+                "spec_rejected", "decode_steps", "sched_steps", "sched_filler"):
+        assert getattr(peng.stats, key) == getattr(jeng.stats, key), key
