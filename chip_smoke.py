@@ -50,10 +50,13 @@ Phases (each raises on failure; the script then exits non-zero):
    bytes and every packed_linear runs on its rung's kernel.
 3c. Self-speculative decoding and delivery faults on the phase-2 store.
    Rows: q/o, k/v, gate/up, down and the LM head at rungs 0-2, bf16 and
-   f32 - the rows of a ``DECODE_ROWS`` call at M = 12 and 20 (a verify
+   f32 - the rows of a decode-route call at M = 12 and 20 (a verify
    chunk of batch 4, k = 2 and 4: the decode body once per group of 8
    rows) equal bit for bit the same rows of M = 4 and M = 1 decode calls;
-   each bf16 verify call timed beside the k + 1 decode calls it replaces.
+   each bf16 verify call timed beside the k + 1 decode calls it replaces,
+   and a decode step's K1-K3 at batch 16 and 64 timed on the decode route
+   (which the decode phase names at every batch) beside the body M alone
+   picks (CUDA cores at 16, tensor cores at 64).
    Serve: 4 requests x 8 prompt tokens x 16 new tokens at rung 2 in bf16
    and f32, ``SpecConfig(k=4, draft=0)`` and ``SpecConfig(k=2, draft=1)``
    emit the plain ``generate``'s tokens, every draft step on its rung's
@@ -62,11 +65,14 @@ Phases (each raises on failure; the script then exits non-zero):
    pager behind ``ResilientPager(ChaosPager(...))`` (transient faults,
    flipped bits, an outage of delta_1) on one ``VirtualClock`` with a
    ``Scheduler`` under ``make_policy("failure")``, 24 requests from rung
-   0: every request completes, every failed switch leaves every resident
-   stream on the card bit-identical and the ledger unchanged, no step
-   upgrades above the deliverable rung, the served streams end equal to
-   the pristine ones; a forced failed upgrade rolls back the same way and
-   a flipped bit is caught by the CRC and healed by a retry.
+   0: every request completes, every K1-K3 launch on its rung's kernel and
+   every decode step's on the decode body, at least one switch fails and
+   at least one upgrade commits through the faulty pager; every failed
+   switch leaves every resident stream on the card bit-identical and the
+   ledger unchanged, every committed upgrade serves streams equal to the
+   pristine ones, no step upgrades above the deliverable rung; a forced
+   failed upgrade rolls back the same way and a flipped bit is caught by
+   the CRC and healed by a retry.
 4. Time the launch floor (a one-element ``zero_()`` under CUDA-graph
    replay).  Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
    (3, 5, 6, 8), M = 6 and 48; every row beside a control with the same
@@ -682,13 +688,15 @@ def _load_policy():
     return HysteresisPolicy(LoadAdaptivePolicy(high_depth=BATCH), dwell=SCHED_DWELL)
 
 
-def _scheduled_launches(report, per_forward):
+def _scheduled_launches(report, per_forward, decode=False):
     """K1-K3 launches a scheduler run must show: every batch's forwards on
-    the kernel of the rung it was served at."""
+    the kernel of the rung it was served at; with ``decode``, those on the
+    decode body (every decode step's and each prefill's LM head)."""
+    per_batch = per_forward * NEW_TOKENS + 1 if decode else per_forward * (1 + NEW_TOKENS)
     want = {n: 0 for n in KERNELS}
     for s in report.steps:
         name = next(n for n, v in KERNELS.items() if v[0] == min(s["rung"], 2))
-        want[name] += per_forward * (1 + NEW_TOKENS)
+        want[name] += per_batch
     return want
 
 
@@ -942,9 +950,18 @@ SHAPE_LEAVES = {"q/o": ("blocks", "q"), "k/v": ("blocks", "k"),
                 "gate/up": ("blocks", "mlp", "w_gate"), "down": ("blocks", "mlp", "w_down"),
                 "lm_head": ("lm_head",)}
 VERIFY_KS = (2, 4)          # verify chunks of batch 4: M = 12 and 20
+WIDE_BATCHES = (16, 64)     # decode steps above batch 8 (no served path runs them)
 SPEC_NEW_TOKENS = 16
 SPEC_CONFIGS = ((4, 0), (2, 1))                     # (k, draft rung)
 FAULT_REQUESTS, FAULT_SEED = 24, 5
+# the pager's faults and retries.  An upgrade fetches one stream per nested
+# leaf (9 at full width) and commits only if each arrives within 2
+# attempts: at the JAX package's storm rates (0.35 transient, 0.1 corrupt)
+# that is ~18 % of upgrades, and the seeded run committed none; at these,
+# it fails one switch and commits two upgrades (0 -> 1 -> 2)
+FAULT_CHAOS = {"p_transient": 0.2, "p_corrupt": 0.05}
+FAULT_RETRY = {"max_attempts": 2, "backoff_base_s": 1e-4, "quarantine_after": 3,
+               "quarantine_s": 2e-3}
 
 
 def _leaf(params, keys):
@@ -971,8 +988,11 @@ def _profiled(fn):
 def verify_passes(rows, cfg):
     """K1-K3 time of one verify pass per forward (every main-path shape times
     its uses) at M = 12 and 20, beside the k + 1 decode calls at M = 4 it
-    replaces, per rung, bf16 (single weight copies: L2 may hold the small
-    shapes, unlike the cold-L2 decode rows of phase 1)."""
+    replaces, and of one decode step at batch 16 and 64 on the decode route
+    beside the body M alone picks, per rung, bf16 (single weight copies: L2
+    may hold the small shapes, unlike the cold-L2 decode rows of phase 1)."""
+    from repro_torch.kernels import dispatch
+
     uses = {shape: u for shape, _, _, u, _ in main_path_shapes(cfg)}
     out = {}
     for rung in range(3):
@@ -981,21 +1001,31 @@ def verify_passes(rows, cfg):
         out[f"rung{rung} bfloat16"] = {
             f"k={k}": {"verify_ms": tot(f"verify_m{BATCH * (k + 1)}_ms"),
                        "decodes_ms": (k + 1) * tot("decode_m4_ms")} for k in VERIFY_KS}
+        out[f"rung{rung} bfloat16"].update({
+            f"batch={B}": {"decode_route_ms": tot(f"decode_b{B}_ms"),
+                           "by_m_ms": tot(f"by_m_b{B}_ms"),
+                           "by_m_route": dispatch.matmul_route(B, torch.bfloat16, DEVICE)}
+            for B in WIDE_BATCHES})
     for key, v in out.items():
         log(f"[spec-verify] {key}: " + "; ".join(
             f"{k} verify {x['verify_ms']:.3f} ms per forward vs {x['decodes_ms']:.3f} ms for "
-            f"the decode steps it replaces" for k, x in v.items()))
+            f"the decode steps it replaces" for k, x in v.items() if "verify_ms" in x))
+        log(f"[decode-wide] {key}: " + "; ".join(
+            f"{k} decode step {x['decode_route_ms']:.3f} ms on the decode route vs "
+            f"{x['by_m_ms']:.3f} ms on the {x['by_m_route']} body" for k, x in v.items()
+            if "by_m_ms" in x))
     return out
 
 
 def spec_rows(store, gen):
     """Every main-path shape at rungs 0-2, bf16 and f32: the rows of a
-    ``DECODE_ROWS`` call at M = 12 and 20 (batch 4 x k + 1 for k = 2, 4)
+    decode-route call at M = 12 and 20 (batch 4 x k + 1 for k = 2, 4)
     equal bit for bit the same rows of M = 4 and M = 1 decode calls, one
     decode-body launch per group of 8 rows and none elsewhere; in bf16 each
     verify call timed (CUDA-graph replay) beside the k + 1 decode calls at
     M = 4 it replaces (f32 rows are checked, not timed: the decode body's
-    time does not depend on the activation dtype, PERF.md)."""
+    time does not depend on the activation dtype, PERF.md), and at batch
+    16 and 64 the decode route beside the body M alone picks."""
     from repro_torch.kernels import dispatch
     from repro_torch.models.layers import packed_linear
 
@@ -1021,7 +1051,7 @@ def spec_rows(store, gen):
                 for k in VERIFY_KS:
                     M = BATCH * (k + 1)
                     before = (counter.launches, counter.dec_launches, counter.plain_launches)
-                    got = packed_linear(x[:M], nt, out_dtype, route=dispatch.DECODE_ROWS)
+                    got = packed_linear(x[:M], nt, out_dtype, route=dispatch.DECODE)
                     groups = -(-M // dispatch.DEC_MAX_M)
                     after = (counter.launches, counter.dec_launches, counter.plain_launches)
                     if after != (before[0] + groups, before[1] + groups, before[2]):
@@ -1033,8 +1063,18 @@ def spec_rows(store, gen):
                                              f"differ from the decode calls' rows")
                     row[f"verify_m{M}_ms"] = time_graph_ms(
                         lambda i: packed_linear(x[:M], nt, out_dtype,
-                                                route=dispatch.DECODE_ROWS), 10, reps=3) \
+                                                route=dispatch.DECODE), 10, reps=3) \
                         if timed else None
+                if timed:     # decode steps above batch 8: the named route and M's
+                    xb = torch.randn(max(WIDE_BATCHES), nt.K, generator=gen,
+                                     device=DEVICE).to(dtype)
+                    for B in WIDE_BATCHES:
+                        row[f"decode_b{B}_ms"] = time_graph_ms(
+                            lambda i: packed_linear(xb[:B], nt, out_dtype,
+                                                    route=dispatch.DECODE), 10, reps=3)
+                        row[f"by_m_b{B}_ms"] = time_graph_ms(
+                            lambda i: packed_linear(xb[:B], nt, out_dtype), 10, reps=3)
+                    del xb
                 rows.append(row)
                 log(f"[spec-rows] {shape:8s} rung {rung} {row['dtype']:8s} rows bit-identical" + (
                     f"; verify M=12 {row['verify_m12_ms']:.4f} ms (3 decodes at M=4 "
@@ -1130,25 +1170,29 @@ def _check_rolled_back(store, snap, events, what):
             raise AssertionError(f"{what}: a failed switch changed {p}'s resident streams")
 
 
-def fault_run(cfg, store, per_forward):
-    """The phase-2 store's InMemoryPager behind ResilientPager(ChaosPager)
-    (transient faults, flipped bits, an outage of delta_1) on one
-    VirtualClock with the Scheduler, under ``make_policy("failure")``,
-    over a 24-request burst from rung 0: every request completes; a failed
-    switch leaves every resident stream on the card bit-identical and the
-    ledger as it was; no step upgrades above the deliverable rung; the
-    served tree ends equal to the pristine streams.  Then two faults the
-    seeded run may not have drawn, forced: an upgrade whose every fetch
-    fails rolls back the same way, and one stream's flipped bit is caught
-    by the CRC and healed by a retry."""
-    from repro_torch.kernels import dispatch
+def _check_pristine(store, inner, what):
+    """Every resident delta stream equals the pristine one ``inner`` holds."""
+    for p, leaf in store.nested_leaves():
+        for lvl in range(leaf.resident_levels):
+            if not torch.equal(leaf.deltas[lvl], inner.fetch(p, lvl)):
+                raise AssertionError(f"{what}: {p} delta {lvl}: served words differ from the "
+                                     f"pristine stream")
+
+
+def fault_stack(cfg, store, inner):
+    """``store`` at rung 0 (through ``inner``), then behind
+    ResilientPager(ChaosPager(inner, ...)) with an outage of delta_1 from
+    arrival 6 to arrival 18, and a Scheduler under ``make_policy("failure")``
+    (the JAX package's storm composition: downshift in the burst, climb
+    back through the faults) over the 24-request burst, all on one
+    VirtualClock.  Returns (scheduler, engine, chaos pager, resilient
+    pager); the caller puts ``inner`` back."""
     from repro_torch.serving import (HysteresisPolicy, LoadAdaptivePolicy, LoadGenerator,
                                      Scheduler, ServeEngine, ServiceModel, calibrate_qps,
                                      make_policy)
-    from repro_torch.storage import (ChaosPager, Outage, PagerError, ResilientPager,
-                                     RetryPolicy, VirtualClock)
+    from repro_torch.storage import ChaosPager, Outage, ResilientPager, RetryPolicy, VirtualClock
 
-    inner = store.pager
+    store.pager = inner
     store.to_rung(0)
     svc = ServiceModel()
     qps = calibrate_qps(store, svc, steps=NEW_TOKENS, max_batch=BATCH, utilization=0.4)
@@ -1157,23 +1201,38 @@ def fault_run(cfg, store, per_forward):
                           seed=0, prompt_len=PROMPT, new_tokens=NEW_TOKENS, burst_qps=burst)
     arr = trace.arrivals()
     clk = VirtualClock()
-    chaos = ChaosPager(inner, seed=FAULT_SEED, p_transient=0.35, p_corrupt=0.1, clock=clk,
-                       outages=(Outage(arr[6].t, arr[18].t, level=1),))
-    pager = ResilientPager(chaos, RetryPolicy(max_attempts=2, backoff_base_s=1e-4,
-                                              quarantine_after=3, quarantine_s=2e-3),
-                           seed=FAULT_SEED + 1, clock=clk)
-    out = {}
+    chaos = ChaosPager(inner, seed=FAULT_SEED, clock=clk,
+                       outages=(Outage(arr[6].t, arr[18].t, level=1),), **FAULT_CHAOS)
+    pager = ResilientPager(chaos, RetryPolicy(**FAULT_RETRY), seed=FAULT_SEED + 1, clock=clk)
     store.pager = pager
+    policy = make_policy("failure", cooldown=4, inner=HysteresisPolicy(
+        LoadAdaptivePolicy(high_depth=BATCH), dwell=2))
+    engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN, policy=policy)
+    return Scheduler(engine, trace, svc, max_batch=BATCH, clock=clk), engine, chaos, pager
+
+
+def fault_run(cfg, store, per_forward):
+    """The scheduled run of :func:`fault_stack` from rung 0: every request
+    completes; every K1-K3 launch is on its rung's kernel and every decode
+    step's on the decode body; at least one switch fails and at least one
+    upgrade commits through the faulty pager; a failed switch leaves every
+    resident stream on the card bit-identical and the ledger as it was; a
+    committed upgrade serves streams equal to the pristine ones; no step
+    upgrades above the deliverable rung.  Then two faults forced: an
+    upgrade whose every fetch fails rolls back the same way, and one
+    stream's flipped bit is caught by the CRC and healed by a retry.
+    Returns the run's record; its ``launches`` are (launches, decode-body
+    launches) per kernel, counted from 0 at the run's start."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.storage import ChaosPager, PagerError, ResilientPager, RetryPolicy
+
+    inner = store.pager
+    out = {}
     try:
-        # the JAX package's storm composition: downshift in the burst, climb
-        # back through the faults
-        policy = make_policy("failure", cooldown=4, inner=HysteresisPolicy(
-            LoadAdaptivePolicy(high_depth=BATCH), dwell=2))
-        engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN, policy=policy)
-        sched = Scheduler(engine, trace, svc, max_batch=BATCH, clock=clk)
+        sched, engine, chaos, pager = fault_stack(cfg, store, inner)
+        dispatch.reset_counters()                  # this path starts here
         sched.start()
-        before = {n: dispatch.COUNTERS[n].launches for n in KERNELS}
-        rung, failed_checked = store.rung, 0
+        rung, failed_checked, committed = store.rung, 0, 0
         t0 = time.perf_counter()
         while not sched.done:
             snap, events = _resident(store), list(store.ledger.events)
@@ -1184,20 +1243,25 @@ def fault_run(cfg, store, per_forward):
             if rec["rung"] > max(rec["avail_rung"], rung):
                 raise AssertionError(f"step {rec['step']}: upgraded to rung {rec['rung']} "
                                      f"above the deliverable rung {rec['avail_rung']}")
+            if rec["rung"] > rung:                 # an upgrade through the faulty pager
+                _check_pristine(store, inner, f"step {rec['step']}")
+                committed += 1
             rung = rec["rung"]
             del snap
         wall = time.perf_counter() - t0
+        got = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches)
+               for n in KERNELS}
         report = sched.report()
         _check_report(report, FAULT_REQUESTS, cfg.vocab_size, "fault run")
-        got = {n: dispatch.COUNTERS[n].launches - before[n] for n in KERNELS}
-        if got != _scheduled_launches(report, per_forward):
-            raise AssertionError(f"fault run launches {got}, want "
-                                 f"{_scheduled_launches(report, per_forward)}")
-        for p, leaf in store.nested_leaves():
-            for lvl in range(leaf.resident_levels):
-                if not torch.equal(leaf.deltas[lvl], inner.fetch(p, lvl)):
-                    raise AssertionError(f"{p} delta {lvl}: served words differ from the "
-                                         f"pristine stream")
+        want = {n: (_scheduled_launches(report, per_forward)[n],
+                    _scheduled_launches(report, per_forward, decode=True)[n]) for n in KERNELS}
+        if got != want or any(c.plain_launches for c in dispatch.COUNTERS.values()):
+            raise AssertionError(f"fault run (launches, decode-body launches) {got}, want "
+                                 f"{want} and no plain launch")
+        if not (failed_checked and committed):
+            raise AssertionError(f"fault run: {failed_checked} failed switches and {committed} "
+                                 f"committed upgrades; the run must show both")
+        _check_pristine(store, inner, "end of the fault run")
         corrupt = sum(h.corrupt for h in pager.health.values())
         # from rung 1, an upgrade every fetch of which fails
         store.pager = inner
@@ -1227,19 +1291,20 @@ def fault_run(cfg, store, per_forward):
         out = {"requests": len(report.requests), "steps": len(report.steps), "rung_walk": walk,
                "avail_walk": [s["avail_rung"] for s in report.steps],
                "switch_failures": engine.stats.switch_failures,
-               "failed_steps_checked": failed_checked, "faults": dict(chaos.faults),
-               "fetches": chaos.fetches, "crc_caught": corrupt, "retries": pager.retries,
-               "quarantines": pager.quarantines, "fault_s": report.fault_s,
-               "switch_records": report.switch_records, "wall_s": wall, "launches": got,
-               "heal_seed": seed}
+               "failed_steps_checked": failed_checked, "upgrades_committed": committed,
+               "faults": dict(chaos.faults), "fetches": chaos.fetches, "crc_caught": corrupt,
+               "retries": pager.retries, "quarantines": pager.quarantines,
+               "fault_s": report.fault_s, "switch_records": report.switch_records,
+               "wall_s": wall, "launches": got, "heal_seed": seed}
         log(f"[faults] {report.table()}")
         log(f"[faults] rung walk {walk}, deliverable {out['avail_walk']}; "
             f"{engine.stats.switch_failures} switches failed and rolled back "
-            f"({failed_checked} steps checked bit for bit); faults {chaos.faults} over "
-            f"{chaos.fetches} fetches, {corrupt} caught by the CRC, {pager.retries} retries, "
-            f"{pager.quarantines} quarantines; served streams equal the pristine ones; a forced "
-            f"failed upgrade rolled back bit for bit; a flipped bit (seed {seed}) caught and "
-            f"healed; wall {wall:.2f}s; launches {got}")
+            f"({failed_checked} steps checked bit for bit), {committed} upgrades committed "
+            f"through the faulty pager and served the pristine streams; faults {chaos.faults} "
+            f"over {chaos.fetches} fetches, {corrupt} caught by the CRC, {pager.retries} "
+            f"retries, {pager.quarantines} quarantines; a forced failed upgrade rolled back bit "
+            f"for bit; a flipped bit (seed {seed}) caught and healed; wall {wall:.2f}s; "
+            f"(launches, decode-body launches) {got}")
     finally:
         store.pager = inner
     return out
@@ -1259,8 +1324,8 @@ def phase_spec_faults(cfg, store, per_forward, gen):
         faults = fault_run(cfg, store, per_forward)
     finally:
         store.to_rung(prev)
-    launches = {n: (spec_launches[n][0] + faults["launches"][n],
-                    spec_launches[n][1] + faults["launches"][n]) for n in KERNELS}
+    launches = {n: (spec_launches[n][0] + faults["launches"][n][0],
+                    spec_launches[n][1] + faults["launches"][n][1]) for n in KERNELS}
     seconds = time.perf_counter() - t_phase
     log(f"[spec] phase 3c took {seconds:.1f}s")
     return {"rows": rows, "verify_passes": verify, "serve": serve, "faults": faults,

@@ -79,7 +79,7 @@
 //     a launch at any M <= 8 is bit for bit the same row of a launch at any
 //     other M.  The speculative verify pass (S = k + 1 positions of B
 //     sequences, M = B * S > 8) needs exactly that: its rows must equal the
-//     decode steps' (dispatch.DECODE_ROWS).  The wrapper launches this body
+//     decode steps' (dispatch.DECODE, named).  The wrapper launches this body
 //     once per group of <= 8 rows rather than adding a row-group grid axis:
 //     each group is then the very launch a decode step makes, with its
 //     workspace and the per-tile arrival counters (which a grid axis would

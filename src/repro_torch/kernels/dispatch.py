@@ -21,12 +21,13 @@ body in bf16 and f32, bf16 with M >= ``TC_MIN_M`` the tensor-core body,
 and everything else (bf16 at M 9-63, f32 above M 8) the CUDA-core body.
 A launch that the chosen body refuses raises; it never runs another body.
 
-The decode phase names its route instead (``DECODE_ROWS``, the wrappers'
-``route=``): the decode body launched once per group of at most
-``DEC_MAX_M`` rows.  The decode body's plan does not depend on M, so a row
-of a group is bit for bit that row of any other decode-body launch: a
-decode step (B <= 8 rows, one group) and the speculative verify pass
-(B * (k + 1) rows) give a position the same logits.
+The decode phase names its route instead (``DECODE``, the wrappers'
+``route=``), whatever M: a named decode route launches the decode body
+once per group of at most ``DEC_MAX_M`` rows (one launch, as
+:func:`matmul_route` picks it, at M <= ``DEC_MAX_M``).  The decode body's
+plan does not depend on M, so a row of a group is bit for bit that row of
+any other decode-body launch: a decode step (B rows) and the speculative
+verify pass (B * (k + 1) rows) give a position the same logits.
 """
 from __future__ import annotations
 
@@ -91,10 +92,8 @@ def takes_kernel(x: torch.Tensor) -> bool:
 
 
 PLAIN, CUDA_CORE, TENSOR_CORE, DECODE = "plain", "cuda_core", "tensor_core", "decode"
-# the decode body in groups of at most DEC_MAX_M rows, one launch per group
-DECODE_ROWS = "decode_rows"
 # the C entry points' ``body`` argument of each kernel route
-BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2, DECODE_ROWS: 2}
+BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2}
 # Largest M the K1-K3 decode body takes (bf16 and f32): one 8-row x tile
 # per CTA, each packed word unpacked once for all rows.
 DEC_MAX_M = 8
@@ -125,18 +124,16 @@ def matmul_route(M: int, dtype: torch.dtype, device) -> str:
 def kernel_route(x: torch.Tensor, route) -> str:
     """The kernel route a K1-K3 wrapper launches for ``x`` (a CUDA tensor
     outside ``reference_pass``): ``route`` where the caller names one (the
-    decode phase names ``DECODE_ROWS``; the chip check and the tests compare
+    decode phase names ``DECODE``; the chip check and the tests compare
     the bodies at one shape), else :func:`matmul_route`.  A named
-    tensor-core route takes bf16 only, a named decode route M <=
-    ``DEC_MAX_M`` only; ``DECODE_ROWS`` takes any M."""
+    tensor-core route takes bf16 only; a named decode route takes any M,
+    in groups of at most ``DEC_MAX_M`` rows (:func:`launch_matmul`)."""
     if route is None:
         return matmul_route(x.shape[0], x.dtype, x.device)
     if route not in BODY:
         raise ValueError(f"route must be one of {sorted(BODY)}, got {route!r}")
     if route == TENSOR_CORE and x.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core body takes bf16 activations, got {x.dtype}")
-    if route == DECODE and x.shape[0] > DEC_MAX_M:
-        raise ValueError(f"the decode body takes M <= {DEC_MAX_M}, got M={x.shape[0]}")
     return route
 
 
@@ -149,17 +146,14 @@ def count_launch(counter: LaunchCounter, route: str) -> None:
 def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
                   counter: LaunchCounter, launch) -> torch.Tensor:
     """Run ``launch(x_rows, out_rows, body)`` (one K1-K3 kernel launch into
-    a row slice of the (M, N) output) on ``route``: once, or for
-    ``DECODE_ROWS`` once per group of at most ``DEC_MAX_M`` rows on the
-    decode body; each launch is counted."""
+    a row slice of the (M, N) output) on ``route``: once, or on the decode
+    body once per group of at most ``DEC_MAX_M`` rows; each launch is
+    counted."""
     out = torch.empty((x.shape[0], N), dtype=out_dtype, device=x.device)
-    if route != DECODE_ROWS:
-        launch(x, out, BODY[route])
+    step = DEC_MAX_M if route == DECODE else x.shape[0]
+    for g in range(0, x.shape[0], step):
+        launch(x[g:g + step], out[g:g + step], BODY[route])
         count_launch(counter, route)
-        return out
-    for g in range(0, x.shape[0], DEC_MAX_M):
-        launch(x[g:g + DEC_MAX_M], out[g:g + DEC_MAX_M], BODY[DECODE])
-        count_launch(counter, DECODE)
     return out
 
 

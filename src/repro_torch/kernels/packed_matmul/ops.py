@@ -39,7 +39,7 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
     """y = x @ dequant(words), x (..., K).  A CUDA tensor launches the K1
     kernel (or raises on operands it does not take) on the body
     ``dispatch.kernel_route`` picks - by M and dtype, or ``route`` where
-    the chip check, a test or the decode phase (``DECODE_ROWS``) names
+    the chip check, a test or the decode phase (``DECODE``) names
     one; a CPU tensor runs the plain version."""
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])

@@ -25,7 +25,7 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None,
     rung: rung 0 -> packed_matmul on the base stream with the inflated
     scale s*2^(n-h); rung 1 -> the dual-stream nested_matmul; deeper rungs
     -> the ladder_matmul.  ``route`` names the kernel route on the card
-    (the decode phase's ``dispatch.DECODE_ROWS``; None: by M and dtype).
+    (the decode phase's ``dispatch.DECODE``; None: by M and dtype).
     Takes one 2-D weight (a per-layer view); a leaf with stacked leading
     dims (MoE expert stacks) raises rather than leaving the kernels."""
     if nt.w_base.ndim != 2:

@@ -15,9 +15,11 @@ Public surface, built by :func:`make_model`:
   make_cache(batch_size, max_len)     -> cache
 
 The decode phase (``decode_step`` and the speculative verify pass
-``decode_chunk``) names the K1-K3 route ``dispatch.DECODE_ROWS``: the
-decode body in groups of at most 8 rows, whose rows do not depend on how
-many rows a launch holds.  ``decode_chunk`` computes everything else
+``decode_chunk``) names the K1-K3 route ``dispatch.DECODE`` at every
+batch: the decode body in groups of at most 8 rows, whose rows do not
+depend on how many rows a launch holds (so a decode step above batch 8
+runs one launch per 8-row group, not the CUDA-core or tensor-core body
+that M alone would pick).  ``decode_chunk`` computes everything else
 (norms, attention) through the very calls a decode step makes, one
 position at a time, so position j of a chunk has bit for bit the logits
 j sequential decode steps give it (the verify contract of
@@ -140,7 +142,7 @@ def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
     are written into ``k_cache``/``v_cache`` (B,Smax,Hkv,hd) IN PLACE at
     ``pos`` - where the reference returns updated copies."""
     B = x.shape[0]
-    route = dispatch.DECODE_ROWS
+    route = dispatch.DECODE
     q, k, v = _qkv(x, lp, cfg, route)
     p = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, p, cfg.rope_theta)
@@ -167,7 +169,7 @@ def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
     mask gives every later position an exact zero weight, so row j equals
     the decode step at that position bit for bit."""
     B, S = x.shape[:2]
-    route = dispatch.DECODE_ROWS
+    route = dispatch.DECODE
     q, k, v = _qkv(x, lp, cfg, route)
     positions = torch.arange(pos, pos + S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -208,7 +210,7 @@ def transformer_decode(params, x, cfg, cache, pos: int):
         h = h + attn_decode(norm(h, lp["attn_norm"], cfg.norm), lp, cfg,
                             cache["k"][i], cache["v"][i], pos)
         h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act,
-                    route=dispatch.DECODE_ROWS)
+                    route=dispatch.DECODE)
     return h
 
 
@@ -222,7 +224,7 @@ def transformer_decode_chunk(params, x, cfg, cache, pos: int):
         a = _per_position(lambda t: norm(t, lp["attn_norm"], cfg.norm), h)
         h = h + attn_decode_chunk(a, lp, cfg, cache["k"][i], cache["v"][i], pos)
         m = _per_position(lambda t: norm(t, lp["mlp_norm"], cfg.norm), h)
-        h = h + mlp(m, lp["mlp"], cfg.act, route=dispatch.DECODE_ROWS)
+        h = h + mlp(m, lp["mlp"], cfg.act, route=dispatch.DECODE)
     return h
 
 
@@ -285,7 +287,7 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
         h = embed_inputs(params, inputs, cfg)
         h = transformer_decode(params, h, cfg, cache, pos)
         h = norm(h, params["final_norm"], cfg.norm)
-        logits = lm_logits(params, h, cfg, route=dispatch.DECODE_ROWS)
+        logits = lm_logits(params, h, cfg, route=dispatch.DECODE)
         cache["pos"] = pos + 1
         return logits, cache
 
@@ -298,7 +300,7 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
         h = embed_inputs(params, inputs, cfg)
         h = transformer_decode_chunk(params, h, cfg, cache, pos)
         h = _per_position(lambda t: norm(t, params["final_norm"], cfg.norm), h)
-        logits = lm_logits(params, h, cfg, route=dispatch.DECODE_ROWS)
+        logits = lm_logits(params, h, cfg, route=dispatch.DECODE)
         cache["pos"] = pos + inputs["tokens"].shape[1]
         return logits, cache
 

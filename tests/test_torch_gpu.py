@@ -352,16 +352,30 @@ def test_stacked_layer_views_stay_aligned(cuda):
 
 
 def test_decode_route_raises_on_what_it_refuses(cuda):
-    """A named decode route takes M <= DEC_MAX_M only: above it raises and
-    counts nothing, instead of running another body."""
+    """A named decode route raises on an activation the decode body does not
+    take (f16, a non-contiguous view) and counts nothing, instead of running
+    another body; above DEC_MAX_M rows it refuses nothing: it launches the
+    decode body once per 8-row group, within tolerance of the plain version."""
     nt = nest_quantize(torch.randn(512, 256, device=cuda), bits=(8, 6, 4), rounding="rtn")
     before = {n: (c.launches, c.dec_launches) for n, c in COUNTERS.items()}
+    for x, err in ((torch.randn(4, 512, device=cuda).half(), TypeError),
+                   (torch.randn(512, 8, device=cuda).t(), ValueError)):
+        for rung in range(3):
+            with pytest.raises(err):
+                _run_rung(nt, rung, x, route=dispatch.DECODE)
+    assert {n: (c.launches, c.dec_launches) for n, c in COUNTERS.items()} == before
     for M, dtype in ((dispatch.DEC_MAX_M + 1, torch.float32), (64, torch.bfloat16)):
         x = torch.randn(M, 512, device=cuda).to(dtype)
         for rung in range(3):
-            with pytest.raises(ValueError):
-                _run_rung(nt, rung, x, route=dispatch.DECODE)
-    assert {n: (c.launches, c.dec_launches) for n, c in COUNTERS.items()} == before
+            counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[rung]]
+            was = (counter.launches, counter.dec_launches)
+            got, _ = _run_rung(nt, rung, x, route=dispatch.DECODE)
+            groups = -(-M // dispatch.DEC_MAX_M)
+            assert (counter.launches, counter.dec_launches) == (was[0] + groups, was[1] + groups)
+            with dispatch.reference_pass():
+                want = _run_rung(nt, rung, x)[0]
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), (M, rung)
 
 
 # ---------------------------------------------------------------------------
@@ -758,7 +772,7 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
 @pytest.mark.parametrize("K,N", [(1536, 256), (8960, 1536), (1536, 151936)])
 @pytest.mark.parametrize("rung", [0, 1, 2])
 def test_decode_rows_route_rows_do_not_depend_on_m(cuda, rung, K, N, dtype):
-    """Rows of a ``DECODE_ROWS`` launch at M = 12 and 20 (batch 4, k = 2 and
+    """Rows of a decode-route launch at M = 12 and 20 (batch 4, k = 2 and
     4) equal bit for bit the same rows of M = 4 and M = 1 decode launches:
     one decode-body launch per group of <= 8 rows, none on another body."""
     g = torch.Generator(device=cuda).manual_seed(K + N + rung)
@@ -773,7 +787,7 @@ def test_decode_rows_route_rows_do_not_depend_on_m(cuda, rung, K, N, dtype):
     for M in (12, 20):
         counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[rung]]
         before = (counter.launches, counter.dec_launches, counter.tc_launches)
-        got, _ = _run_rung(nt, rung, x[:M], route=dispatch.DECODE_ROWS, out_dtype=out_dtype)
+        got, _ = _run_rung(nt, rung, x[:M], route=dispatch.DECODE, out_dtype=out_dtype)
         groups = -(-M // dispatch.DEC_MAX_M)
         assert (counter.launches, counter.dec_launches, counter.tc_launches) == \
             (before[0] + groups, before[1] + groups, before[2])

@@ -49,8 +49,8 @@ def test_matmul_route_refuses_other_devices():
 
 def test_kernel_route_names_and_refusals():
     """A named route is taken as named; the tensor-core body takes bf16
-    only, the decode body M <= DEC_MAX_M only, and an unknown name raises -
-    none falls back to another."""
+    only, the decode route any M (in groups of at most DEC_MAX_M rows), and
+    an unknown name raises - none falls back to another."""
     x16 = torch.zeros(4, 8, dtype=torch.bfloat16)
     assert dispatch.kernel_route(x16, TC) == TC
     assert dispatch.kernel_route(x16, CC) == CC
@@ -59,14 +59,10 @@ def test_kernel_route_names_and_refusals():
     assert dispatch.kernel_route(x16, None) == PLAIN         # a CPU tensor
     with pytest.raises(TypeError):
         dispatch.kernel_route(x16.float(), TC)
-    for x in (torch.zeros(dispatch.DEC_MAX_M + 1, 8), torch.zeros(64, 8, dtype=torch.bfloat16)):
-        with pytest.raises(ValueError):
-            dispatch.kernel_route(x, DEC)
-    assert dispatch.kernel_route(torch.zeros(dispatch.DEC_MAX_M, 8), DEC) == DEC
-    for M in (1, dispatch.DEC_MAX_M + 1, 64):                # any M, bf16 or f32
-        assert dispatch.kernel_route(torch.zeros(M, 8), dispatch.DECODE_ROWS) == \
-            dispatch.DECODE_ROWS
-    assert [dispatch.BODY[r] for r in (CC, TC, DEC, dispatch.DECODE_ROWS)] == [0, 1, 2, 2]
+    for x in (torch.zeros(dispatch.DEC_MAX_M, 8), torch.zeros(dispatch.DEC_MAX_M + 1, 8),
+              torch.zeros(64, 8, dtype=torch.bfloat16)):       # any M, bf16 or f32
+        assert dispatch.kernel_route(x, DEC) == DEC
+    assert [dispatch.BODY[r] for r in (CC, TC, DEC)] == [0, 1, 2]
     for bad in ("tensor", PLAIN):
         with pytest.raises(ValueError):
             dispatch.kernel_route(x16, bad)
@@ -89,9 +85,9 @@ def test_launch_counts_per_route_and_reset():
 
 @pytest.mark.parametrize("M", [1, 4, 8, 12, 20, 17])
 def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
-    """``DECODE_ROWS`` launches the decode body once per group of at most
+    """The decode route launches the decode body once per group of at most
     DEC_MAX_M rows, each into its row slice of one output, counting each
-    launch as a decode-body launch; a named body launches once."""
+    launch as a decode-body launch; another body launches once."""
     x = torch.arange(M * 3, dtype=torch.float32).reshape(M, 3)
     calls = []
 
@@ -100,7 +96,7 @@ def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
         out.copy_(xs[:, :2] * 2)
 
     c = dispatch.LaunchCounter("probe")
-    y = dispatch.launch_matmul(x, 2, torch.float32, dispatch.DECODE_ROWS, c, launch)
+    y = dispatch.launch_matmul(x, 2, torch.float32, DEC, c, launch)
     groups = -(-M // dispatch.DEC_MAX_M)
     assert [n for _, n, _, _ in calls] == \
         [min(dispatch.DEC_MAX_M, M - g * dispatch.DEC_MAX_M) for g in range(groups)]
