@@ -73,6 +73,26 @@ Phases (each raises on failure; the script then exits non-zero):
    pristine ones, no step upgrades above the deliverable rung; a forced
    failed upgrade rolls back the same way and a flipped bit is caught by
    the CRC and healed by a retry.
+3d. A fleet on the card at full width: ``build_fleet`` over the phase-2
+   store's (8, 6, 4) tree at rung 2, four replicas of the fleet CLI's mix
+   (``launch/fleet.py::make_specs``: links 100, 25 and 400 Mbit/s, burst
+   traffic on even replicas and Poisson on odd ones, ``--policy
+   failure``, chaos on replicas 0 and 2; 12 requests of 2 new tokens, max
+   batch 4) under ``FleetController(1.5 x 4 x top-rung bytes, interval_s
+   0.05, "rebalance")``.  Every request served, every switch record
+   paging its computed ``bytes(delta_k)``, fleet bytes below unicast and
+   model-zoo bytes, dedup hits, every K1-K3 launch on its rung's kernel
+   and none plain, the shared tree and every replica's streams equal to
+   the pristine ones, and one served batch per (replica, rung) re-served
+   with the same tokens by a lone engine over the phase-2 store; the
+   fleet table, per-replica figures, chaos counts, envelope changes by
+   reason, wall, device busy share and peak memory printed.  Then the
+   serve CLI (burst trace through faults, ``--save-artifact`` and
+   ``--artifact --link-mbps 100``, ``--speculate 2``, ``--search-recipe
+   none``) and the fleet CLI (``--replicas 4 --json``) in-process at
+   ``--smoke`` on the card and on the CPU: each exits 0, no K1-K3 call on
+   the card runs a plain version, and the card's lines equal the CPU's
+   but for the wall seconds and what depends on the weights.
 4. Time the launch floor (a one-element ``zero_()`` under CUDA-graph
    replay).  Hold K4 nested_qk (bit for bit, every KV rung of (4, 6, 8) and
    (3, 5, 6, 8), M = 6 and 48; every row beside a control with the same
@@ -221,7 +241,10 @@ def time_ms(fn, iters: int) -> float:
 
 def time_graph_ms(fn, iters: int, reps: int = 5) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
-    replayed, so host launch overhead (Python, ctypes) is not measured."""
+    replayed, so host launch overhead (Python, ctypes) is not measured.
+    The capture runs on the stream the warm-up ran on: the decode body's
+    arrival counters are that stream's, sized by the warm-up (nothing may
+    be allocated under capture)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -229,7 +252,7 @@ def time_graph_ms(fn, iters: int, reps: int = 5) -> float:
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
     graph.replay()
@@ -673,10 +696,12 @@ def _timed(fn):
 
 def _build_state():
     """What a serve must leave alone after warm-up: the loaded kernel
-    libraries, the decode-body plans and the arrival counters' buffer."""
+    libraries, the decode-body plans and the current stream's arrival
+    counters' buffer."""
     from repro_torch.kernels import build
 
-    buf = build._dec_counters.get(torch.cuda.current_device())
+    buf = build._dec_counters.get((torch.cuda.current_device(),
+                                   torch.cuda.current_stream().cuda_stream))
     return {"libraries": sorted(build._libs), "dec_plans": len(build._dec_plans),
             "counters_ptr": None if buf is None else buf.data_ptr(),
             "counters_numel": None if buf is None else buf.numel()}
@@ -1333,6 +1358,286 @@ def phase_spec_faults(cfg, store, per_forward, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: a fleet of replicas on the card, and the serve and fleet CLIs
+# ---------------------------------------------------------------------------
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_NEW_TOKENS = 4, 12, 2
+# the fleet CLI's traffic flags for this phase (``launch/fleet.py``; its
+# defaults give links 100,25,400 Mbit/s round-robin and --chaos-every 2)
+FLEET_FLAGS = ["--trace", "burst", "--requests", str(FLEET_REQUESTS),
+               "--new-tokens", str(FLEET_NEW_TOKENS), "--max-batch", str(BATCH),
+               "--policy", "failure", "--chaos"]
+# the CLIs run in-process at --smoke on the card and on the CPU: (module,
+# arguments); "{out}" is a directory of the run's own
+CLI_RUNS = (
+    ("serve", ["--bits", "8,6,4", "--trace", "burst", "--requests", "40", "--new-tokens", "2",
+               "--policy", "failure", "--chaos"]),
+    ("serve", ["--bits", "8,6,4", "--save-artifact", "{out}/artifact"]),
+    ("serve", ["--artifact", "{out}/artifact", "--link-mbps", "100", "--requests", "4",
+               "--new-tokens", "2"]),
+    ("serve", ["--bits", "8,6,4", "--trace", "poisson", "--requests", "16", "--new-tokens", "2",
+               "--speculate", "2", "--draft-rung", "0"]),
+    ("serve", ["--bits", "8,6,4", "--search-recipe", "none", "--requests", "4",
+               "--new-tokens", "2"]),
+    ("fleet", ["--replicas", str(FLEET_REPLICAS), "--json", "{out}/fleet.json", *FLEET_FLAGS]),
+)
+# what a CLI line may print differently on the card and on the CPU: the
+# wall seconds of a budget-schedule phase, and what depends on the weights
+# (a torch.Generator on the card draws other numbers than one on the CPU):
+# the drafts' acceptance and the search's dB scores
+CLI_MASKS = ((r" in \d+\.\d+s;", " in <wall>s;"),
+             (r"acceptance=\d\.\d{3} \(\d+/", "acceptance=<x> (<a>/"),
+             (r"-?\d+\.\ddB", "<dB>"))
+
+
+def fleet_specs():
+    """The fleet CLI's replica mix (``launch/fleet.py::make_specs``) under
+    ``FLEET_FLAGS``: links 100, 25 and 400 Mbit/s round-robin, burst traffic
+    on even replicas and Poisson on odd ones, ``--policy failure``, chaos
+    on replicas 0 and 2, 12 requests of 2 new tokens, max batch 4."""
+    from repro_torch.launch import fleet as fleet_cli
+    from repro_torch.launch.flags import traffic_parent
+
+    args = argparse.ArgumentParser(parents=[traffic_parent()]).parse_args(FLEET_FLAGS)
+    args.replicas, args.link_mbps, args.chaos_every = FLEET_REPLICAS, "100,25,400", 2
+    return fleet_cli.make_specs(args, [])
+
+
+def _served_batches(report):
+    """(step record, the requests it served) of every step of a report."""
+    out, i = [], 0
+    for s in report.steps:
+        out.append((s, report.requests[i:i + s["batch"]]))
+        i += s["batch"]
+    return out
+
+
+def _streams(leaf):
+    return [leaf.w_base] + [d for d in leaf.deltas if d is not None]
+
+
+def fleet_run(cfg, store, per_forward):
+    """The fleet over the phase-2 store's full (8, 6, 4) tree (rung 2): four
+    replicas of ``fleet_specs`` through one ``DeltaDistribution`` under
+    ``FleetController(1.5 x 4 x top-rung bytes, interval_s=0.05)``.
+    Checks: every request served; every switch record pages its computed
+    bytes (``verify_ledgers``, and each the sum of the crossed
+    ``bytes(delta_k)``); fleet bytes below unicast and zoo bytes; dedup
+    hits; every K1-K3 launch on its rung's kernel (each prefill's 196 on
+    the CUDA-core body, its LM head and every decode step on the decode
+    body) and no plain or tensor-core launch; every replica's resident
+    streams and the shared tree equal to the pristine ones; and one served
+    batch per (replica, rung) re-served by a lone engine over the phase-2
+    store at that rung with the same tokens."""
+    from collections import Counter
+
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.fleet import FleetController, build_fleet
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving import Request, ServeEngine
+
+    shared = store.nested_params
+    pristine = {p: [s.clone() for s in _streams(leaf)] for p, leaf in store.nested_leaves()}
+    fleet, build_s = _timed(lambda: build_fleet(fleet_specs(), cfg=cfg, nested_params=shared,
+                                                device=DEVICE))
+    top = store.rung_resident_bytes(2)
+    controller = FleetController(int(1.5 * FLEET_REPLICAS * top), interval_s=0.05,
+                                 mode="rebalance")
+    changes, last, apply = Counter(), {}, controller.apply
+
+    def apply_and_count(replicas, now):         # envelope changes by reason
+        envs = apply(replicas, now)
+        for e in envs:
+            if last.get(e.replica, -1) != e.budget_bytes:
+                changes[e.reason] += 1
+                last[e.replica] = e.budget_bytes
+        return envs
+
+    controller.apply = apply_and_count
+    fleet.controller = controller
+    dispatch.reset_counters()                   # this path starts here
+    report, wall, busy = _profiled(fleet.run)
+    got = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches)
+           for n in KERNELS}
+    odd = {n: (c.plain_launches, c.tc_launches) for n, c in dispatch.COUNTERS.items()
+           if c.plain_launches or c.tc_launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {n: [0, 0] for n in KERNELS}
+    for rep in report.replicas.values():
+        for s in rep.steps:
+            name = next(n for n, v in KERNELS.items() if v[0] == min(s["rung"], 2))
+            want[name][0] += per_forward * (1 + FLEET_NEW_TOKENS)
+            want[name][1] += per_forward * FLEET_NEW_TOKENS + 1
+    want = {n: tuple(v) for n, v in want.items()}
+    if got != want or odd:
+        raise AssertionError(f"fleet (launches, decode-body launches) {got}, want {want}; "
+                             f"plain or tensor-core launches {odd}")
+    for name, rep in report.replicas.items():
+        _check_report(rep, FLEET_REQUESTS, cfg.vocab_size, f"fleet {name}")
+    checked = report.verify_ledgers()
+    if not checked:
+        raise AssertionError("the fleet recorded no switch")
+    for name, rep in report.replicas.items():
+        for rec in rep.switch_records:
+            lo, hi = sorted((rec["from_rung"], rec["to_rung"]))
+            if rec["page_in"] + rec["page_out"] != sum(map(store.delta_bytes, range(lo, hi))):
+                raise AssertionError(f"fleet {name}: switch {rec} pages other bytes than "
+                                     f"bytes(delta_k) of the rungs it crossed")
+    s = report.summary()
+    if not (report.fleet_bytes < report.unicast_bytes and report.fleet_bytes < report.zoo_bytes
+            and s["dedup_hits"] > 0):
+        raise AssertionError(f"fleet transport {report.transport}, zoo {report.zoo_bytes}: "
+                             f"want fleet < unicast, fleet < zoo and dedup hits")
+    for rep in fleet.replicas:                  # no replica's paging touched another's
+        for p, leaf in rep.store.nested_leaves():
+            if not all(torch.equal(a, b) for a, b in zip(_streams(leaf), pristine[p])):
+                raise AssertionError(f"fleet {rep.name}: {p} serves streams that differ "
+                                     f"from the shared tree's")
+    for p, leaf in tree.flatten_with_path(shared):
+        if isinstance(leaf, NestedTensor) and not (
+                len(_streams(leaf)) == len(pristine[p])
+                and all(torch.equal(a, b) for a, b in zip(_streams(leaf), pristine[p]))):
+            raise AssertionError(f"the fleet changed the shared tree's {p}")
+    del pristine
+    # one served batch per (replica, rung) again, on a lone engine over the
+    # phase-2 store at that rung, with the same fillers
+    lone = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN,
+                       model=fleet.replicas[0].engine.model)
+    isolation = []
+    for rep in fleet.replicas:
+        seen = set()
+        for step, done in _served_batches(report.replicas[rep.name]):
+            if step["rung"] in seen:
+                continue
+            seen.add(step["rung"])
+            reqs = [Request(r.request.uid, r.request.prompt, FLEET_NEW_TOKENS) for r in done]
+            reqs += [Request(-1, done[-1].request.prompt, FLEET_NEW_TOKENS)
+                     for _ in range(step["filler"])]
+            lone.generate(reqs, memory_budget_bytes=budget_for(store, step["rung"]))
+            if store.rung != step["rung"] or [r.out_tokens for r in reqs[:len(done)]] != \
+                    [r.request.out_tokens for r in done]:
+                raise AssertionError(f"fleet {rep.name} step {step['step']} at rung "
+                                     f"{step['rung']}: a lone engine gave other tokens")
+            isolation.append((rep.name, step["rung"], step["step"], len(done)))
+    chaos = {rep.name: {"faults": dict(rep.chaos.faults), "fetches": rep.chaos.fetches,
+                        "retries": rep.resilient.retries,
+                        "quarantines": rep.resilient.quarantines}
+             for rep in fleet.replicas if rep.chaos is not None}
+    per_replica = {}
+    log(f"[fleet] {report.table()}")
+    for name, rep in report.replicas.items():
+        r = rep.summary()
+        per_replica[name] = {k: r[k] for k in ("requests", "p95_ms", "mean_rung", "switches",
+                                               "fault_s")}
+        per_replica[name]["rung_walk"] = [st["rung"] for st in rep.steps]
+        log(f"[fleet]   {name}: {r['requests']} reqs p95={r['p95_ms']:.1f}ms (virtual) "
+            f"mean_rung={r['mean_rung']:.2f} switches={r['switches']} "
+            f"faults={r['fault_s'] * 1e3:.1f}ms; rung walk {per_replica[name]['rung_walk']}")
+    log(f"[fleet] chaos {chaos}; envelope changes by reason {dict(changes)} over "
+        f"{controller.ticks} ticks; {checked} switch records exact; transport "
+        f"{report.transport}; zoo {report.zoo_bytes} B")
+    log(f"[fleet] wall {wall:.2f}s under the profiler (build {build_s:.2f}s), device busy "
+        f"{busy:.1f} ms ({busy / 1e3 / wall:.1%}); peak device memory {peak / 1e9:.2f} GB; "
+        f"launches {got}; isolation re-served {isolation}")
+    return {"summary": s, "transport": dict(report.transport), "zoo_bytes": report.zoo_bytes,
+            "replicas": per_replica, "chaos": chaos, "envelope_changes": dict(changes),
+            "ticks": controller.ticks, "switch_records_checked": checked,
+            "wall_s": wall, "build_s": build_s, "device_busy_ms": busy,
+            "device_busy_share": busy / 1e3 / wall, "peak_mem_bytes": peak,
+            "launches": got, "isolation": isolation}
+
+
+def _cli(module, args, device, out_dir):
+    """One in-process CLI run: (its stdout lines with ``out_dir`` masked,
+    K1-K3 launches and plain launches counted from 0)."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.kernels import dispatch
+
+    main = importlib.import_module(f"repro_torch.launch.{module}").main
+    argv = ["--arch", "qwen2-1.5b", "--smoke", "--device", device,
+            *(a.replace("{out}", str(out_dir)) for a in args)]
+    dispatch.reset_counters()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"{module} {' '.join(argv)} exited {e.code}") from e
+    if device == DEVICE:
+        torch.cuda.synchronize()
+    lines = buf.getvalue().replace(str(out_dir), "<out>").splitlines()
+    return lines, ({n: dispatch.COUNTERS[n].launches for n in KERNELS},
+                   sum(c.plain_launches for c in dispatch.COUNTERS.values()))
+
+
+def cli_runs():
+    """Each of ``CLI_RUNS`` at --smoke on the card and then on the CPU: each
+    exits 0; on the card no K1-K3 call runs a plain version and every run
+    that serves launches the kernels; the card's lines equal the CPU's but
+    for ``CLI_MASKS``, and the fleet's JSON reports are equal."""
+    import re
+    import shutil
+
+    root = ROOT / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    out = []
+    try:
+        for module, args in CLI_RUNS:
+            runs = {}
+            for device in (DEVICE, "cpu"):
+                d = root / device
+                d.mkdir(parents=True, exist_ok=True)
+                (lines, counts), secs = _timed(lambda: _cli(module, args, device, d))
+                runs[device] = (lines, counts, secs)
+            (card, (launches, plain), secs), (host, _, host_s) = runs[DEVICE], runs["cpu"]
+            masked = []
+            for lines in (card, host):
+                for pat, rep in CLI_MASKS:
+                    lines = [re.sub(pat, rep, line) for line in lines]
+                masked.append(lines)
+            what = f"{module} {' '.join(args)}"
+            if masked[0] != masked[1]:
+                raise AssertionError(f"{what}: the card's lines {card} differ from the "
+                                     f"CPU's {host}")
+            serves = "--save-artifact" not in args
+            if plain or (serves and not sum(launches.values())):
+                raise AssertionError(f"{what}: K1-K3 launches {launches}, plain {plain}")
+            if module == "fleet" and json.loads((root / DEVICE / "fleet.json").read_text()) != \
+                    json.loads((root / "cpu" / "fleet.json").read_text()):
+                raise AssertionError("the fleet CLI's JSON report on the card differs from "
+                                     "the CPU's")
+            out.append({"cli": what, "seconds": secs, "cpu_seconds": host_s,
+                        "launches": launches, "lines": card})
+            log(f"[cli] {what}: exit 0 in {secs:.2f}s on the card ({host_s:.2f}s on the CPU), "
+                f"lines equal but for the masks; K1-K3 launches {launches}")
+            for line in card:
+                log(f"[cli]   {line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_fleet(cfg, store, per_forward):
+    """Phase 3d: the fleet on the phase-2 store's tree, then the CLIs; the
+    store goes back to its rung at the end."""
+    t_phase = time.perf_counter()
+    prev = store.rung
+    store.to_rung(2)
+    try:
+        fleet = fleet_run(cfg, store, per_forward)
+    finally:
+        store.to_rung(prev)
+    clis = cli_runs()
+    seconds = time.perf_counter() - t_phase
+    log(f"[fleet] phase 3d took {seconds:.1f}s")
+    return {"fleet": fleet, "clis": clis, "launches": fleet["launches"], "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: K4-K6 against their plain versions at this slice's shapes
 # ---------------------------------------------------------------------------
 def kv_streams(x, bits, page):
@@ -1955,10 +2260,13 @@ def main() -> int:
     del engine
     artifact = phase_artifact(cfg, store, phases, packed_linears_per_forward(store))
     spec = phase_spec_faults(cfg, store, packed_linears_per_forward(store), gen)
-    launches = {n: (launches[n][0] + artifact["launches"][n][0] + spec["launches"][n][0],
-                    launches[n][1] + artifact["launches"][n][1] + spec["launches"][n][1])
+    peak_before_fleet = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = phase_fleet(cfg, store, packed_linears_per_forward(store))
+    launches = {n: tuple(launches[n][i] + artifact["launches"][n][i] + spec["launches"][n][i]
+                         + fleet["launches"][n][i] for i in range(2))
                 for n in KERNELS}
-    peak_before_long = torch.cuda.max_memory_allocated()
+    peak_before_long = max(peak_before_fleet, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     long_engine_, dense, long_info = phase_long_serve(cfg, store,
                                                       packed_linears_per_forward(store))
@@ -1985,6 +2293,7 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
               "reference": reference, "artifact": artifact, "spec_faults": spec,
+              "fleet": fleet,
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose,

@@ -5,13 +5,17 @@ from .decompose import (chain_decompose, chain_recompose, delta_bits,
 from .nesting import (NestedTensor, materialize, nest_quantize, set_tree_rung,
                       tree_bytes, tree_ladder_bytes, tree_num_rungs)
 from .quantizer import int_range
-from .recipe import LayerOverride, QuantRecipe, exact_override, quantize
-from .switching import NestQuantStore, RungAssignment, SwitchLedger
+from .recipe import LayerOverride, QuantRecipe, exact_override, quantize, recipe_summary
+from .search import LayerSensitivity, RungScore, SearchResult, search_recipe
+from .switching import (NestQuantStore, RungAssignment, SwitchLedger,
+                        diverse_bitwidth_bytes, diverse_ladder_bytes)
 
 __all__ = [
-    "LayerOverride", "NestQuantStore", "NestedTensor", "QuantRecipe",
-    "RungAssignment", "SwitchLedger", "chain_decompose", "chain_recompose",
-    "delta_bits", "exact_override", "int_range", "materialize",
+    "LayerOverride", "LayerSensitivity", "NestQuantStore", "NestedTensor",
+    "QuantRecipe", "RungAssignment", "RungScore", "SearchResult", "SwitchLedger",
+    "chain_decompose", "chain_recompose", "delta_bits", "diverse_bitwidth_bytes",
+    "diverse_ladder_bytes", "exact_override", "int_range", "materialize",
     "nest_quantize", "normalize_bits", "numerical_error_table", "quantize",
-    "set_tree_rung", "tree_bytes", "tree_ladder_bytes", "tree_num_rungs",
+    "recipe_summary", "search_recipe", "set_tree_rung", "tree_bytes",
+    "tree_ladder_bytes", "tree_num_rungs",
 ]

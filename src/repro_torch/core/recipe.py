@@ -149,3 +149,15 @@ def quantize(params, recipe: QuantRecipe, device="cuda"):
                              block=spec.block, group_size=spec.group_size)
     return tree.map_with_path(leaf_fn, params)
 
+
+def recipe_summary(nested_params) -> str:
+    """Per-leaf ladder map of a quantized tree, one line per leaf."""
+    from .nesting import NestedTensor
+
+    lines = []
+    for key, leaf in tree.flatten_with_path(nested_params):
+        if isinstance(leaf, NestedTensor):
+            lines.append(f"{key}: bits={leaf.bits} block={leaf.block}")
+        else:
+            lines.append(f"{key}: dense {tuple(getattr(leaf, 'shape', ()))}")
+    return "\n".join(lines)

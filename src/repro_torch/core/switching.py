@@ -12,15 +12,19 @@ ledger exactly as they were.
 """
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import tree
-from .nesting import (NestedTensor, check_rung, mode_to_rung, rung_to_mode,
-                      set_tree_rung, tree_ladder_bytes, tree_num_rungs)
+from . import packing
+from .decompose import normalize_bits
+from .nesting import (NestedTensor, check_rung, materialize, mode_to_rung,
+                      rung_to_mode, set_tree_rung, tree_bytes, tree_ladder_bytes,
+                      tree_num_rungs)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -82,6 +86,26 @@ class RungAssignment:
         return min(mode_to_rung(want, tree_rungs), leaf_rungs - 1)
 
 
+def diverse_bitwidth_bytes(nested_params, n: int, h: int) -> Dict[str, int]:
+    """Storage of the baseline: two separate packed PTQ models (INT-n + INT-h)."""
+    d = diverse_ladder_bytes(nested_params, (h, n))
+    return {"int_n": d["models"][1], "int_h": d["models"][0], "total": d["total"]}
+
+
+def diverse_ladder_bytes(nested_params, bits: Sequence[int]) -> Dict[str, object]:
+    """Storage of the K-rung baseline: one separate packed PTQ model per
+    bitwidth in ``bits`` (the model zoo NestQuant replaces).  Returns
+    {'bits': ascending tuple, 'models': [bytes per bitwidth], 'total'}."""
+    bits = normalize_bits(bits)
+    models = [0] * len(bits)
+    for leaf in tree.leaves(nested_params):
+        if isinstance(leaf, NestedTensor):
+            rest = math.prod(leaf.shape[:-2] + leaf.shape[-1:])
+            for r, b in enumerate(bits):
+                models[r] += packing.packed_rows(leaf.K, b) * rest * 4
+    return {"bits": bits, "models": models, "total": sum(models)}
+
+
 @dataclass
 class NestQuantStore:
     """A nested model plus its rung state machine.
@@ -89,12 +113,18 @@ class NestQuantStore:
     The tree is moved to ``device`` (default: the card).  ``mode`` is the
     initial rung ('part', 'full', 'rungK' or an int); the store tracks a
     rung per leaf and the tree-level ``rung`` summary ('mixed' mode when
-    leaves disagree, ``rung`` then being the minimum)."""
+    leaves disagree, ``rung`` then being the minimum).  ``n``/``h`` default
+    to the tree's ladder extremes (top and base bitwidths) and name the
+    two-model diverse baseline; ``dtype`` is the dtype of
+    :meth:`dense_params`."""
     nested_params: object
     mode: object = "part"
     ledger: SwitchLedger = field(default_factory=SwitchLedger)
     pager: object = None                   # DeltaPager; None -> InMemoryPager
     device: object = "cuda"
+    n: Optional[int] = None
+    h: Optional[int] = None
+    dtype: object = torch.bfloat16
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -105,11 +135,13 @@ class NestQuantStore:
         self.rung = mode_to_rung(self.mode, self.num_rungs)
         self.mode = rung_to_mode(self.rung, self.num_rungs)
         self._ladder_bytes = tree_ladder_bytes(self.nested_params)
+        self._bytes = tree_bytes(self.nested_params)
         flat = tree.flatten_with_path(self.nested_params)
         self._flat = [leaf for _, leaf in flat]
         self._leaf_paths: List[str] = []
         self._leaf_index: Dict[str, int] = {}
         self._leaf_streams: Dict[str, Tuple[int, ...]] = {}
+        self._leaf_bits: Dict[str, Tuple[int, ...]] = {}
         self._leaf_rungs: Dict[str, int] = {}
         for i, (key, leaf) in enumerate(flat):
             if not isinstance(leaf, NestedTensor):
@@ -117,7 +149,13 @@ class NestQuantStore:
             self._leaf_paths.append(key)
             self._leaf_index[key] = i
             self._leaf_streams[key] = leaf.stream_nbytes()
+            self._leaf_bits[key] = leaf.bits
             self._leaf_rungs[key] = min(self.rung, leaf.num_rungs - 1)
+        bits = list(self._leaf_bits.values())
+        if self.n is None:
+            self.n = max((b[-1] for b in bits), default=8)
+        if self.h is None:
+            self.h = min((b[0] for b in bits), default=4)
         # the pager owns every non-resident delta stream; establishing the
         # INITIAL residency is not a switch (no ledger events)
         if self.pager is None:
@@ -197,6 +235,11 @@ class NestQuantStore:
             self.mode = rung_to_mode(uni, self.num_rungs)
 
     # -- byte accounting ---------------------------------------------------
+    def bytes(self) -> Dict[str, int]:
+        """Packed bytes by kind (high = base streams, low = delta streams,
+        scales, fp leftovers, total), metadata-computed."""
+        return dict(self._bytes)
+
     def ladder_bytes(self) -> Dict[str, object]:
         return {**self._ladder_bytes, "deltas": list(self._ladder_bytes["deltas"])}
 
@@ -265,6 +308,10 @@ class NestQuantStore:
 
     def leaf_rungs(self) -> Dict[str, int]:
         return dict(self._leaf_rungs)
+
+    def leaf_bits(self) -> Dict[str, Tuple[int, ...]]:
+        """Per-leaf ladder bitwidths (keystr path -> ascending bits)."""
+        return dict(self._leaf_bits)
 
     def leaf_streams(self) -> Dict[str, Tuple[int, ...]]:
         return dict(self._leaf_streams)
@@ -449,6 +496,14 @@ class NestQuantStore:
         self._rebuild_tree()
         return self
 
+    def to_full(self):
+        """Upgrade to the top rung."""
+        return self.to_rung(self.num_rungs - 1)
+
+    def to_part(self):
+        """Downgrade to the base rung."""
+        return self.to_rung(0)
+
     # -- weights for inference -----------------------------------------------
     def params(self):
         """Serving parameters: the PACKED tree, rung-stamped per leaf (no
@@ -456,3 +511,26 @@ class NestQuantStore:
         if self.is_mixed:
             return set_tree_rung(self.nested_params, dict(self._leaf_rungs))
         return set_tree_rung(self.nested_params, self.rung)
+
+    def dense_params(self):
+        """Dense weights at the current rung in ``dtype`` (off the serving
+        path: a baseline and for export)."""
+        return materialize(self.nested_params, mode=self.rung, dtype=self.dtype)
+
+    # -- comparison baseline ---------------------------------------------------
+    def diverse_baseline(self) -> Dict[str, int]:
+        d = diverse_bitwidth_bytes(self.nested_params, self.n, self.h)
+        d["switch_page_in"] = d["int_n"]   # upgrade: load the whole INT-n model
+        d["switch_page_out"] = d["int_h"]  # upgrade: evict the INT-h model
+        return d
+
+    def diverse_ladder_baseline(self, bits: Sequence[int]) -> Dict[str, object]:
+        """K diverse-bitwidth PTQ models; a switch r -> r' swaps whole models."""
+        return diverse_ladder_bytes(self.nested_params, bits)
+
+    def switch_reduction(self) -> float:
+        """The paper's 'Reduced Overhead' column: 1 - nest / diverse for one
+        base-to-top upgrade."""
+        nest = self.bytes()["low"]
+        div = self.diverse_baseline()
+        return 1.0 - nest / max(div["switch_page_in"] + div["switch_page_out"], 1)

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -128,10 +128,10 @@ def check(err: int, what: str) -> None:
 
 # the decode body's plan per (device, bits, N, K, block): f32 partials per
 # activation row and column tiles; and its per-column-tile arrival
-# counters per device (int32, 0 between launches: the last CTA of a tile
-# resets its own)
+# counters per (device, stream) (int32, 0 between launches: the last CTA of
+# a tile resets its own)
 _dec_plans: Dict[tuple, tuple] = {}
-_dec_counters: Dict[int, "object"] = {}
+_dec_counters: Dict[Tuple[int, int], "object"] = {}
 DEC_COUNTERS_MIN = 8192
 
 
@@ -153,19 +153,24 @@ def dec_plan(device, bits, N: int, K: int, block: int):
     return _dec_plans[key]
 
 
-def dec_counters(device, tiles: int):
-    """The device's arrival counters, at least ``tiles`` of them.  They
-    are shared by every decode launch on the device: launches on one
-    stream run one after another, and each leaves them at 0."""
+def dec_counters(device, tiles: int, stream=None):
+    """The arrival counters of ``stream`` (a ``cuda_stream`` handle;
+    default the device's current stream), at least ``tiles`` of them.
+    Each (device, stream) has its own buffer: launches on one stream run
+    one after another and each leaves the counters at 0, while launches on
+    two streams may overlap and must not count each other's arrivals."""
     import torch
 
-    buf = _dec_counters.get(device.index)
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    buf = _dec_counters.get(key)
     if buf is None or buf.numel() < tiles:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the decode body's counters must be allocated before "
                                "a CUDA graph capture: launch once outside it first")
         buf = torch.zeros(max(tiles, DEC_COUNTERS_MIN), dtype=torch.int32, device=device)
-        _dec_counters[device.index] = buf
+        _dec_counters[key] = buf
     return buf
 
 
@@ -186,14 +191,15 @@ def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, b
     if out is None:
         out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = counters = None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     nk = -(-K // block)
     if body == 0 and nk > 1:
         partial = torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
     elif body == 2:
         per_row, tiles = dec_plan(x.device, bits, N, K, block)
         partial = torch.empty(per_row * M, dtype=torch.float32, device=x.device)
-        counters = dec_counters(x.device, tiles)
-    return out, partial, counters, torch.cuda.current_stream(x.device).cuda_stream
+        counters = dec_counters(x.device, tiles, stream)
+    return out, partial, counters, stream
 
 
 def ptr(t) -> int:

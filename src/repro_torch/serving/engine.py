@@ -210,9 +210,11 @@ class ServeEngine:
         The JAX package pre-traces its jitted steps here.  The card's
         equivalent: the first launch of a kernel builds and loads the
         kernel libraries, the first decode-body launch of a shape fills its
-        plan (``kernels/build.py::dec_plan``) and may grow the device's
-        arrival counters (``build.dec_counters``), which would replace the
-        buffer a captured graph holds.  So this loads every kernel library
+        plan (``kernels/build.py::dec_plan``) and may grow the arrival
+        counters (``build.dec_counters``), which would replace the buffer a
+        captured graph holds.  The counters are one buffer per (device,
+        stream): warm-up sizes the buffer of the stream it runs on, so
+        serve on that stream.  So this loads every kernel library
         (on the card), then runs the prefill of each prompt length and one
         decode step at each rung on
         :meth:`~repro_torch.core.switching.NestQuantStore.rung_view` trees,

@@ -744,9 +744,9 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
                            mode="part", device=cuda)
     engine = ServeEngine(cfg, store, max_batch=4, max_len=32)
     assert engine.warmup(8, batch=4) == 6
-    dev = torch.cuda.current_device()
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
     libs, plans = sorted(build._libs), dict(build._dec_plans)
-    buf = build._dec_counters[dev]
+    buf = build._dec_counters[key]
     ptr, numel = buf.data_ptr(), buf.numel()
     need = [store.rung_resident_bytes(r) for r in range(3)]
     dispatch.reset_counters()
@@ -758,7 +758,7 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
         torch.cuda.synchronize()
         assert store.rung == rung
         assert sorted(build._libs) == libs and build._dec_plans == plans
-        assert build._dec_counters[dev] is buf
+        assert build._dec_counters[key] is buf
         assert (buf.data_ptr(), buf.numel()) == (ptr, numel)
     assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
     assert all(dispatch.counter(n).launches > 0
@@ -913,3 +913,94 @@ def test_chaos_corruption_on_the_card_is_caught_and_rolled_back(cuda):
     want = NestQuantStore(tree, mode="full", device=cuda)
     for (p, a), (q, b) in zip(store.nested_leaves(), want.nested_leaves()):
         assert p == q and all(torch.equal(x, y) for x, y in zip(a.deltas, b.deltas))
+
+
+# ---------------------------------------------------------------------------
+# the decode body on two streams at once; a fleet of replicas on the card
+# ---------------------------------------------------------------------------
+def test_decode_counters_are_per_stream_and_two_streams_agree(cuda):
+    """Two CUDA streams launch decode-body K3 matmuls (rung 2, M = 4, the
+    gate/up and LM-head shapes) at once, interleaved so that they overlap:
+    each stream's outputs equal bit for bit the same calls made one after
+    another on one stream, and the two streams count their CTAs' arrivals
+    in two different buffers."""
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev).manual_seed(19)
+    nts = [(nest_quantize(torch.randn(K, N, generator=g, device=dev) / math.sqrt(K),
+                          bits=(8, 6, 4), rounding="rtn"),
+            torch.float32 if N == 151936 else torch.bfloat16)
+           for K, N in ((1536, 8960), (1536, 151936))]
+    calls = [(nts[(i // 2) % 2], torch.randn(4, 1536, generator=g, device=dev)
+              .to(torch.bfloat16)) for i in range(16)]
+    want = [_run_rung(nt, 2, x, out_dtype=odt)[0] for (nt, odt), x in calls]
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(main)
+    before = nops.LADDER_COUNTER.dec_launches
+    got = []
+    for i, ((nt, odt), x) in enumerate(calls):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(_run_rung(nt, 2, x, out_dtype=odt)[0])
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    assert nops.LADDER_COUNTER.dec_launches == before + len(calls)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (i, (a.float() - b.float()).abs().max().item())
+    bufs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            bufs.append(build.dec_counters(dev, 1))
+    assert bufs[0] is not bufs[1] and bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert all(int(b.abs().sum()) == 0 for b in bufs)
+
+
+def test_two_replica_fleet_on_the_card_matches_the_cpu(cuda):
+    """A 2-replica fleet of the reduced qwen2-1.5b on the card (chaos on
+    replica 0, the rebalancing controller): its report equals the same
+    fleet's on the CPU, every K1-K3 launch ran a kernel, and no replica's
+    paging changed the shared tree's streams."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.fleet import ChaosProfile, FleetController, ReplicaSpec, build_fleet
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    host = quantize(init_params(cfg, seed=0, device="cpu"), QuantRecipe(bits=(8, 6, 4)),
+                    device="cpu")
+    card = tree.map_with_path(lambda _, x: x.to(cuda), host)
+    snap = [(p, x.w_base.clone(), [d.clone() for d in x.deltas]) if isinstance(x, NestedTensor)
+            else (p, x.clone(), None) for p, x in tree.flatten_with_path(card)]
+    specs = [ReplicaSpec(name=f"replica{i}", link_mbps=(100.0, 25.0)[i],
+                         trace=("burst", "poisson")[i], n_requests=12, seed=i,
+                         policy="failure", max_batch=4, new_tokens=2,
+                         chaos=ChaosProfile(seed=i) if i == 0 else None) for i in range(2)]
+    reports = []
+    dispatch.reset_counters()
+    for nested, device in ((card, cuda), (host, "cpu")):
+        fleet = build_fleet(specs, cfg=cfg, nested_params=nested, device=device)
+        top = fleet.replicas[0].store.rung_resident_bytes(2)
+        fleet.controller = FleetController(int(1.5 * 2 * top), interval_s=0.002)
+        reports.append(fleet.run())
+        if device is cuda:
+            torch.cuda.synchronize()
+            launches = {n: dispatch.counter(n).launches
+                        for n in ("packed_matmul", "nested_matmul", "ladder_matmul")}
+            assert sum(launches.values()) > 0 and launches["packed_matmul"] > 0
+            assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
+    assert reports[0].to_dict() == reports[1].to_dict()
+    assert reports[0].verify_ledgers() > 0
+    assert all(len(r.requests) == 12 for r in reports[0].replicas.values())
+    for (p, base, deltas), (q, leaf) in zip(snap, tree.flatten_with_path(card)):
+        assert p == q
+        if deltas is None:
+            assert torch.equal(leaf, base), p
+        else:
+            assert torch.equal(leaf.w_base, base) and len(leaf.deltas) == len(deltas)
+            assert all(d is not None and torch.equal(d, e) for d, e in zip(leaf.deltas, deltas))

@@ -2,6 +2,7 @@
 trees to the port through numpy, bit for bit, and back."""
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -70,6 +71,42 @@ def reduced_qwen2(seed: int = 0):
     dense = make_model(cfg).init(jax.random.PRNGKey(seed))
     recipe = QuantRecipe(bits=(8, 6, 4), rounding="rtn")
     return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
+
+
+@contextlib.contextmanager
+def shared_jax_compiles():
+    """Inside this block the JAX package's engines, fleets and CLIs share one
+    model per config and one jitted function per (function, options), as
+    the JAX package's own ``build_fleet`` shares one jitted triple across
+    replicas: a test module that runs many fleets and CLIs compiles each
+    (rung, shape) once instead of once per run.  Nothing the JAX package
+    computes changes; only its ``make_model`` and ``jax.jit`` are wrapped,
+    and only for the block."""
+    import pytest
+
+    import repro.launch.fleet as jfleet_cli
+    import repro.launch.serve as jserve_cli
+    import repro.models as jmodels
+    import repro.serving.engine as jengine
+
+    make_model = functools.lru_cache(maxsize=None)(jmodels.make_model)
+    real_jit, jitted = jax.jit, {}
+
+    def jit(fun, **kw):
+        try:
+            key = (fun, tuple(sorted(kw.items())))
+            hash(key)
+        except TypeError:
+            return real_jit(fun, **kw)
+        if key not in jitted:
+            jitted[key] = real_jit(fun, **kw)
+        return jitted[key]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "jit", jit)
+        for mod in (jmodels, jengine, jserve_cli, jfleet_cli):
+            mp.setattr(mod, "make_model", make_model)
+        yield
 
 
 # ---------------------------------------------------------------------------
