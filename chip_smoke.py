@@ -34,7 +34,8 @@ Phases (each raises on failure; the script then exits non-zero):
    the f32 kernel path within 1e-4 of it (logits relative to max |logit|)
    with greedy tokens identical; the bf16 kernel path's prefill logits
    within 3e-2 of it and of the plain bf16 pass.  What a kernel that
-   drops one delta stream would read is printed beside them.
+   drops one delta stream would read is printed beside them, and must
+   read above that limit.
 3b. Ship the phase-2 store as one artifact (``save_artifact`` at rung 2,
    into ``build/``, removed at the end) and serve it as a deployment does:
    a cold boot of ``ServeEngine.from_artifact`` with only the manifest and
@@ -89,7 +90,8 @@ Phases (each raises on failure; the script then exits non-zero):
    reason, wall, device busy share and peak memory printed.  Then the
    serve CLI (burst trace through faults, ``--save-artifact`` and
    ``--artifact --link-mbps 100``, ``--speculate 2``, ``--search-recipe
-   none``) and the fleet CLI (``--replicas 4 --json``) in-process at
+   none``, and ``--arch dbrx-132b`` over a budget schedule) and the fleet
+   CLI (``--replicas 4 --json``) in-process at
    ``--smoke`` on the card and on the CPU: each exits 0, no K1-K3 call on
    the card runs a plain version, and the card's lines equal the CPU's
    but for the wall seconds and what depends on the weights.
@@ -121,6 +123,30 @@ Phases (each raises on failure; the script then exits non-zero):
    generate, the f32 long prefill within 1e-4 of its plain pass with
    identical greedy tokens, and K6 on every weight slice of the served
    tree equal to ``chain_recompose`` at rung 1.
+6. The MoE family at full width: dbrx-132b at its published widths (d
+   6144, 48/8 heads of 128, d_ff 10752, 16 experts top-4, vocab 100352)
+   with 2 of its 40 layers, random weights from a seeded generator, nested
+   on (8, 6, 4) (the quantize seconds and rung bytes printed).  Every
+   expert matmul reads the packed words through K1-K3, one launch group
+   per (expert, projection) on the expert's 2-D view; ``models/moe.py``
+   records each forward's (layer, expert, rows) groups, and the counters
+   of every run must equal what that routing implies, on the rung's kernel
+   and the body each group's M (or the decode route) picks, none plain.
+   Runs: the phase-2 schedule (4 requests x 8 prompt x 8 new tokens at
+   rungs 2, 0, 1, 2); 2 requests x 1100 prompt tokens x 4 new tokens at
+   rung 2 (K5 once per layer, expert groups of ~550 rows on the tensor
+   cores); plain greedy and ``SpecConfig(k=2, draft=0)`` at rung 2 with
+   equal tokens, every verify row on the decode body.  Then, uncounted:
+   phase 3's reference pass at rungs 2, 0, 1, its plain passes for the
+   bf16 checks and the one-stream-short control replaying the bf16 kernel
+   pass's expert choices (a router near-tie could otherwise move a token,
+   where no tolerance applies; the expert sets an unforced plain bf16 pass
+   changes printed) under the limit ``MOE_BF16_TOL``; a decode step per
+   rung at batch 4 (wall, device busy, experts touched, K1-K3 split into
+   attention, experts and head, bytes and bound); the long prefill against
+   a plain bf16 pass replaying its expert choices, then its K1-K3 and K5
+   time; K5 alone at its 2 x 1100, 48/8-head shape against its plain
+   version, as in phase 1.
 
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
@@ -610,24 +636,39 @@ def _generate(engine, rung_budget, phase, plain: bool):
     return np.array([r.out_tokens for r in reqs])
 
 
-def phase_reference(cfg, store, phases):
+def _expert_sets(glog):
+    """Each (MoE call, token)'s set of chosen experts."""
+    return [[frozenset(row) for row in g.expert_idx.tolist()] for g in glog]
+
+
+def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
     """The same requests through the plain versions (``reference_pass``)
     at rungs 2, 0, 1.  The reference is the plain pass with
     ``compute_dtype="float32"``:
 
     * f32 kernel path: prefill logits within 1e-4 of it (relative to max
       |logit|) and greedy tokens identical;
-    * bf16 kernel path: prefill logits within ``BF16_E2E_TOL`` of it and
-      of the plain bf16 pass.  bf16 rounding alone puts the plain bf16
-      pass 1.5-2.0e-2 from the f32 one through 28 layers, so the limit
-      sits above that floor.  Also printed: greedy-token agreement in bf16
-      and, for each rung above 0, the bf16 kernel path of the rung below
-      against this rung's reference - what a kernel that dropped the
-      finest delta stream would read.
+    * bf16 kernel path: prefill logits within ``bf16_tol`` of it and of
+      the plain bf16 pass.  bf16 rounding alone puts the plain bf16 pass
+      1.5-2.0e-2 from the f32 one through qwen2-1.5b's 28 layers, so the
+      limit sits above that floor;
+    * the control, for each rung above 0: the bf16 kernel path of the rung
+      below against this rung's f32 reference - what a kernel that dropped
+      the finest delta stream would read.  It must read above ``bf16_tol``,
+      or the limit could not tell such a kernel from a sound one.
+
+    On a MoE model every plain pass the bf16 checks and the control read
+    replays the bf16 kernel pass's expert choices (``moe.forced_routing``,
+    from its ``moe.record_groups`` log): a bf16 near-tie in the router
+    could otherwise send a token to another expert, where no tolerance
+    applies.  The f32 comparison is unforced, and the (layer, token)
+    routings an unforced plain bf16 pass moves are counted.  A dense model
+    makes no MoE call, so neither hook acts there.
 
     Every rung is measured before any failure is raised."""
     from repro_torch.core.nesting import set_tree_rung
     from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
     from repro_torch.serving import ServeEngine
 
     out, failures = {}, []
@@ -643,42 +684,65 @@ def phase_reference(cfg, store, phases):
         e32.ensure_mode(budget)
         params = store.params()
         toks = prompt_tokens(make_requests(phase, cfg.vocab_size), store.device)
-        k16, _ = e16.model.prefill(params, toks)
+        with moe.record_groups() as klog:
+            k16, _ = e16.model.prefill(params, toks)
         k32, _ = e32.model.prefill(params, toks)
+        choices = [g.expert_idx for g in klog]
         with dispatch.reference_pass():
-            p16, _ = e16.model.prefill(params, toks)
+            with moe.forced_routing(choices):
+                p16, _ = e16.model.prefill(params, toks)
             p32, _ = e32.model.prefill(params, toks)
+            if klog:
+                with moe.forced_routing(choices):
+                    p32f, _ = e32.model.prefill(params, toks)
+                with moe.record_groups() as ulog:
+                    u16, _ = e16.model.prefill(params, toks)
+            else:
+                p32f = p32
         t = {(d, plain): _generate(e, budget, phase, plain)
              for d, e in (("bf16", e16), ("f32", e32)) for plain in (False, True)}
         r = {"f32_kernel_vs_plain": _rel(k32, p32),
-             "bf16_kernel_vs_f32_plain": _rel(k16, p32),
-             "bf16_plain_vs_f32_plain": _rel(p16, p32),
+             "bf16_kernel_vs_f32_plain": _rel(k16, p32f),
+             "bf16_plain_vs_f32_plain": _rel(p16, p32f),
              "bf16_kernel_vs_bf16_plain": _rel(k16, p16),
              "f32_tokens_identical": bool((t["f32", False] == t["f32", True]).all()),
              "bf16_token_agreement": float((t["bf16", False] == t["bf16", True]).mean()),
-             "max_abs_logit": p32.abs().max().item()}
-        finite = all(bool(x.isfinite().all()) for x in (k16, k32, p16, p32))
-        r["bf16_tol"] = BF16_E2E_TOL
+             "max_abs_logit": p32.abs().max().item(), "bf16_tol": bf16_tol}
+        finite = all(bool(x.isfinite().all()) for x in (k16, k32, p16, p32, p32f))
         r["ok"] = (finite and r["f32_kernel_vs_plain"] <= 1e-4 and r["f32_tokens_identical"]
-                   and r["bf16_kernel_vs_f32_plain"] <= BF16_E2E_TOL
-                   and r["bf16_kernel_vs_bf16_plain"] <= BF16_E2E_TOL)
+                   and r["bf16_kernel_vs_f32_plain"] <= bf16_tol
+                   and r["bf16_kernel_vs_bf16_plain"] <= bf16_tol)
         out[f"rung{rung}"] = r
+        if klog:
+            r["routed_tokens"] = sum(g.tokens for g in klog)
+            r["bf16_unforced_expert_set_changes"] = sum(
+                a != b for ka, ua in zip(_expert_sets(klog), _expert_sets(ulog))
+                for a, b in zip(ka, ua))
+            r["bf16_plain_unforced_vs_forced"] = _rel(u16, p16)
+            log(f"[{tag}] rung {rung}: an unforced plain bf16 pass changes the expert set "
+                f"of {r['bf16_unforced_expert_set_changes']} of {r['routed_tokens']} (layer, "
+                f"token) routings (its logits {r['bf16_plain_unforced_vs_forced']:.3e} from "
+                f"the forced pass)")
         if rung > 0:
-            short, _ = e16.model.prefill(set_tree_rung(params, rung - 1), toks)
-            r["bf16_one_stream_short_vs_f32_plain"] = _rel(short, p32)
-            log(f"[reference] rung {rung}: a kernel one delta stream short (the bf16 "
+            with moe.forced_routing(choices):
+                short, _ = e16.model.prefill(set_tree_rung(params, rung - 1), toks)
+            r["bf16_one_stream_short_vs_f32_plain"] = _rel(short, p32f)
+            r["ok"] = r["ok"] and r["bf16_one_stream_short_vs_f32_plain"] > bf16_tol
+            log(f"[{tag}] rung {rung}: a kernel one delta stream short (the bf16 "
                 f"kernel path at rung {rung - 1}) reads "
-                f"{r['bf16_one_stream_short_vs_f32_plain']:.3e} against the f32 plain pass")
-        log(f"[reference] rung {rung}: f32 kernel vs plain {r['f32_kernel_vs_plain']:.3e} "
+                f"{r['bf16_one_stream_short_vs_f32_plain']:.3e} against the f32 plain pass "
+                f"(must exceed {bf16_tol:.1e})")
+        log(f"[{tag}] rung {rung}: f32 kernel vs plain {r['f32_kernel_vs_plain']:.3e} "
             f"(tol 1e-4), tokens identical {r['f32_tokens_identical']}; bf16 kernel vs "
             f"f32 plain {r['bf16_kernel_vs_f32_plain']:.3e}, bf16 kernel vs bf16 plain "
-            f"{r['bf16_kernel_vs_bf16_plain']:.3e} (tol {BF16_E2E_TOL:.0e} each), bf16 "
+            f"{r['bf16_kernel_vs_bf16_plain']:.3e} (tol {bf16_tol:.1e} each), bf16 "
             f"plain vs f32 plain {r['bf16_plain_vs_f32_plain']:.3e}, bf16 greedy token "
             f"agreement {r['bf16_token_agreement']:.3f}")
         if not r["ok"]:
             failures.append(rung)
+        del e16, e32
     if failures:
-        raise AssertionError(f"reference pass failed at rungs {failures}: {out}")
+        raise AssertionError(f"{tag} pass failed at rungs {failures}: {out}")
     return out
 
 
@@ -1367,7 +1431,8 @@ FLEET_FLAGS = ["--trace", "burst", "--requests", str(FLEET_REQUESTS),
                "--new-tokens", str(FLEET_NEW_TOKENS), "--max-batch", str(BATCH),
                "--policy", "failure", "--chaos"]
 # the CLIs run in-process at --smoke on the card and on the CPU: (module,
-# arguments); "{out}" is a directory of the run's own
+# arguments; --arch qwen2-1.5b unless they name one); "{out}" is a
+# directory of the run's own
 CLI_RUNS = (
     ("serve", ["--bits", "8,6,4", "--trace", "burst", "--requests", "40", "--new-tokens", "2",
                "--policy", "failure", "--chaos"]),
@@ -1379,6 +1444,8 @@ CLI_RUNS = (
     ("serve", ["--bits", "8,6,4", "--search-recipe", "none", "--requests", "4",
                "--new-tokens", "2"]),
     ("fleet", ["--replicas", str(FLEET_REPLICAS), "--json", "{out}/fleet.json", *FLEET_FLAGS]),
+    ("serve", ["--arch", "dbrx-132b", "--bits", "8,6,4", "--budget-schedule",
+               "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]),
 )
 # what a CLI line may print differently on the card and on the CPU: the
 # wall seconds of a budget-schedule phase, and what depends on the weights
@@ -1557,7 +1624,8 @@ def _cli(module, args, device, out_dir):
     from repro_torch.kernels import dispatch
 
     main = importlib.import_module(f"repro_torch.launch.{module}").main
-    argv = ["--arch", "qwen2-1.5b", "--smoke", "--device", device,
+    arch = [] if "--arch" in args else ["--arch", "qwen2-1.5b"]
+    argv = [*arch, "--smoke", "--device", device,
             *(a.replace("{out}", str(out_dir)) for a in args)]
     dispatch.reset_counters()
     buf = io.StringIO()
@@ -1686,6 +1754,40 @@ def _drop_key_tile(q, k, v, want, tile: int = 64):
     return ctl
 
 
+def check_flash(q, k, v, what, tag="kv-kernels"):
+    """K5 against its plain version on (q, k, v): within ``TOL`` of max |o|
+    and ``ROW_TOL`` of every row's norm, and the control that a K5 missing
+    one key tile fails the row check.  Returns (max err, max |o|, worst
+    row, the control's max err and worst row)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dtype = q.dtype
+    what = f"flash_attention {what} {str(dtype).replace('torch.', '')}"
+    got = fa.flash_attention(q, k, v)
+    with dispatch.reference_pass():
+        want = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    row = _row_rel(got, want)
+    if not (math.isfinite(err) and err <= TOL[dtype] * peak):
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} > {TOL[dtype]} * {peak}")
+    if not (math.isfinite(row) and row <= ROW_TOL[dtype]):
+        raise AssertionError(f"{what}: worst row |kernel - plain| / |plain| = {row} > "
+                             f"{ROW_TOL[dtype]}")
+    ctl = _drop_key_tile(q, k, v, want)
+    ctl_err = (ctl.float() - want.float()).abs().max().item()
+    ctl_row = _row_rel(ctl, want)
+    if ctl_row <= ROW_TOL[dtype]:
+        raise AssertionError(f"{what}: the row check cannot see a missing key tile "
+                             f"({ctl_row})")
+    log(f"[{tag}] {what}: max err / max|o| {err / peak:.3e} (tol {TOL[dtype]}), worst row "
+        f"{row:.3e} (tol {ROW_TOL[dtype]}); one key tile dropped reads {ctl_err / peak:.3e} "
+        f"and {ctl_row:.3e}")
+    return err, peak, row, ctl_err, ctl_row
+
+
 def phase_kv_kernels(cfg, gen):
     """K4 bit-exact at every KV rung of (4, 6, 8) and (3, 5, 6, 8), M = 6
     and 48; K5 within 1e-4 (f32) / 2e-2 (bf16) of max |o| and of every
@@ -1745,30 +1847,7 @@ def phase_kv_kernels(cfg, gen):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(B, S, h, hd, generator=gen, device=DEVICE).to(dtype)
                        for h in (Hq, Hkv, Hkv))
-            got = fa.flash_attention(q, k, v)
-            with dispatch.reference_pass():
-                want = fa.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            peak = want.float().abs().max().item()
-            row = _row_rel(got, want)
-            if not (math.isfinite(err) and err <= TOL[dtype] * peak):
-                raise AssertionError(f"flash_attention S={S} {dtype}: max |kernel - plain| "
-                                     f"= {err} > {TOL[dtype]} * {peak}")
-            if not (math.isfinite(row) and row <= ROW_TOL[dtype]):
-                raise AssertionError(f"flash_attention S={S} {dtype}: worst row |kernel - "
-                                     f"plain| / |plain| = {row} > {ROW_TOL[dtype]}")
-            ctl = _drop_key_tile(q, k, v, want)
-            ctl_err = (ctl.float() - want.float()).abs().max().item()
-            ctl_row = _row_rel(ctl, want)
-            if ctl_row <= ROW_TOL[dtype]:
-                raise AssertionError(f"flash_attention S={S} {dtype}: the row check cannot "
-                                     f"see a missing key tile ({ctl_row})")
-            log(f"[kv-kernels] flash_attention S={S} {dtype}: max err / max|o| "
-                f"{err / peak:.3e} (tol {TOL[dtype]}), worst row {row:.3e} (tol "
-                f"{ROW_TOL[dtype]}); one key tile dropped reads {ctl_err / peak:.3e} and "
-                f"{ctl_row:.3e}")
-            del ctl
+            err, peak, row, ctl_err, ctl_row = check_flash(q, k, v, f"S={S}")
             ms = time_graph_ms(lambda i: fa.flash_attention(q, k, v), 10)
             with dispatch.reference_pass():
                 plain_ms = time_ms(lambda i: fa.flash_attention(q, k, v), 3)
@@ -1783,7 +1862,7 @@ def phase_kv_kernels(cfg, gen):
                              control_drop_tile={"err_over_max": ctl_err / peak,
                                                 "worst_row_rel": ctl_row},
                              B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd))
-            del q, k, v, got, want
+            del q, k, v
     d, L = cfg.d_model, cfg.num_layers
     shapes = [("q/o", d, cfg.num_heads * cfg.head_dim, 512, 2 * L),
               ("k/v", d, cfg.num_kv_heads * cfg.head_dim, 512, 2 * L),
@@ -2040,7 +2119,7 @@ def phase_long_profile(engine, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: K4 on the served cache's pages, K6 on the served tree
+# phase 5, continued: K4 on the served cache's pages, K6 on the served tree
 # ---------------------------------------------------------------------------
 def served_layer(kv, dense, layer):
     """One layer of the engine's own cache as K4 takes it: the streams of
@@ -2131,6 +2210,374 @@ def phase_served_recompose(store):
     return {"slices": checked, "launches": nr.COUNTER.launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the MoE family at full width (dbrx-132b, 2 of its 40 layers)
+# ---------------------------------------------------------------------------
+MOE_ARCH, MOE_LAYERS = "dbrx-132b", 2
+MOE_LONG_BATCH, MOE_LONG_PROMPT, MOE_LONG_NEW = 2, 1100, 4
+# bf16 limit of the MoE checks, between the sound readings (kernel against
+# the forced plain passes: 3.4-5.4e-3 on the H100) and the one-stream-short
+# control (6.2e-2 at rung 2, 0.28 at rung 1): about their geometric mean
+MOE_BF16_TOL = 2e-2
+MOE_SPEC = (2, 0)                  # SpecConfig(k, draft rung), verified at rung 2
+MOE_STEP_REPS = 5                  # decode steps timed per rung in the report
+
+
+def moe_config():
+    """dbrx-132b at its published widths with 2 of its 40 layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+
+
+def _k_counts():
+    """(launches, decode-body, tensor-core, plain) of every wrapper."""
+    from repro_torch.kernels import dispatch
+    return {n: (c.launches, c.dec_launches, c.tc_launches, c.plain_launches)
+            for n, c in dispatch.COUNTERS.items()}
+
+
+def _k_delta(before):
+    return {n: tuple(a - b for a, b in zip(v, before.get(n, (0, 0, 0, 0))))
+            for n, v in _k_counts().items()}
+
+
+def moe_want(glog, L, batch, dtype, attn=4):
+    """K1-K3 (launches, decode-body, tensor-core, plain) per kernel that the
+    routing ``moe.record_groups`` recorded implies.  Each forward (L
+    consecutive entries, one route and one rung) runs ``attn`` nested
+    attention matmuls per layer at M = T (all 4 at full width), 3 matmuls
+    per (layer, expert) group at its rows, and the LM head (M = T on the
+    decode route, the last position of each of ``batch`` sequences in a
+    prefill), on the kernel of the rung its experts carry: a named decode
+    route ceil(M / 8) decode-body launches, no route one launch on the body
+    ``matmul_route`` picks for M."""
+    from repro_torch.kernels import dispatch
+
+    want = {n: [0, 0, 0, 0] for n in KERNELS}
+
+    def add(name, M, route, times):
+        body = route or dispatch.matmul_route(M, dtype, DEVICE)
+        k = times * (-(-M // dispatch.DEC_MAX_M) if route == dispatch.DECODE else 1)
+        want[name][0] += k
+        want[name][1] += k * (body == dispatch.DECODE)
+        want[name][2] += k * (body == dispatch.TENSOR_CORE)
+
+    if not glog or len(glog) % L:
+        raise AssertionError(f"{len(glog)} MoE calls recorded, not whole {L}-layer forwards")
+    for f in range(0, len(glog), L):
+        fwd = glog[f:f + L]
+        route, rung, T = fwd[0].route, fwd[0].rung, fwd[0].tokens
+        if any((g.route, g.rung, g.tokens) != (route, rung, T) for g in fwd):
+            raise AssertionError(f"forward {f // L}: layers disagree {fwd}")
+        name = next(n for n, v in KERNELS.items() if v[0] == min(rung, 2))
+        add(name, T, route, attn * L)
+        for g in fwd:
+            for _, n in g.groups:
+                add(name, n, route, 3)
+        add(name, T if route else batch, route, 1)
+    return {n: tuple(v) for n, v in want.items()}
+
+
+def _moe_check(glog, L, batch, dtype, delta, what, flash=0, attn=4):
+    """The counters of a run against what its recorded routing implies: K1-K3
+    per kernel and body, K5 ``flash`` launches, nothing else, nothing plain."""
+    want = moe_want(glog, L, batch, dtype, attn)
+    got = {n: delta[n] for n in KERNELS}
+    others = {n: v for n, v in delta.items() if n not in KERNELS and any(v)}
+    want_others = {"flash_attention": (flash, 0, 0, 0)} if flash else {}
+    if got != want or others != want_others:
+        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain) {got} "
+                             f"{others}, the recorded routing implies {want} {want_others}")
+    return {n: v[:3] for n, v in got.items()}
+
+
+def _moe_generate(engine, reqs, budget, what, flash=0, spec=None):
+    """One generate under the routing recorder; checks the counters against
+    the routing and the tokens' range.  Returns (wall s, launches, log)."""
+    from repro_torch.models import moe
+
+    cfg = engine.cfg
+    nested = {p for p, _ in engine.store.nested_leaves()}
+    attn = sum(f"['blocks']['{n}']['w']" in nested for n in "qkvo")
+    before = _k_counts()
+    with moe.record_groups() as glog:
+        _, wall = _timed(lambda: engine.generate(reqs, memory_budget_bytes=budget,
+                                                 speculate=spec))
+    launches = _moe_check(glog, cfg.num_layers, len(reqs),
+                          torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
+                          _k_delta(before), what, flash, attn)
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{what}: bad tokens {r.out_tokens}")
+    return wall, launches, glog
+
+
+def _events(fn):
+    """(fn(), wall s, [(kernel name, device ms)]) of one profiled call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall = _timed(fn)
+    return out, wall, [(e.name(), e.duration_ns() / 1e6)
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA]
+
+
+def _ms(events, *patterns):
+    return sum(t for name, t in events if any(p in name for p in patterns))
+
+
+K1_K3_NAMES = ("stream_matmul", "reduce_partials")
+K5_NAMES = ("flash_fwd",)
+
+
+def moe_step_report(cfg, store, gen):
+    """Per rung, batch 4: one decode step's wall (host clock, unprofiled,
+    mean of ``MOE_STEP_REPS``) and device busy (profiled), the experts it
+    touches per layer, the K1-K3 bytes it reads and their bound, and its
+    K1-K3 device time split into attention, experts and LM head (each
+    group's calls at the step's recorded shapes, replayed in a CUDA graph
+    on random activations)."""
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import packed_linear
+    from repro_torch.models.model import layer_params
+    from repro_torch.serving import ServeEngine
+
+    L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+    out = {}
+    for rung in range(3):
+        engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN)
+        engine.ensure_mode(budget_for(store, rung))
+        params = store.params()
+        model = engine.model
+        _, c = model.prefill(params, prompt_tokens(make_requests(80 + rung, cfg.vocab_size),
+                                                   DEVICE))
+        cache = model.make_cache(BATCH, MAX_LEN)
+        cache["k"][:, :, :PROMPT], cache["v"][:, :, :PROMPT] = c["k"], c["v"]
+        cache["pos"] = PROMPT
+        tok = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen,
+                                       device=DEVICE)}
+        step = lambda: model.decode_step(params, tok, cache)  # noqa: E731
+        step()
+        walls = [_timed(step)[1] for _ in range(MOE_STEP_REPS)]
+        _, _, ev = _events(step)
+        with moe.record_groups() as glog:
+            step()
+        touched = [len(g.groups) for g in glog]
+        # the step's K1-K3 calls, grouped, on random activations of its shapes
+        blocks = params["blocks"]
+        lays = [layer_params(blocks, i) for i in range(L)]
+        xa = torch.randn(BATCH, d, generator=gen, device=DEVICE).bfloat16()
+        attn = [(xa, lp[n]["w"]) for lp in lays for n in ("q", "k", "v", "o")
+                if isinstance(lp[n]["w"], NestedTensor)]
+        experts = []
+        for i, g in enumerate(glog):
+            ex = lays[i]["moe"]["experts"]
+            for e, n in g.groups:
+                xe = torch.randn(n, d, generator=gen, device=DEVICE).bfloat16()
+                he = torch.randn(n, ff, generator=gen, device=DEVICE).bfloat16()
+                experts += [(xe, ex["w_gate"]["w"].layer(e)), (xe, ex["w_up"]["w"].layer(e)),
+                            (he, ex["w_down"]["w"].layer(e))]
+        head = [(xa, params["lm_head"]["w"])]
+
+        def calls(items, out_dtype=None):
+            return lambda i: [packed_linear(x, w, out_dtype, route=dispatch.DECODE)
+                              for x, w in items]
+        split = {"attention_ms": time_graph_ms(calls(attn), 3, reps=3),
+                 "experts_ms": time_graph_ms(calls(experts), 3, reps=3),
+                 "head_ms": time_graph_ms(calls(head, torch.float32), 3, reps=3)}
+
+        def rung_bytes(w):
+            return sum(w.stream_nbytes()[:rung + 1]) + w.nbytes_scales()
+        nbytes = sum(rung_bytes(w) // w.shape[0] for _, w in attn)
+        nbytes += sum(rung_bytes(w) // (w.shape[0] * w.shape[1]) for _, w in experts)
+        nbytes += rung_bytes(params["lm_head"]["w"])
+        launches = len(attn) + len(experts) + len(head)   # M <= 8: one launch each
+        r = {"wall_ms": 1e3 * sum(walls) / len(walls), "device_busy_ms": sum(t for _, t in ev),
+             "k1_k3_profiled_ms": _ms(ev, *K1_K3_NAMES), **split,
+             "k1_k3_launches": launches,
+             "experts_touched_per_layer": touched, "k1_k3_bytes": nbytes,
+             "k1_k3_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        r["device_idle_share"] = 1 - r["device_busy_ms"] / r["wall_ms"]
+        out[f"rung{rung}"] = r
+        log(f"[moe-step] rung {rung} batch {BATCH}: decode step wall {r['wall_ms']:.2f} ms, "
+            f"device busy {r['device_busy_ms']:.2f} ms (idle {r['device_idle_share']:.1%}); "
+            f"experts touched per layer {touched} of {cfg.num_experts}; {launches} K1-K3 "
+            f"launches, {r['k1_k3_profiled_ms']:.2f} ms profiled, replayed: attention "
+            f"{split['attention_ms']:.3f} + experts {split['experts_ms']:.3f} + head "
+            f"{split['head_ms']:.3f} ms; reads {nbytes / 1e9:.3f} GB, bound "
+            f"{r['k1_k3_bound_ms']:.3f} ms")
+        del engine, cache, c, attn, experts, head, lays
+    return out
+
+
+def phase_moe(gen):
+    """Phase 6: dbrx-132b at full width (2 layers) served from the nested
+    (8, 6, 4) tree; see the module docstring."""
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Request, ServeEngine, SpecConfig, StaticRungPolicy
+
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    L = cfg.num_layers
+    params, init_s = _timed(lambda: init_params(cfg, seed=0, device=DEVICE))
+    nested, quant_s = _timed(lambda: quantize(params, QuantRecipe(bits=BITS), device=DEVICE))
+    del params
+    store = NestQuantStore(nested, mode="part", device=DEVICE)
+    del nested
+    torch.cuda.empty_cache()
+    rung_bytes = [store.rung_resident_bytes(r) for r in range(3)]
+    lb = store.ladder_bytes()
+    quant_peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] {cfg.name} x{L} layers at full width: init {init_s:.1f}s, adaptive (8,6,4) "
+        f"quantize {quant_s:.1f}s (peak device memory so far {quant_peak / 1e9:.2f} GB); "
+        f"base={lb['base']} deltas={lb['deltas']} scales={lb['scales']} fp={lb['fp']} "
+        f"rung bytes={rung_bytes}")
+    dtype = torch.bfloat16
+
+    # 1. the short serve, rungs 2, 0, 1, 2 (the main path starts here)
+    dispatch.reset_counters()
+    engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN)
+    serve, total = [], {n: [0, 0, 0] for n in KERNELS}
+    flash_total = 0
+
+    def add(launches):
+        for n, v in launches.items():
+            total[n] = [a + b for a, b in zip(total[n], v)]
+
+    for phase, rung in enumerate(SERVE_SCHEDULE):
+        reqs = make_requests(phase, cfg.vocab_size)
+        wall, launches, glog = _moe_generate(engine, reqs, budget_for(store, rung),
+                                             f"moe serve phase {phase}")
+        if store.rung != rung or any(g.rung != rung for g in glog):
+            raise AssertionError(f"moe serve phase {phase}: rung {store.rung}, want {rung}")
+        add(launches)
+        touched = [len(g.groups) for g in glog if g.route == dispatch.DECODE]
+        serve.append({"rung": rung, "wall_s": wall, "launches": launches,
+                      "tokens": [r.out_tokens for r in reqs],
+                      "prefill_groups": [g.groups for g in glog if g.route is None],
+                      "decode_experts_touched_mean": sum(touched) / len(touched)})
+        log(f"[moe] serve phase {phase}: rung {rung}, {BATCH}x{NEW_TOKENS} tokens in "
+            f"{wall:.3f}s; K1-K3 (all, decode body, tensor cores) {launches} = the recorded "
+            f"routing's; experts touched per decode layer {serve[-1]['decode_experts_touched_mean']:.2f}")
+
+    # 2. the long prompt at rung 2: K5, expert groups of ~550 rows on the
+    # tensor cores
+    long_eng = ServeEngine(cfg, store, max_batch=MOE_LONG_BATCH,
+                           max_len=MOE_LONG_PROMPT + MOE_LONG_NEW + 4)
+    rng = np.random.default_rng(400)
+    long_reqs = [Request(i, rng.integers(0, cfg.vocab_size, size=MOE_LONG_PROMPT)
+                         .astype(np.int32), max_new_tokens=MOE_LONG_NEW)
+                 for i in range(MOE_LONG_BATCH)]
+    wall, launches, glog = _moe_generate(long_eng, long_reqs, budget_for(store, 2),
+                                         "moe long prompt", flash=L)
+    add(launches)
+    flash_total += L
+    big = [n for g in glog if g.route is None for _, n in g.groups]
+    if min(big) < dispatch.TC_MIN_M or not all(v[2] for v in launches.values() if v[0]):
+        raise AssertionError(f"moe long prompt: expert groups {big} not all on the tensor cores")
+    long_info = {"wall_s": wall, "launches": launches, "prefill_group_rows": big}
+    log(f"[moe] long prompt {MOE_LONG_BATCH}x{MOE_LONG_PROMPT} + {MOE_LONG_NEW} tokens at rung 2 "
+        f"in {wall:.3f}s; K5 x{L}; prefill expert groups of {min(big)}-{max(big)} rows; K1-K3 "
+        f"{launches}")
+
+    # 3. speculation at rung 2: SpecConfig(k=2, draft=0) against plain greedy
+    k, draft = MOE_SPEC
+    spec_eng = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN,
+                           policy=StaticRungPolicy(2))
+    plain_reqs, spec_reqs = make_requests(0, cfg.vocab_size), make_requests(0, cfg.vocab_size)
+    add(_moe_generate(spec_eng, plain_reqs, None, "moe greedy at rung 2")[1])
+    wall, launches, glog = _moe_generate(spec_eng, spec_reqs, None, "moe speculation",
+                                         spec=SpecConfig(k=k, draft=draft))
+    add(launches)
+    prof = spec_eng.last_profile
+    if [r.out_tokens for r in spec_reqs] != [r.out_tokens for r in plain_reqs]:
+        raise AssertionError(f"moe speculation: tokens {[r.out_tokens for r in spec_reqs]} "
+                             f"differ from plain greedy {[r.out_tokens for r in plain_reqs]}")
+    verify = [g for g in glog if g.tokens == BATCH * (k + 1)]
+    if (not prof.speculative or len(verify) != L * prof.verify_passes
+            or any(g.route != dispatch.DECODE or g.rung != 2 for g in verify)
+            or any(v[2] for v in launches.values())):
+        raise AssertionError(f"moe speculation: verify calls {verify} for "
+                             f"{prof.verify_passes} rounds, launches {launches}")
+    spec = {"wall_s": wall, "rounds": prof.verify_passes, "draft_steps": prof.draft_steps,
+            "acceptance": prof.acceptance, "launches": launches}
+    log(f"[moe] speculation k={k} draft={draft} at rung 2: tokens = plain greedy; "
+        f"{prof.verify_passes} rounds, acceptance {prof.acceptance:.3f}, every verify row "
+        f"on the decode body; K1-K3 {launches}")
+    main_counts = _k_counts()            # the main path ends here
+    if ({n: list(main_counts[n][:3]) for n in KERNELS} != total
+            or main_counts["flash_attention"][0] != flash_total
+            or any(v[3] for v in main_counts.values())):
+        raise AssertionError(f"moe main path: counters {main_counts}, checked runs {total}, "
+                             f"K5 {flash_total}")
+    del engine, long_eng, spec_eng
+
+    # 4. the reference pass; 5. the report (neither counted)
+    reference, ref_s = _timed(lambda: phase_reference(cfg, store, "moe-reference",
+                                                      MOE_BF16_TOL))
+    log(f"[moe] reference pass at rungs 2, 0, 1 took {ref_s:.1f}s")
+    steps = moe_step_report(cfg, store, gen)
+    store.to_rung(2)
+    params = store.params()
+    toks = prompt_tokens(long_reqs, DEVICE)
+    pre_eng = ServeEngine(cfg, store, max_batch=MOE_LONG_BATCH,
+                          max_len=MOE_LONG_PROMPT + MOE_LONG_NEW + 4)
+    # the long prefill (K5 at 48/8 heads, expert groups on the tensor
+    # cores) against a plain bf16 pass replaying its expert choices
+    with moe.record_groups() as llog:
+        k_long, _ = pre_eng.model.prefill(params, toks)
+    with dispatch.reference_pass(), moe.forced_routing([g.expert_idx for g in llog]):
+        p_long, _ = pre_eng.model.prefill(params, toks)
+    long_err = _rel(k_long, p_long)
+    if not (bool(k_long.isfinite().all()) and long_err <= MOE_BF16_TOL):
+        raise AssertionError(f"moe long prefill: bf16 kernel vs forced plain bf16 {long_err} "
+                             f"> {MOE_BF16_TOL}")
+    log(f"[moe] long prefill {MOE_LONG_BATCH}x{MOE_LONG_PROMPT} at rung 2: bf16 kernel vs "
+        f"plain bf16 (replaying its expert choices) {long_err:.3e} (tol {MOE_BF16_TOL:.1e})")
+    del k_long, p_long
+    _, pre_wall, ev = _events(lambda: pre_eng.model.prefill(params, toks))
+    long_prefill = {"wall_ms": pre_wall * 1e3, "device_busy_ms": sum(t for _, t in ev),
+                    "k1_k3_ms": _ms(ev, *K1_K3_NAMES), "k5_ms": _ms(ev, *K5_NAMES),
+                    "bf16_kernel_vs_bf16_plain_forced": long_err}
+    log(f"[moe] long prefill {MOE_LONG_BATCH}x{MOE_LONG_PROMPT} at rung 2 (profiled): wall "
+        f"{long_prefill['wall_ms']:.1f} ms, device busy {long_prefill['device_busy_ms']:.1f} ms,"
+        f" K1-K3 {long_prefill['k1_k3_ms']:.2f} ms, K5 {long_prefill['k5_ms']:.3f} ms")
+    del pre_eng, store, params
+    # K5 alone at the long prompt's shape
+    q, k, v = (torch.randn(MOE_LONG_BATCH, MOE_LONG_PROMPT, h, cfg.head_dim, generator=gen,
+                           device=DEVICE).bfloat16()
+               for h in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    err, peak, row, ctl_err, ctl_row = check_flash(
+        q, k, v, f"S={MOE_LONG_PROMPT} {cfg.num_heads}/{cfg.num_kv_heads} heads", tag="moe")
+    flash_check = {"B": MOE_LONG_BATCH, "S": MOE_LONG_PROMPT, "Hq": cfg.num_heads,
+                   "Hkv": cfg.num_kv_heads, "hd": cfg.head_dim, "dtype": "bfloat16",
+                   "max_abs_err": err, "max_abs_ref": peak, "worst_row_rel": row,
+                   "control_drop_tile": {"err_over_max": ctl_err / peak, "worst_row_rel": ctl_row}}
+    del q, k, v
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[moe] phase 6 took {seconds:.1f}s ({smi_line()})")
+    return {"config": {"name": cfg.name, "num_layers": L, "d_model": cfg.d_model,
+                       "d_ff": cfg.d_ff, "num_experts": cfg.num_experts, "top_k": cfg.top_k},
+            "init_s": init_s, "quantize_s": quant_s, "quantize_peak_mem_bytes": quant_peak,
+            "rung_bytes": rung_bytes,
+            "serve": serve, "long": long_info, "spec": spec, "reference": reference,
+            "reference_s": ref_s,
+            "decode_steps": steps, "long_prefill": long_prefill, "seconds": seconds,
+            "launches": {n: (main_counts[n][0], main_counts[n][1]) for n in KERNELS},
+            "tc_launches": {n: main_counts[n][2] for n in KERNELS},
+            "flash_launches": main_counts["flash_attention"][0], "flash_check": flash_check}
+
+
 def prefill_summary(rows, name, tc_launches):
     """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
     M = 4096 bf16 on the tensor-core body (every main-path shape but the
@@ -2163,13 +2610,14 @@ def decode_steps(rows, M, dtype):
     return out
 
 
-def kernel_summary(rows, launches, tc_launches, M=4, dtype="bfloat16"):
+def kernel_summary(rows, launches, tc_launches, moe_info, M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
     (every main-path shape times its uses per forward) on the decode body,
     the same launches on the CUDA-core body beside it (``cuda_core_ms``);
-    ``launches`` the short serve's (all bodies), ``decode_launches`` those
-    on the decode body; the long prefill's tensor-core launches as its
-    ``prefill`` entry."""
+    ``launches`` the main paths' (all bodies; phase 6's included),
+    ``decode_launches`` those on the decode body; the long prefill's
+    tensor-core launches as its ``prefill`` entry; phase 6's (all, decode
+    body, tensor cores) as ``moe_launches``."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
@@ -2187,16 +2635,17 @@ def kernel_summary(rows, launches, tc_launches, M=4, dtype="bfloat16"):
             "yardstick_dense_bf16_matmul_ms": tot("dense_bf16_matmul_ms"),
             "per": f"one decode step: {sum(r['uses_per_forward'] for r in sel)} "
                    f"launches at M={M} {dtype}, decode body",
-            "prefill": prefill_summary(rows, name, tc_launches[name])})
+            "prefill": prefill_summary(rows, name, tc_launches[name]),
+            "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],)})
     return out
 
 
-def kv_kernel_summary(rows, launches):
+def kv_kernel_summary(rows, launches, moe_flash):
     """K4-K6 entries of the kernels line, each at its main-path shape: K4 on
     the served cache (rung 2 of (4, 6, 8), one decode token's G = 6 query
     heads per kv head), K5 one long prefill's attention (S = 2048, bf16,
-    per layer), K6 one page-in of every weight slice of the tree at
-    (n, h) = (6, 4)."""
+    per layer; ``moe_flash`` its check at phase 6's shape), K6 one page-in
+    of every weight slice of the tree at (n, h) = (6, 4)."""
     decode_m = min(r["M"] for r in rows if r["kernel"] == "nested_qk")
     floor_ms = next(r["ms"] for r in rows if r["kernel"] == "launch_floor")
     pick = {
@@ -2230,6 +2679,8 @@ def kv_kernel_summary(rows, launches):
             "per": per[name]})
         if name == "nested_qk":          # the CUDA-core control and the launch floor
             out[-1].update(cuda_core_ms=tot("cuda_core_ms"), launch_floor_ms=floor_ms)
+        if name == "flash_attention":
+            out[-1]["moe_check"] = moe_flash
     return out
 
 
@@ -2256,7 +2707,7 @@ def main() -> int:
     kv_rows = phase_kv_kernels(cfg, gen)
     engine, store, phases, launches = phase_serve(cfg)
     profile_info = phase_profile(engine, store, cfg, packed_linears_per_forward(store))
-    reference = phase_reference(cfg, store, phases)
+    reference = phase_reference(cfg, store)
     del engine
     artifact = phase_artifact(cfg, store, phases, packed_linears_per_forward(store))
     spec = phase_spec_faults(cfg, store, packed_linears_per_forward(store), gen)
@@ -2279,11 +2730,21 @@ def main() -> int:
     del long_engine_
     long_f32 = phase_long_f32(cfg, store)
     served_recompose = phase_served_recompose(store)
-    kv_launches = {"flash_attention": long_info["launches"]["flash_attention"],
+    del store
+    torch.cuda.empty_cache()
+    peak_before_moe = max(peak_before_long, torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    moe_info = phase_moe(gen)
+    moe_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[moe] peak device memory over phase 6 {moe_info['peak_mem_bytes'] / 1e9:.2f} GB")
+    launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i] for i in range(2))
+                for n in KERNELS}
+    kv_launches = {"flash_attention": (long_info["launches"]["flash_attention"]
+                                       + moe_info["flash_launches"]),
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = (kernel_summary(rows, launches, long_info["tc_launches"])
-               + kv_kernel_summary(kv_rows, kv_launches))
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info)
+               + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"]))
     steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
              for dt in ("bfloat16", "float32")}
     for key, by in steps.items():
@@ -2296,9 +2757,9 @@ def main() -> int:
               "fleet": fleet,
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
-              "served_recompose": served_recompose,
+              "served_recompose": served_recompose, "moe": moe_info,
               "kernels": kernels, "decode_steps": steps,
-              "peak_mem_bytes": max(peak_before_long, torch.cuda.max_memory_allocated()),
+              "peak_mem_bytes": max(peak_before_moe, moe_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))

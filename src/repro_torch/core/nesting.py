@@ -259,6 +259,10 @@ def _split_level(cur: torch.Tensor, b_hi: int, b_lo: int, rounding: str,
     return split_high(cur, b_hi, b_lo, method=rounding)
 
 
+# Largest 2-D weight nested in one piece (elements); above it, column slices
+SLICE_ELEMS = 1 << 27
+
+
 def nest_quantize(w: torch.Tensor, n: int = 8, h: Optional[int] = None,
                   rounding: str = "adaptive",
                   group_size: Optional[int] = None,
@@ -269,10 +273,12 @@ def nest_quantize(w: torch.Tensor, n: int = 8, h: Optional[int] = None,
     rung chain; otherwise the two-level ``(n, h)`` nesting (``h=None`` ->
     Eq. 12).
 
-    A stacked weight (L, ..., K, N) is nested one leading slice at a time:
-    scales, flip groups and packing never cross that axis, so the result
-    equals nesting the whole tensor at once while the float intermediates
-    stay one slice large."""
+    A stacked weight (L, ..., K, N) is nested one leading slice at a time,
+    and a 2-D weight of more than ``SLICE_ELEMS`` elements (an LM head or
+    embedding at a 100k vocabulary) in slices of columns: scales, flip
+    groups and packing never cross either, so the result equals nesting
+    the whole tensor at once while the float intermediates stay one slice
+    large."""
     if w.ndim < 2:
         raise ValueError("nest_quantize expects a matmul weight (..., K, N)")
     if bits is None:
@@ -291,6 +297,18 @@ def nest_quantize(w: torch.Tensor, n: int = 8, h: Optional[int] = None,
             deltas=tuple(torch.stack([p.deltas[j] for p in parts])
                          for j in range(len(bits) - 1)),
             scale=torch.stack([p.scale for p in parts]),
+            shape=tuple(w.shape), bits=bits, block=block)
+
+    if w.numel() > SLICE_ELEMS and w.shape[-1] > 1:
+        step = max(1, SLICE_ELEMS // w.shape[-2])
+        parts = [nest_quantize(w[:, j:j + step], rounding=rounding, group_size=group_size,
+                               block=block, bits=bits, validate=validate)
+                 for j in range(0, w.shape[-1], step)]
+        return NestedTensor(
+            w_base=torch.cat([p.w_base for p in parts], dim=-1),
+            deltas=tuple(torch.cat([p.deltas[j] for p in parts], dim=-1)
+                         for j in range(len(bits) - 1)),
+            scale=torch.cat([p.scale for p in parts], dim=-1),
             shape=tuple(w.shape), bits=bits, block=block)
 
     n = bits[-1]

@@ -26,12 +26,13 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None,
     scale s*2^(n-h); rung 1 -> the dual-stream nested_matmul; deeper rungs
     -> the ladder_matmul.  ``route`` names the kernel route on the card
     (the decode phase's ``dispatch.DECODE``; None: by M and dtype).
-    Takes one 2-D weight (a per-layer view); a leaf with stacked leading
-    dims (MoE expert stacks) raises rather than leaving the kernels."""
+    Takes one 2-D weight (a per-layer or per-expert view); a leaf with
+    stacked leading dims raises rather than leaving the kernels."""
     if nt.w_base.ndim != 2:
         raise NotImplementedError(
             f"packed_linear takes a 2-D weight, got a stacked leaf of shape {nt.shape}; "
-            "expert stacks come with the MoE family (ROADMAP queue 1, item 14)")
+            "expert stacks go through models/moe.py one expert view at a time "
+            "(ROADMAP queue 1, item 14)")
     x = x.contiguous()
     r = nt.rung
     rung_scale = nt.rung_scale(r).reshape(1, -1)

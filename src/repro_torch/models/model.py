@@ -1,4 +1,5 @@
-"""LM assembly, dense family; counterpart of ``repro/models/model.py``.
+"""LM assembly, dense and MoE families; counterpart of
+``repro/models/model.py``.
 
 Parameters keep the reference's layout: a nested dict with layer weights
 stacked on a leading L axis, so keystr paths, the recipe predicate (which
@@ -14,16 +15,23 @@ Public surface, built by :func:`make_model`:
   decode_chunk(params, inputs, cache) -> (logits f32 (B,S,V), cache)  (the same)
   make_cache(batch_size, max_len)     -> cache
 
+A MoE layer's FFN is ``models/moe.py::moe_ffn``: each expert with rows
+runs its three matmuls through ``packed_linear`` on its 2-D view.  Runs
+that build a cache (prefill) and every decode run route droplessly, as
+the reference's do.
+
 The decode phase (``decode_step`` and the speculative verify pass
 ``decode_chunk``) names the K1-K3 route ``dispatch.DECODE`` at every
-batch: the decode body in groups of at most 8 rows, whose rows do not
-depend on how many rows a launch holds (so a decode step above batch 8
-runs one launch per 8-row group, not the CUDA-core or tensor-core body
-that M alone would pick).  ``decode_chunk`` computes everything else
-(norms, attention) through the very calls a decode step makes, one
+batch, expert groups included: the decode body in groups of at most 8
+rows, whose rows do not depend on how many rows a launch holds (so a
+decode step above batch 8 runs one launch per 8-row group, not the
+CUDA-core or tensor-core body that M alone would pick).  ``decode_chunk``
+computes everything else (norms, attention, a MoE layer's router product,
+softmax and top-k) through the very calls a decode step makes, one
 position at a time, so position j of a chunk has bit for bit the logits
 j sequential decode steps give it (the verify contract of
-``repro/models/model.py``).
+``repro/models/model.py``); expert rows are combined in one fixed order.
+Prefill's expert groups take the route their M picks.
 """
 from __future__ import annotations
 
@@ -39,8 +47,9 @@ from ..kernels import dispatch
 from ..kernels.flash_attention import ops as flash_ops
 from .attention import decode_attention, full_attention
 from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
+from .moe import moe_ffn
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 def _not_ported(what: str, item: str):
@@ -55,13 +64,16 @@ def _dense_init(gen, shape, dtype, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 generator: Optional[torch.Generator] = None) -> Dict:
-    """Random parameters of a dense config, drawn on ``device`` from a
-    seeded ``torch.Generator`` (or the one given)."""
+    """Random parameters of a dense or MoE config, drawn on ``device``
+    from a seeded ``torch.Generator`` (or the one given), in the
+    reference's layout (a MoE layer: ``blocks.moe.router.w`` (L, d, E)
+    f32, ``blocks.moe.experts.{w_gate,w_up,w_down}.w`` (L, E, d, ff) /
+    (L, E, ff, d))."""
     if cfg.family not in SUPPORTED_FAMILIES:
         _not_ported(f"family {cfg.family!r}", "14")
     dev = resolve_device(device)
@@ -83,11 +95,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     if cfg.qkv_bias:
         for name, width in (("q", qd), ("k", kvd), ("v", kvd)):
             blocks[name]["b"] = torch.zeros((L, width), dtype=torch.float32, device=dev)
-    mlp_p = {"w_up": {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)},
-             "w_down": {"w": _dense_init(gen, (L, cfg.d_ff, d), dt)}}
-    if cfg.act == "swiglu":
-        mlp_p["w_gate"] = {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)}
-    blocks["mlp"] = mlp_p
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        blocks["moe"] = {
+            "router": {"w": _dense_init(gen, (L, d, E), torch.float32)},
+            "experts": {name: {"w": _dense_init(gen, (L, E) + shape, dt)}
+                        for name, shape in (("w_gate", (d, cfg.d_ff)),
+                                            ("w_up", (d, cfg.d_ff)),
+                                            ("w_down", (cfg.d_ff, d)))}}
+    else:
+        mlp_p = {"w_up": {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)},
+                 "w_down": {"w": _dense_init(gen, (L, cfg.d_ff, d), dt)}}
+        if cfg.act == "swiglu":
+            mlp_p["w_gate"] = {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)}
+        blocks["mlp"] = mlp_p
     params: Dict[str, Any] = {"blocks": blocks}
     if cfg.input_kind == "tokens":
         params["embed"] = {"table": _dense_init(gen, (cfg.vocab_size, d), dt, scale=0.02)}
@@ -183,17 +204,32 @@ def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
 
 
 # ===========================================================================
-# Transformer forward (dense)
+# Transformer forward (dense / moe)
 # ===========================================================================
+def _ffn(h, lp, cfg, dropless: bool = False, route=None, per_position: bool = False):
+    """The layer's FFN: the MLP, or for the MoE family ``moe_ffn`` (no aux
+    loss computed: nothing here trains).  ``per_position``: route a MoE
+    layer's tokens position by position (the decode chunk)."""
+    if cfg.family == "moe":
+        y, _ = moe_ffn(h, lp["moe"], num_experts=cfg.num_experts, top_k=cfg.top_k,
+                       capacity_factor=cfg.capacity_factor, act=cfg.act,
+                       dropless=dropless, route=route, per_position=per_position,
+                       want_aux=False)
+        return y
+    return mlp(h, lp["mlp"], cfg.act, route=route)
+
+
 def transformer_seq(params, x, cfg, want_cache: bool):
-    """x: (B,S,d) embedded input. Returns (h, cache or None)."""
+    """x: (B,S,d) embedded input. Returns (h, cache or None).  A run that
+    builds a cache routes MoE layers droplessly, so the cached decode
+    reproduces it."""
     h = x
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = layer_params(params["blocks"], i)
         a, (k, v) = attn_seq(norm(h, lp["attn_norm"], cfg.norm), lp, cfg)
         h = h + a
-        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act)
+        h = h + _ffn(norm(h, lp["mlp_norm"], cfg.norm), lp, cfg, dropless=want_cache)
         if want_cache:
             ks.append(k)
             vs.append(v)
@@ -209,8 +245,8 @@ def transformer_decode(params, x, cfg, cache, pos: int):
         lp = layer_params(params["blocks"], i)
         h = h + attn_decode(norm(h, lp["attn_norm"], cfg.norm), lp, cfg,
                             cache["k"][i], cache["v"][i], pos)
-        h = h + mlp(norm(h, lp["mlp_norm"], cfg.norm), lp["mlp"], cfg.act,
-                    route=dispatch.DECODE)
+        h = h + _ffn(norm(h, lp["mlp_norm"], cfg.norm), lp, cfg, dropless=True,
+                     route=dispatch.DECODE)
     return h
 
 
@@ -224,7 +260,7 @@ def transformer_decode_chunk(params, x, cfg, cache, pos: int):
         a = _per_position(lambda t: norm(t, lp["attn_norm"], cfg.norm), h)
         h = h + attn_decode_chunk(a, lp, cfg, cache["k"][i], cache["v"][i], pos)
         m = _per_position(lambda t: norm(t, lp["mlp_norm"], cfg.norm), h)
-        h = h + mlp(m, lp["mlp"], cfg.act, route=dispatch.DECODE)
+        h = h + _ffn(m, lp, cfg, dropless=True, route=dispatch.DECODE, per_position=True)
     return h
 
 
@@ -266,7 +302,7 @@ class Model(NamedTuple):
 
 
 def make_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The dense-family model on ``device``; other families raise."""
+    """The dense- or MoE-family model on ``device``; other families raise."""
     if cfg.family not in SUPPORTED_FAMILIES:
         _not_ported(f"family {cfg.family!r}", "14")
     dev = resolve_device(device)

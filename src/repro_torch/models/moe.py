@@ -1,0 +1,203 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch;
+counterpart of ``repro/models/moe.py`` (its ``shard_map`` paths belong to
+the distributed stack, ROADMAP queue 1 item 16, and are not ported).
+
+Routing is the reference's: the router product in f32, an f32 softmax,
+top-k with renormalised gates, the Switch aux loss, a stable sort of the
+T*K assignments by expert that gives each its position within its expert,
+and ``keep = pos < C`` (C from :func:`capacity`; ``dropless`` sizes it
+for the worst case, so nothing is dropped).
+
+The expert compute differs from the reference in mechanism only.  The
+reference gathers a padded (E, C, d) tensor and multiplies it by the
+dequantized expert stack.  Here each expert with at least one kept row,
+in ascending order, gathers its rows into one contiguous (n_e, d) tensor
+and runs gate/up, the activation and down through ``layers.linear`` on
+the 2-D view of its weight (``NestedTensor.layer`` of the layer's
+(E, K, N) slice, so K1-K3 read the packed words; a dense stack's slice
+takes ``pdot``).  The reference's padded slots hold zero rows and add
+exact zeros, so skipping them computes the same function.
+
+The combine multiplies each expert's rows by their gates (cast to the
+rows' dtype) and adds them into a zero (T, d) buffer one expert at a
+time, in ascending expert order.  A token appears at most once per
+expert, so each add touches distinct rows, and a token's sum is a left
+fold from zero over its experts in ascending order: the reference's
+expert-major slot order, on the card and on the CPU alike (one scatter of
+all T*K rows would sum in atomic order on the card).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.nesting import NestedTensor
+from .layers import gelu, linear, pdot, silu
+
+
+def capacity(tokens: int, num_experts: int, top_k: int, factor: float,
+             multiple: int = 8, dropless: bool = False) -> int:
+    """Per-expert slot count C.  ``dropless=True`` sizes C for the worst
+    case (every assignment lands on one expert), so no token is dropped:
+    the serving paths' mode, in which a cached decode reproduces the full
+    forward."""
+    if dropless:
+        c = tokens * top_k
+    else:
+        c = math.ceil(tokens * top_k * factor / num_experts)
+    return max(multiple, math.ceil(c / multiple) * multiple)
+
+
+class Routing(NamedTuple):
+    """One dispatch: ``aux`` the Switch loss (None when not asked for), and
+    ``groups``: for each
+    expert with at least one kept row, ascending, (expert, token rows
+    (n_e,) int64 ascending, their gates (n_e,) f32)."""
+    aux: Optional[torch.Tensor]
+    groups: Tuple[Tuple[int, torch.Tensor, torch.Tensor], ...]
+
+
+def route_tokens(xf: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """xf (T, d) -> (probs (T, E) f32, gate_vals (T, K), expert_idx (T, K)).
+    Top-k by a stable descending sort: equal probabilities keep the lower
+    expert first, as ``lax.top_k`` does."""
+    logits = pdot(xf, router_w.to(xf.dtype), preferred=torch.float32)
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :top_k], idx[:, :top_k]
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
+
+
+def _dispatch(probs, gate_vals, expert_idx, *, E: int, C: int,
+              want_aux: bool = True) -> Routing:
+    """Capacity dispatch of routed tokens (the reference's ``_dispatch``
+    without the padded gather).  ``want_aux=False`` skips the aux loss,
+    which eager PyTorch would otherwise compute on every serving call."""
+    T, K = expert_idx.shape
+    aux = None
+    if want_aux:
+        # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+        me = probs.mean(dim=0)
+        ce = torch.nn.functional.one_hot(expert_idx, E).float().sum(dim=1).mean(dim=0)
+        aux = E * (me * ce).sum()
+
+    ef = expert_idx.reshape(T * K)
+    tok = torch.arange(T, device=ef.device).repeat_interleave(K)
+    order = torch.sort(ef, stable=True).indices
+    st, sg = tok[order], gate_vals.reshape(T * K)[order]
+    counts = torch.bincount(ef, minlength=E).tolist()
+    # sorted by expert, each expert's assignments are one run in token
+    # order; position-in-expert pos < C keeps the run's first C
+    groups, start = [], 0
+    for e, n in enumerate(counts):
+        kept = min(n, C)
+        if kept:
+            groups.append((e, st[start:start + kept], sg[start:start + kept]))
+        start += n
+    return Routing(aux, tuple(groups))
+
+
+def _expert_view(leaf, e: int):
+    """Expert ``e`` of a layer's (E, K, N) slice: a 2-D view."""
+    return leaf.layer(e) if isinstance(leaf, NestedTensor) else leaf[e]
+
+
+def _expert_compute(x_e, experts: Dict, e: int, act: str, route):
+    def lin(x, name):
+        return linear(x, _expert_view(experts[name]["w"], e), route=route)
+
+    if act == "swiglu":
+        h = silu(lin(x_e, "w_gate")) * lin(x_e, "w_up")
+    else:
+        h = gelu(lin(x_e, "w_up"))
+    return lin(h, "w_down")
+
+
+class GroupLog(NamedTuple):
+    """One ``moe_ffn`` call: the K1-K3 route it named (None: by M), the
+    rung stamped on its experts (None: a dense stack), its T tokens, its
+    (expert, rows) groups in launch order and its (T, K) expert choices."""
+    route: Optional[str]
+    rung: Optional[int]
+    tokens: int
+    groups: Tuple[Tuple[int, int], ...]
+    expert_idx: torch.Tensor
+
+
+class _Hooks:
+    log: Optional[list] = None
+    forced: Optional[Iterator[torch.Tensor]] = None
+
+
+_hooks = _Hooks()
+
+
+@contextlib.contextmanager
+def record_groups():
+    """Inside this block every :func:`moe_ffn` call appends a
+    :class:`GroupLog` to the list this yields: a forward of an L-layer
+    model appends L of them, layer by layer."""
+    before = _hooks.log
+    _hooks.log = []
+    try:
+        yield _hooks.log
+    finally:
+        _hooks.log = before
+
+
+@contextlib.contextmanager
+def forced_routing(choices):
+    """Inside this block the i-th :func:`moe_ffn` call sends its tokens to
+    the experts ``choices[i]`` (T, K) names instead of its own top-k, with
+    gates from its own probabilities at those experts, renormalised: a
+    reference pass that replays another pass's expert choices, so a
+    near-tie in the router cannot send a token elsewhere."""
+    before = _hooks.forced
+    _hooks.forced = iter(choices)
+    try:
+        yield
+    finally:
+        _hooks.forced = before
+
+
+def moe_ffn(x: torch.Tensor, params: Dict, *, num_experts: int, top_k: int,
+            capacity_factor: float, act: str = "swiglu", cap_multiple: int = 8,
+            dropless: bool = False, route=None, per_position: bool = False,
+            want_aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x: (B, S, d) -> (out, aux loss; None with ``want_aux=False``).
+
+    ``route`` names the K1-K3 route of every expert matmul (the decode
+    phase's ``dispatch.DECODE``; None: by each group's M).  With
+    ``per_position`` the router product, softmax and top-k run on each
+    position's (B, d) rows, the calls a decode step makes, so position j
+    of a decode chunk routes on the decode step's products."""
+    B, S, d = x.shape
+    T, E, K = B * S, num_experts, top_k
+    xf = x.reshape(T, d)
+    rw = params["router"]["w"]
+    if per_position:
+        parts = [route_tokens(x[:, j].contiguous(), rw, K) for j in range(S)]
+        probs, gate_vals, expert_idx = (torch.stack([p[i] for p in parts], dim=1)
+                                        .reshape(T, -1) for i in range(3))
+    else:
+        probs, gate_vals, expert_idx = route_tokens(xf, rw, K)
+    if _hooks.forced is not None:
+        expert_idx = next(_hooks.forced).to(probs.device)
+        gate_vals = probs.gather(1, expert_idx)
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    C = capacity(T, E, K, capacity_factor, cap_multiple, dropless=dropless)
+    r = _dispatch(probs, gate_vals, expert_idx, E=E, C=C, want_aux=want_aux)
+    experts = params["experts"]
+    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
+    for e, rows, gates in r.groups:
+        y = _expert_compute(xf[rows], experts, e, act, route)
+        out[rows] = out[rows] + y * gates.to(y.dtype)[:, None]
+    if _hooks.log is not None:
+        leaf = experts["w_up"]["w"]
+        _hooks.log.append(GroupLog(
+            route, leaf.rung if isinstance(leaf, NestedTensor) else None, T,
+            tuple((e, rows.numel()) for e, rows, _ in r.groups), expert_idx))
+    return out.reshape(B, S, d), r.aux

@@ -1004,3 +1004,114 @@ def test_two_replica_fleet_on_the_card_matches_the_cpu(cuda):
         else:
             assert torch.equal(leaf.w_base, base) and len(leaf.deltas) == len(deltas)
             assert all(d is not None and torch.equal(d, e) for d, e in zip(leaf.deltas, deltas))
+
+
+# ---------------------------------------------------------------------------
+# MoE: expert groups at dbrx-132b's full widths, expert views of a stacked
+# (L, E, K, N) leaf, and the reduced MoE model's verify rows
+# ---------------------------------------------------------------------------
+# (K, N) of dbrx-132b's expert gate/up and down
+MOE_EXPERT_SHAPES = [(6144, 10752), (10752, 6144)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", MOE_EXPERT_SHAPES)
+def test_expert_groups_match_plain_on_each_route(cuda, K, N, dtype):
+    """An expert's 2-D view of a stacked leaf through ``packed_linear`` at M
+    1, 5, 8, 12, 40 and 130 (the decode body, the CUDA cores, and for bf16
+    at 130 the tensor cores: the body M picks, counted there) within 2e-2
+    (bf16) or 1e-4 (f32) of max(1, max |y|) of the plain version at every
+    rung."""
+    from repro_torch.models.layers import packed_linear
+
+    g = torch.Generator(device=cuda).manual_seed(K + 3)
+    stack = nest_quantize(torch.randn(2, K, N, generator=g, device=cuda) / math.sqrt(K),
+                          bits=(8, 6, 4), rounding="rtn")
+    view = stack.layer(1)
+    for M in (1, 5, 8, 12, 40, 130):
+        x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+        route = dispatch.matmul_route(M, dtype, cuda)
+        for rung in range(3):
+            nt = view.with_rung(rung)
+            counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[rung]]
+            before = (counter.launches, counter.dec_launches, counter.tc_launches)
+            got = packed_linear(x, nt)
+            assert (counter.launches, counter.dec_launches, counter.tc_launches) == (
+                before[0] + 1, before[1] + (route == dispatch.DECODE),
+                before[2] + (route == dispatch.TENSOR_CORE)), (M, rung, route)
+            with dispatch.reference_pass():
+                want = packed_linear(x, nt)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            peak = want.float().abs().max().item()
+            assert err <= TOL[dtype] * max(1.0, peak), (M, rung, route, err, peak)
+
+
+@pytest.mark.parametrize("K,N", MOE_EXPERT_SHAPES)
+def test_expert_views_of_a_full_width_stack_stay_aligned(cuda, K, N):
+    """Every expert view of a (2, 16, K, N) stack (``NestedTensor.layer``
+    twice) starts on a 16-byte boundary and launches the decode body at
+    rung 2 without a misalignment error, within 2e-2 of the plain version."""
+    from repro_torch.models.layers import packed_linear
+
+    g = torch.Generator(device=cuda).manual_seed(N)
+    w = torch.randn(2, 16, K, N, generator=g, device=cuda, dtype=torch.bfloat16)
+    stack = nest_quantize(w, bits=(8, 6, 4), rounding="rtn")
+    del w
+    x = torch.randn(2, K, generator=g, device=cuda).bfloat16() / math.sqrt(K)
+    for layer in range(2):
+        for e in range(16):
+            view = stack.layer(layer).layer(e)
+            assert all(s.data_ptr() % 16 == 0 for s in (view.w_base,) + view.deltas)
+            got = packed_linear(x, view, route=dispatch.DECODE)
+            with dispatch.reference_pass():
+                want = packed_linear(x, view)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+
+
+def test_moe_decode_chunk_rows_equal_decode_steps_bit_for_bit(cuda):
+    """The reduced dbrx-132b in bf16 at rung 2 on the card: one decode_chunk
+    over 5 positions equals 5 decode steps bit for bit (logits and cache),
+    its expert groups on the decode body and nothing plain; two runs of a
+    layer's MoE FFN give identical bytes."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, layer_params, make_model
+
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = set_tree_rung(quantize(init_params(cfg, seed=0, device=cuda),
+                                    QuantRecipe(bits=(8, 6, 4), rounding="rtn"),
+                                    device=cuda), 2)
+    model = make_model(cfg, device=cuda)
+    rng = np.random.default_rng(5)
+    B = 4
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 6))).to(cuda)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 5))).to(cuda)
+    _, c = model.prefill(params, {"tokens": prompt})
+    seq = model.make_cache(B, 16)
+    seq["k"][:, :, :6], seq["v"][:, :, :6], seq["pos"] = c["k"], c["v"], 6
+    par = {k: v.clone() if torch.is_tensor(v) else v for k, v in seq.items()}
+    dispatch.reset_counters()
+    with moe.record_groups() as log:
+        got, par = model.decode_chunk(params, {"tokens": chunk}, par)
+    ladder = dispatch.counter("ladder_matmul")
+    assert ladder.launches == ladder.dec_launches > 0
+    assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
+    assert [g.route for g in log] == [dispatch.DECODE] * cfg.num_layers
+    want = torch.cat([model.decode_step(params, {"tokens": chunk[:, j:j + 1]}, seq)[0]
+                      for j in range(5)], dim=1)
+    assert torch.equal(got, want)
+    assert torch.equal(par["k"], seq["k"]) and torch.equal(par["v"], seq["v"])
+    lp = layer_params(params["blocks"], 1)["moe"]
+    x = torch.randn(B, 5, cfg.d_model, device=cuda).bfloat16()
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k, capacity_factor=1.0,
+              act=cfg.act, dropless=True, route=dispatch.DECODE)
+    a, _ = moe.moe_ffn(x, lp, **kw)
+    b, _ = moe.moe_ffn(x, lp, **kw)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -41,12 +41,13 @@ WALL = re.compile(r" in \d+\.\d+s;")
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_caches():
-    """One jitted quantization per recipe for the JAX CLIs (their weights
-    are always ``PRNGKey(0)``'s for the one config), and shared compiles."""
+    """One jitted quantization per (recipe, parameter shapes) for the JAX
+    CLIs (their weights are always ``PRNGKey(0)``'s for a config), and
+    shared compiles."""
     done = {}
 
     def quantize(params, recipe):
-        key = recipe.to_json()
+        key = (recipe.to_json(), str(jax.tree_util.tree_map(lambda x: x.shape, params)))
         if key not in done:
             done[key] = jax.jit(lambda p: jax_quantize(p, recipe))(params)
         return done[key]
@@ -100,6 +101,18 @@ def test_serve_budget_schedule_and_artifact(capsys, tmp_path):
     assert saved[-1] == "[artifact] wrote <dir>" and len(saved) == 4
     assert served[0].startswith("[artifact] cold boot read")
     assert served[-1].startswith("[link] paged")
+
+
+def test_serve_moe_budget_schedule(capsys):
+    """The MoE family through the serve CLI: reduced dbrx-132b (4 experts,
+    top-2) over a budget schedule that walks every rung prints the JAX
+    CLI's lines but for the wall seconds."""
+    args = ["--arch", "dbrx-132b", "--smoke", "--bits", "8,6,4", "--budget-schedule",
+            "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]
+    ref, port = _both(capsys, jserve_cli.main, pserve_cli.main, args)
+    assert _unwall(port) == _unwall(ref)
+    assert [line.split(" ")[0] for line in port] == \
+        ["[store]", "[phase", "[phase", "[phase", "[phase", "[switching]"]
 
 
 def test_serve_speculative_trace(capsys):

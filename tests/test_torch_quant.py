@@ -100,6 +100,26 @@ def test_nest_quantize_streams_and_scales_exact(bits, rounding):
             np.testing.assert_array_equal(t.codes_at(r).numpy(), np.asarray(j.codes_at(r)))
 
 
+@pytest.mark.parametrize("rounding", ["adaptive", "rtn", "bitshift"])
+def test_large_weight_nests_in_column_slices_exactly(monkeypatch, rounding):
+    """A 2-D weight above ``SLICE_ELEMS`` elements is nested in column
+    slices (a ragged last one here): streams, scales and codes equal
+    nesting it in one piece, and for rtn and bitshift the JAX package's."""
+    w = _weight(5, (256, 100))
+    whole = tn.nest_quantize(torch.from_numpy(w), bits=(8, 6, 4), rounding=rounding)
+    monkeypatch.setattr(tn, "SLICE_ELEMS", 256 * 16)
+    sliced = tn.nest_quantize(torch.from_numpy(w), bits=(8, 6, 4), rounding=rounding)
+    assert (sliced.shape, sliced.bits, sliced.block) == (whole.shape, whole.bits, whole.block)
+    for a, b in zip((sliced.w_base, sliced.scale) + sliced.deltas,
+                    (whole.w_base, whole.scale) + whole.deltas):
+        assert torch.equal(a, b)
+    if rounding != "adaptive":
+        j = jn.nest_quantize(jnp.asarray(w), bits=(8, 6, 4), rounding=rounding)
+        np.testing.assert_array_equal(sliced.w_base.numpy(), np.asarray(j.w_base))
+        for a, b in zip(sliced.deltas, j.deltas):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 @pytest.mark.parametrize("bits", [(8, 6, 4), (8, 4)])
 def test_adaptive_rounding_holds_the_reference_rule(bits):
     """Adaptive codes: floor/ceil membership and |CASE| <= 0.5 hold, and

@@ -73,6 +73,23 @@ def reduced_qwen2(seed: int = 0):
     return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
 
 
+@functools.lru_cache(maxsize=None)
+def reduced_moe(name: str, seed: int = 0):
+    """A reduced MoE config of the JAX package (``dbrx-132b``: top-2 of 4
+    experts, layernorm; ``llama4-scout-17b-a16e``: top-1, rmsnorm): (config,
+    dense params, their rtn (8, 6, 4) nesting, expert stacks as 4-D leaves
+    and the f32 router kept dense), quantized once per process under
+    ``jax.jit`` as :func:`reduced_qwen2` is."""
+    from repro.configs import get_config
+    from repro.core.recipe import QuantRecipe, quantize
+    from repro.models import make_model
+
+    cfg = get_config(name).reduced()
+    dense = make_model(cfg).init(jax.random.PRNGKey(seed))
+    recipe = QuantRecipe(bits=(8, 6, 4), rounding="rtn")
+    return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
+
+
 @contextlib.contextmanager
 def shared_jax_compiles():
     """Inside this block the JAX package's engines, fleets and CLIs share one
