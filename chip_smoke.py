@@ -90,8 +90,9 @@ Phases (each raises on failure; the script then exits non-zero):
    reason, wall, device busy share and peak memory printed.  Then the
    serve CLI (burst trace through faults, ``--save-artifact`` and
    ``--artifact --link-mbps 100``, ``--speculate 2``, ``--search-recipe
-   none``, and ``--arch dbrx-132b`` over a budget schedule) and the fleet
-   CLI (``--replicas 4 --json``) in-process at
+   none``, and ``--arch dbrx-132b``, ``mamba2-780m`` and ``zamba2-2.7b``
+   over a budget schedule) and the fleet CLI (``--replicas 4 --json``)
+   in-process at
    ``--smoke`` on the card and on the CPU: each exits 0, no K1-K3 call on
    the card runs a plain version, and the card's lines equal the CPU's
    but for the wall seconds and what depends on the weights.
@@ -147,6 +148,35 @@ Phases (each raises on failure; the script then exits non-zero):
    a plain bf16 pass replaying its expert choices, then its K1-K3 and K5
    time; K5 alone at its 2 x 1100, 48/8-head shape against its plain
    version, as in phase 1.
+7. The ssm and hybrid families at full width with every layer: mamba2-780m
+   (48 Mamba2 layers, d 1536, 48 SSM heads of 64, state 128, vocab 50280)
+   and zamba2-2.7b (54 Mamba2 layers, d 2560, and one shared attention/MLP
+   block, 32/32 heads of 80 and d_ff 10240, applied 9 times), random
+   weights from a seeded generator, nested on (8, 6, 4) (the quantize
+   seconds and rung bytes printed).  Only ``in_proj``, ``out_proj``, the
+   shared block's six matmuls and the LM head are matmuls: 97 and 163 K1-K3
+   launches per forward, counted on the rung's kernel and the body each M
+   picks, none plain; the scan, conv and gates are plain tensor code.
+   Each model: ``warmup``, then phase 2's schedule (after which no
+   library, plan, counter buffer or decode-body instantiation is new); a
+   long prompt at rung 2 (mamba2 2 x 2048 + 8: the tensor-core body at M =
+   4096 on N = 6448 and the scan over 8 chunks; zamba2 2 x 1100 + 4 on the
+   nested KV cache, twice, the second at queue depth 8: K5 at head dim 80
+   once per application, KV bytes per sequence over 9 attention layers,
+   the KV ledger equal to its metadata bytes, the top-rung render within
+   0.02 of the dense prefill K/V).  Then, uncounted: phase 3's reference
+   pass at rungs 2, 0, 1 (f32 within 1e-4 with identical tokens, bf16
+   under the model's ``SSM_BF16_TOL``, which a one-stream-short control
+   exceeds); the long prefill against its plain bf16 pass at full depth
+   and at its first ``SSM_SHALLOW`` layers, each under its limit in
+   ``SSM_LONG_TOL`` which its one-stream-short control exceeds, then
+   profiled; K1-K3 on the model's own weights at every (M, body) the main
+   path launches (decode at M = 4 and 2, the short prefill's M = 32 on the
+   CUDA cores, the long prompt's M on the tensor cores; in_proj's N 6448
+   and 10448 and the vocab 50280 are no multiple of 128) against their
+   plain versions, timed; a decode step per rung at batch 4 (wall, device
+   busy, K1-K3 against their byte bound, the SSM state update against
+   its); K5 alone at zamba2's 2 x 1100, 32/32 heads of 80, beside SDPA.
 
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
@@ -318,55 +348,83 @@ def kernel_call(name, nt, x, copies, out_dtype, route=None):
     return call
 
 
+def _row(kernel, shape, M, dtype, err, ms, plain_ms, nbytes, ops, peak, lib_ms, **extra):
+    """One row of a kernel table; its bound is the larger of ``nbytes`` at
+    the HBM rate and ``ops`` at ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return {"kernel": kernel, "shape": shape, "M": M, "dtype": dtype, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
+            "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", **extra}
+
+
+def checked_launch(name, nt, x, copies, out_dtype, what, route=None):
+    """Launch K1-K3 kernel ``name`` once on the body ``matmul_route`` picks
+    for ``x`` (it must be ``route`` where one is named), which its counters
+    must show: one launch, on that body and no other.  Held against its
+    plain version within ``TOL`` of max(1, max |y|).  Returns (the call,
+    its route, max |kernel - plain|, max |plain|)."""
+    from repro_torch.kernels import dispatch
+
+    body = dispatch.matmul_route(x.shape[0], x.dtype, x.device)
+    if route is not None and body != route:
+        raise AssertionError(f"{what}: M={x.shape[0]} {x.dtype} takes the {body} body, "
+                             f"not the {route} one")
+    counter = dispatch.counter(name)
+    seen = lambda: (counter.launches, counter.dec_launches, counter.tc_launches)  # noqa: E731
+    call = kernel_call(name, nt, x, copies, out_dtype)
+    before = seen()
+    got = call(0)
+    if seen() != (before[0] + 1, before[1] + (body == dispatch.DECODE),
+                  before[2] + (body == dispatch.TENSOR_CORE)):
+        raise AssertionError(f"{what}: not launched on the {body} body ({before} -> {counter})")
+    with dispatch.reference_pass():
+        ref = call(0)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    peak = ref.float().abs().max().item()
+    tol = TOL[x.dtype]
+    if not (math.isfinite(err) and err <= tol * max(1.0, peak)):
+        raise AssertionError(f"{what} {body} body: max |kernel - plain| = {err} > {tol} * "
+                             f"max(1, {peak})")
+    return call, body, err, peak
+
+
+def matmul_cost(x, streams, N, out_dtype):
+    """(bytes, operations) of one K1-K3 launch: x, the streams it reads and
+    the scale read once, the (M, N) output written once; 2 M N K."""
+    M, K = x.shape
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return (x.numel() * x.element_size() + sum(s.numel() * 4 for s in streams) + N * 4
+            + M * N * out_size, 2.0 * M * N * K)
+
+
 def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
     """bf16 rows at ``PREFILL_MS``: each kernel on the tensor-core body
-    the route picks (its counter must show it) against its plain version
-    within 2e-2 of max(1, max |y|), timed by CUDA-graph replay beside the
-    same call on the CUDA-core body (the "before") and the dense bf16
+    (:func:`checked_launch`), timed by CUDA-graph replay beside the same
+    call on the CUDA-core body (the "before") and the dense bf16
     yardstick; bound by operations at these M."""
     from repro_torch.kernels import dispatch
 
     rows = []
     for M in PREFILL_MS:
         x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
-        if dispatch.matmul_route(M, x.dtype, x.device) != dispatch.TENSOR_CORE:
-            raise AssertionError(f"M={M} bf16 does not take the tensor-core body")
         for name, (rung, _, _) in KERNELS.items():
-            counter = dispatch.COUNTERS[name]
-            call = kernel_call(name, nt, x, copies, torch.bfloat16)
-            before = (counter.launches, counter.tc_launches)
-            got = call(0)
-            if (counter.launches, counter.tc_launches) != (before[0] + 1, before[1] + 1):
-                raise AssertionError(f"{name} {shape} M={M}: not launched on the tensor-core "
-                                     f"body ({before} -> {counter})")
-            with dispatch.reference_pass():
-                ref = call(0)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            peak = ref.float().abs().max().item()
-            tol = TOL[torch.bfloat16]
-            if not (math.isfinite(err) and err <= tol * max(1.0, peak)):
-                raise AssertionError(f"{name} {shape} M={M} tensor-core body: max |kernel - "
-                                     f"plain| = {err} > {tol} * max(1, {peak})")
-            del got, ref
+            call, route, err, peak = checked_launch(name, nt, x, copies, torch.bfloat16,
+                                                    f"{name} {shape} M={M}",
+                                                    dispatch.TENSOR_CORE)
             ms = time_graph_ms(call, 5, reps=3)
             cc_ms = time_graph_ms(kernel_call(name, nt, x, copies, torch.bfloat16,
                                               route=dispatch.CUDA_CORE), 2, reps=2)
             with dispatch.reference_pass():
                 plain_ms = time_ms(call, 1)
             dense_ms = time_graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]), 5, reps=3)
-            nbytes = (x.numel() * 2 + sum(s.numel() * 4 for s in streams[:rung + 1])
-                      + N * 4 + M * N * 2)
-            flops = 2.0 * M * N * K
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-            rows.append({
-                "kernel": name, "shape": shape, "K": K, "N": N, "M": M, "dtype": "bfloat16",
-                "route": dispatch.TENSOR_CORE, "uses_per_forward": uses,
-                "max_abs_err": err, "max_abs_ref": peak, "ms": ms, "cuda_core_ms": cc_ms,
-                "plain_ms": plain_ms, "dense_bf16_matmul_ms": dense_ms, "bytes": nbytes,
-                "flops": flops, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            rows.append(_row(name, shape, M, "bfloat16", err, ms, plain_ms,
+                             *matmul_cost(x, streams[:rung + 1], N, torch.bfloat16),
+                             PEAK_FLOPS[torch.bfloat16], None, K=K, N=N, route=route,
+                             uses_per_forward=uses, max_abs_ref=peak, cuda_core_ms=cc_ms,
+                             dense_bf16_matmul_ms=dense_ms))
             log(f"[prefill] {name:13s} {shape:8s} M={M:4d} bf16 err={err:.2e} tensor-core "
                 f"ms={ms:.4f} cuda-core ms={cc_ms:.4f} ({cc_ms / ms:.1f}x) plain={plain_ms:.3f} "
                 f"dense_bf16={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
@@ -398,25 +456,10 @@ def phase_kernels(cfg, gen):
             for M in MS:
                 x = torch.randn(M, K, generator=gen, device=DEVICE).to(dtype)
                 xd = x.to(torch.bfloat16)
-                route = dispatch.matmul_route(M, dtype, x.device)
                 for name, (rung, _, _) in KERNELS.items():
-                    counter = dispatch.counter(name)
-                    call = kernel_call(name, nt, x, copies, out_dtype)
-                    before = (counter.launches, counter.dec_launches)
-                    got = call(0)
-                    dec = int(route == dispatch.DECODE)
-                    if (counter.launches, counter.dec_launches) != (before[0] + 1, before[1] + dec):
-                        raise AssertionError(f"{name} {shape} M={M} {dtype}: not launched on the "
-                                             f"{route} body ({before} -> {counter})")
-                    with dispatch.reference_pass():
-                        ref = call(0)
-                    torch.cuda.synchronize()
-                    err = (got.float() - ref.float()).abs().max().item()
-                    peak = ref.float().abs().max().item()
-                    if not (math.isfinite(err) and err <= TOL[dtype] * max(1.0, peak)):
-                        raise AssertionError(
-                            f"{name} {shape} M={M} {dtype}: max |kernel - plain| = {err} "
-                            f"> {TOL[dtype]} * max(1, {peak})")
+                    call, route, err, peak = checked_launch(
+                        name, nt, x, copies, out_dtype, f"{name} {shape} M={M} {dtype}")
+                    dec = route == dispatch.DECODE
                     ms = time_graph_ms(call, 20)
                     host_ms = time_ms(call, 20)
                     cc_ms = (time_graph_ms(kernel_call(name, nt, x, copies, out_dtype,
@@ -425,21 +468,11 @@ def phase_kernels(cfg, gen):
                     with dispatch.reference_pass():
                         plain_ms = time_ms(call, 3)
                     dense_ms = time_graph_ms(lambda i: torch.matmul(xd, dense[i % len(dense)]), 20)
-                    nbytes = (x.numel() * x.element_size()
-                              + sum(s.numel() * 4 for s in streams[:rung + 1])
-                              + N * 4 + M * N * torch.empty((), dtype=out_dtype).element_size())
-                    flops = 2.0 * M * N * K
-                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-                    rows.append({
-                        "kernel": name, "shape": shape, "K": K, "N": N, "M": M,
-                        "dtype": str(dtype).replace("torch.", ""), "uses_per_forward": uses,
-                        "route": route, "max_abs_err": err, "max_abs_ref": peak, "ms": ms,
-                        "cuda_core_ms": cc_ms, "eager_call_ms": host_ms,
-                        "plain_ms": plain_ms, "dense_bf16_matmul_ms": dense_ms,
-                        "bytes": nbytes, "flops": flops,
-                        "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                    rows.append(_row(name, shape, M, str(dtype).replace("torch.", ""), err, ms,
+                                     plain_ms, *matmul_cost(x, streams[:rung + 1], N, out_dtype),
+                                     PEAK_FLOPS[dtype], None, K=K, N=N, uses_per_forward=uses,
+                                     route=route, max_abs_ref=peak, cuda_core_ms=cc_ms,
+                                     eager_call_ms=host_ms, dense_bf16_matmul_ms=dense_ms))
                     before_ms = "" if cc_ms is None else f" cuda-core={cc_ms:.4f}"
                     log(f"[kernel] {name:13s} {shape:8s} M={M:2d} {rows[-1]['dtype']:8s} "
                         f"{route:9s} err={err:.2e} ms={ms:.4f}{before_ms} eager={host_ms:.4f} "
@@ -1446,6 +1479,10 @@ CLI_RUNS = (
     ("fleet", ["--replicas", str(FLEET_REPLICAS), "--json", "{out}/fleet.json", *FLEET_FLAGS]),
     ("serve", ["--arch", "dbrx-132b", "--bits", "8,6,4", "--budget-schedule",
                "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]),
+    ("serve", ["--arch", "mamba2-780m", "--bits", "8,6,4", "--budget-schedule",
+               "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]),
+    ("serve", ["--arch", "zamba2-2.7b", "--bits", "8,6,4", "--budget-schedule",
+               "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]),
 )
 # what a CLI line may print differently on the card and on the CPU: the
 # wall seconds of a budget-schedule phase, and what depends on the weights
@@ -1907,15 +1944,6 @@ def phase_kv_kernels(cfg, gen):
         f"{sum(r['bound_ms'] * r['uses_per_tree'] for r in tree):.4f} ms; "
         f"{K6_TREE_MS_BEFORE} ms on the one-thread-per-code body it replaces)")
     return rows
-
-
-def _row(kernel, shape, M, dtype, err, ms, plain_ms, nbytes, ops, peak, lib_ms, **extra):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return {"kernel": kernel, "shape": shape, "M": M, "dtype": dtype, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nbytes,
-            "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", **extra}
 
 
 # ---------------------------------------------------------------------------
@@ -2578,6 +2606,501 @@ def phase_moe(gen):
             "flash_launches": main_counts["flash_attention"][0], "flash_check": flash_check}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the ssm and hybrid families at full width from the nested tree
+# ---------------------------------------------------------------------------
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
+# (batch, prompt, new tokens) of each model's long prompt: mamba2's runs the
+# tensor-core body at M = 4096 on N = 6448 and the scan over 8 chunks of
+# 256; zamba2's runs K5 at head dim 80 once per shared-block application,
+# on the nested KV cache
+SSM_LONG = {"mamba2-780m": (2, 2048, 8), "zamba2-2.7b": (2, 1100, 4)}
+# bf16 limit of each model's checks (prefill logits relative to max |logit|),
+# between the sound readings and the one-stream-short control, about their
+# geometric mean.  Random weights through 48 or 54 layers amplify bf16
+# rounding: sound kernels read up to 0.40 (mamba2) and 0.17 (zamba2) against
+# the f32 plain pass, the control at least 1.04 and 0.77 (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 6)
+SSM_BF16_TOL = {"mamba2-780m": 0.65, "zamba2-2.7b": 0.36}
+# limits of the long prefill's bf16 kernel path against the plain bf16 pass
+# (last-position logits relative to max |logit|) at full depth and at the
+# first SSM_SHALLOW layers, each about the geometric mean of its sound
+# reading and its one-stream-short control: full depth 0.132 / 0.893
+# (mamba2) and 0.139 / 0.735 (zamba2), 6 layers 1.36e-2 / 0.250 and
+# 2.44e-2 / 0.286 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
+# The error grows with depth: random weights amplify bf16 rounding
+SSM_SHALLOW = 6
+SSM_LONG_TOL = {"mamba2-780m": (0.34, 5.8e-2), "zamba2-2.7b": (0.32, 8.3e-2)}
+SSM_STEP_REPS = 5                  # decode steps timed per rung in the report
+
+
+def ssm_matmuls(cfg) -> int:
+    """K1-K3 launches per forward: in_proj and out_proj per Mamba2 layer,
+    the shared block's q, k, v, o, w_up and w_down per application (its
+    gelu MLP has no gate), and the LM head (97 for mamba2-780m, 163 for
+    zamba2-2.7b)."""
+    every = cfg.hybrid_attn_every
+    return 2 * cfg.num_layers + (6 * (cfg.num_layers // every) if every else 0) + 1
+
+
+def ssm_want(cfg, batch, prompt, new, rung, flash=0):
+    """(launches, decode-body, tensor-core, plain) per wrapper that one
+    generate of ``batch`` prompts of ``prompt`` tokens and ``new`` new
+    tokens at ``rung`` implies: every forward's matmuls on the rung's
+    kernel; the prefill's on the body M = batch * prompt picks but its LM
+    head (M = batch), which takes the decode body as every decode step
+    does; ``flash`` K5 launches; nothing plain."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels import dispatch
+
+    per = ssm_matmuls(cfg)
+    name = next(n for n, v in KERNELS.items() if v[0] == min(rung, 2))
+    body = dispatch.matmul_route(batch * prompt, torch_dtype(cfg.compute_dtype), DEVICE)
+    pre = per - 1
+    want = {n: (0, 0, 0, 0) for n in dispatch.COUNTERS}
+    want[name] = (per * (1 + new), per * new + 1 + pre * (body == dispatch.DECODE),
+                  pre * (body == dispatch.TENSOR_CORE), 0)
+    if flash:
+        want["flash_attention"] = (flash, 0, 0, 0)
+    return want
+
+
+def _ssm_generate(engine, reqs, what, budget=None, queue_depth=None, flash=0):
+    """One generate whose counters must equal :func:`ssm_want`'s and whose
+    tokens must be in range.  Returns (wall s, (all, decode body, tensor
+    cores) per K1-K3 kernel)."""
+    cfg = engine.cfg
+    before = _k_counts()
+    _, wall = _timed(lambda: engine.generate(reqs, memory_budget_bytes=budget,
+                                             queue_depth=queue_depth))
+    delta = _k_delta(before)
+    want = ssm_want(cfg, len(reqs), max(len(r.prompt) for r in reqs),
+                    max(r.max_new_tokens for r in reqs), engine.store.rung, flash)
+    if delta != want:
+        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain) {delta}, "
+                             f"want {want}")
+    for r in reqs:
+        if len(r.out_tokens) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{what}: bad tokens {r.out_tokens}")
+    return wall, {n: delta[n][:3] for n in KERNELS}
+
+
+def _ssm_matmul_leaves(cfg, params):
+    """(name, 2-D nested weights one forward reads, reads of each, activation
+    width) of every K1-K3 matmul of a forward: a layer view per Mamba2
+    layer, the shared block's weights once per application, the LM head
+    (every one is nested at full width: ``phase_ssm_model`` counts them)."""
+    from repro_torch.core.nesting import NestedTensor
+
+    L, every = cfg.num_layers, cfg.hybrid_attn_every
+    blocks = params["blocks"]
+    leaves = [(name, blocks[name]["w"], 1) for name in ("in_proj", "out_proj")]
+    if every:
+        sp = params["shared"]
+        leaves += [(name, w, L // every) for name, w in (
+            ("q", sp["q"]["w"]), ("k", sp["k"]["w"]), ("v", sp["v"]["w"]), ("o", sp["o"]["w"]),
+            ("w_up", sp["mlp"]["w_up"]["w"]), ("w_down", sp["mlp"]["w_down"]["w"]))]
+    leaves.append(("lm_head", params["lm_head"]["w"], 1))
+    return [(name, [w.layer(i) for i in range(L)] if len(w.shape) == 3 else [w], reads, w.K)
+            for name, w, reads in leaves if isinstance(w, NestedTensor)]
+
+
+def ssm_rows(cfg, store, gen, long_batch, long_prompt):
+    """K1-K3 on the model's own nested weights at rung 2's streams, bf16, at
+    every (M, body) the main path launches: decode steps at M = ``BATCH``
+    and at the long runs' batch (decode body), the short serve's prefill at
+    M = ``BATCH`` * ``PROMPT`` (CUDA cores) and the long prefill's M
+    (tensor cores; the ragged N of in_proj and the LM head among them).
+    Each is checked and counted by :func:`checked_launch` and timed by
+    CUDA-graph replay (cycling through the layers' words, or cold copies
+    of a single weight, so they come from HBM) beside the plain version;
+    bound by bytes or operations."""
+    from repro_torch.kernels import dispatch
+
+    store.to_rung(2)
+    bodies = ((BATCH, dispatch.DECODE), (long_batch, dispatch.DECODE),
+              (BATCH * PROMPT, dispatch.CUDA_CORE), (long_batch * long_prompt,
+                                                     dispatch.TENSOR_CORE))
+    rows = []
+    for shape, views, reads, K in _ssm_matmul_leaves(cfg, store.params()):
+        nt = views[0]
+        N = nt.shape[-1]
+        streams = (nt.w_base,) + tuple(nt.deltas)
+        copies = [(v.w_base,) + tuple(v.deltas) for v in views]
+        if len(copies) == 1:
+            copies = _cold_copies(copies[0], sum(s.numel() * 4 for s in copies[0]))
+        out_dtype = torch.float32 if shape == "lm_head" else torch.bfloat16
+        for M, body in bodies:
+            x = torch.randn(M, K, generator=gen, device=DEVICE).bfloat16()
+            for name, (rung, _, _) in KERNELS.items():
+                call, route, err, peak = checked_launch(
+                    name, nt, x, copies, out_dtype, f"{cfg.name} {name} {shape} M={M}", body)
+                small = M <= BATCH * PROMPT
+                ms = time_graph_ms(call, 20 if small else 3, reps=5 if small else 2)
+                with dispatch.reference_pass():
+                    plain_ms = time_ms(call, 2)
+                rows.append(_row(
+                    name, shape, M, "bfloat16", err, ms, plain_ms,
+                    *matmul_cost(x, streams[:rung + 1], N, out_dtype),
+                    PEAK_FLOPS[torch.bfloat16], None, model=cfg.name, K=K, N=N, route=route,
+                    # per forward: a prefill's LM head sees the last positions only
+                    uses_per_forward=(reads * len(views) if route == dispatch.DECODE
+                                      or shape != "lm_head" else 0),
+                    max_abs_ref=peak))
+                log(f"[ssm-kernel] {cfg.name} {name:13s} {shape:8s} K={K:5d} N={N:6d} M={M:4d} "
+                    f"{route:11s} err={err:.2e} ms={ms:.4f} plain={plain_ms:.3f} "
+                    f"bound={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']})")
+        del copies
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssm_step_report(cfg, store, gen):
+    """Per rung, batch 4: one decode step's wall (host clock, unprofiled,
+    mean of ``SSM_STEP_REPS``) and device busy (profiled), its K1-K3
+    (profiled, and replayed: the step's calls in one CUDA graph on random
+    activations of their shapes) beside the bytes they read and that
+    bound, and the SSM state update (``ssd_decode_step`` over every layer
+    at batch 4, each new state written into the cache's, replayed) beside
+    its bound (the state read and written once)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import mamba2
+    from repro_torch.models.layers import packed_linear
+    from repro_torch.serving import ServeEngine
+
+    L, H, P, N = cfg.num_layers, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    out = {}
+    for rung in range(3):
+        engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN)
+        engine.ensure_mode(budget_for(store, rung))
+        params = store.params()
+        model = engine.model
+        _, c = model.prefill(params, prompt_tokens(make_requests(80 + rung, cfg.vocab_size),
+                                                   DEVICE))
+        cache = model.make_cache(BATCH, MAX_LEN)
+        for key, v in c.items():
+            if key in ("k", "v"):
+                cache[key][:, :, :PROMPT] = v
+            else:
+                cache[key] = v
+        tok = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen,
+                                       device=DEVICE)}
+        step = lambda: model.decode_step(params, tok, cache)  # noqa: E731
+        step()
+        walls = [_timed(step)[1] for _ in range(SSM_STEP_REPS)]
+        _, _, ev = _events(step)
+        items, nbytes = [], 0
+        for _, views, reads, K in _ssm_matmul_leaves(cfg, params):
+            x = torch.randn(BATCH, K, generator=gen, device=DEVICE).bfloat16()
+            for w in views:
+                items += [(x, w)] * reads
+                per = (sum(w.stream_nbytes()[:rung + 1]) + w.nbytes_scales())
+                nbytes += reads * (per // L if len(views) == L else per)
+        head = params["lm_head"]["w"]
+        k13_ms = time_graph_ms(lambda i: [packed_linear(
+            x, w, torch.float32 if w is head else None, route=dispatch.DECODE)
+            for x, w in items], 2, reps=3)
+        state = torch.zeros((L, BATCH, H, P, N), dtype=torch.float32, device=DEVICE)
+        xs = torch.randn(BATCH, H, P, generator=gen, device=DEVICE).bfloat16()
+        dts = torch.rand(BATCH, H, generator=gen, device=DEVICE)
+        A = -torch.rand(H, generator=gen, device=DEVICE)
+        Bs, Cs = (torch.randn(BATCH, N, generator=gen, device=DEVICE).bfloat16()
+                  for _ in range(2))
+
+        def update(i):
+            for layer in range(L):
+                state[layer] = mamba2.ssd_decode_step(xs, dts, A, Bs, Cs, state[layer])[1]
+        state_ms = time_graph_ms(update, 2, reps=3)
+        state_bytes = 2 * state.numel() * 4
+        r = {"wall_ms": 1e3 * sum(walls) / len(walls), "device_busy_ms": sum(t for _, t in ev),
+             "device_kernels": len(ev),
+             "k1_k3_profiled_ms": _ms(ev, *K1_K3_NAMES), "k1_k3_replayed_ms": k13_ms,
+             "k1_k3_launches": len(items), "k1_k3_bytes": nbytes,
+             "k1_k3_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "state_update_ms": state_ms, "state_bytes_read_and_written": state_bytes,
+             "state_update_bound_ms": state_bytes / HBM_BYTES_PER_S * 1e3}
+        r["device_idle_share"] = 1 - r["device_busy_ms"] / r["wall_ms"]
+        out[f"rung{rung}"] = r
+        log(f"[ssm-step] {cfg.name} rung {rung} batch {BATCH}: decode step wall "
+            f"{r['wall_ms']:.2f} ms, device busy {r['device_busy_ms']:.2f} ms (idle "
+            f"{r['device_idle_share']:.1%}) in {len(ev)} kernels; {len(items)} K1-K3 launches, "
+            f"{r['k1_k3_profiled_ms']:.2f} ms profiled, {k13_ms:.3f} ms replayed, reading "
+            f"{nbytes / 1e9:.3f} GB (bound {r['k1_k3_bound_ms']:.3f} ms); state update "
+            f"{state_ms:.3f} ms over {L} layers ({state_bytes / 1e9:.3f} GB read and "
+            f"written, bound {r['state_update_bound_ms']:.3f} ms)")
+        del engine, cache, c, items, state
+    return out
+
+
+def ssm_flash(cfg, gen, batch, prompt):
+    """K5 at the hybrid's long-prompt shape (head dim 80, padded to 128 in
+    shared memory) against its plain version, as phase 4 holds it, timed
+    beside the plain version and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(batch, prompt, h, hd, generator=gen, device=DEVICE).bfloat16()
+               for h in (Hq, Hkv, Hkv))
+    err, peak, row, ctl_err, ctl_row = check_flash(
+        q, k, v, f"S={prompt} {Hq}/{Hkv} heads of {hd}", tag=cfg.name)
+    ms = time_graph_ms(lambda i: fa.flash_attention(q, k, v), 10)
+    with dispatch.reference_pass():
+        plain_ms = time_ms(lambda i: fa.flash_attention(q, k, v), 3)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    flops = 2.0 * batch * Hq * prompt * prompt * hd
+    r = _row("flash_attention", f"hd={hd} S={prompt}", prompt, "bfloat16", err, ms, plain_ms,
+             nbytes, flops, PEAK_FLOPS[torch.bfloat16], lib_ms, max_abs_ref=peak,
+             worst_row_rel=row, control_drop_tile={"err_over_max": ctl_err / peak,
+                                                   "worst_row_rel": ctl_row},
+             B=batch, S=prompt, Hq=Hq, Hkv=Hkv, hd=hd)
+    log(f"[{cfg.name}] K5 at {batch}x{prompt}, {Hq}/{Hkv} heads of {hd}: {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return r
+
+
+def _first_layers(cfg, params, n):
+    """``cfg`` and ``params`` cut to their first ``n`` layers (the leading
+    axis of every stacked leaf; the hybrid's shared block is kept whole)."""
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+
+    def cut(_, x):
+        if isinstance(x, NestedTensor):
+            return dataclasses.replace(
+                x, w_base=x.w_base[:n], scale=x.scale[:n], shape=(n,) + x.shape[1:],
+                deltas=tuple(None if d is None else d[:n] for d in x.deltas))
+        return x[:n]
+    return (dataclasses.replace(cfg, num_layers=n),
+            dict(params, blocks=tree.map_with_path(cut, params["blocks"])))
+
+
+def long_prefill_check(cfg, store, toks):
+    """The long prefill's bf16 kernel path at rung 2 against the plain bf16
+    pass on the same tree (last-position logits, relative to max |logit|),
+    at full depth and at the first ``SSM_SHALLOW`` layers, each beside its
+    one-stream-short control: the kernel path at rung 1 against the same
+    plain pass, what a kernel that dropped the finest delta stream would
+    read.  Each sound reading must be at most its limit in
+    ``SSM_LONG_TOL`` and each control above it.  Every depth is read
+    before a failure is raised."""
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import make_model
+
+    store.to_rung(2)
+    params = store.params()
+    out, ok = {}, True
+    for depth, tol in zip((cfg.num_layers, SSM_SHALLOW), SSM_LONG_TOL[cfg.name]):
+        c, p = (cfg, params) if depth == cfg.num_layers else _first_layers(cfg, params, depth)
+        model = make_model(c, device=DEVICE)
+        k, _ = model.prefill(p, toks)
+        short, _ = model.prefill(set_tree_rung(p, 1), toks)
+        with dispatch.reference_pass():
+            plain, _ = model.prefill(p, toks)
+        r = {"bf16_kernel_vs_bf16_plain": _rel(k, plain),
+             "one_stream_short_vs_bf16_plain": _rel(short, plain), "tol": tol,
+             "finite": all(bool(t.isfinite().all()) for t in (k, short, plain))}
+        ok = ok and r["finite"] and (r["bf16_kernel_vs_bf16_plain"] <= tol
+                                     < r["one_stream_short_vs_bf16_plain"])
+        out[f"layers{depth}"] = r
+        log(f"[ssm] {cfg.name} long prefill {tuple(toks['tokens'].shape)} at rung 2, {depth} "
+            f"layers: bf16 kernel vs plain bf16 {r['bf16_kernel_vs_bf16_plain']:.3e} (tol "
+            f"{tol:.1e}); one stream short (rung 1) "
+            f"{r['one_stream_short_vs_bf16_plain']:.3e} (must exceed it)")
+        del model, k, short, plain
+    if not ok:
+        raise AssertionError(f"{cfg.name} long prefill check failed: {out}")
+    return out
+
+
+def _ssm_long_requests(arch, phase, vocab):
+    from repro_torch.serving import Request
+
+    batch, prompt, new = SSM_LONG[arch]
+    rng = np.random.default_rng(500 + phase)
+    return [Request(i, rng.integers(0, vocab, size=prompt).astype(np.int32),
+                    max_new_tokens=new) for i in range(batch)]
+
+
+def phase_ssm_model(arch, gen):
+    """One model of phase 7 at full width with every layer, served from the
+    nested (8, 6, 4) tree; see the module docstring."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params, make_model
+    from repro_torch.serving import KVCacheConfig, LoadAdaptivePolicy, ServeEngine
+    from repro_torch.serving.kv_cache import kv_bytes_per_token
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    L, every = cfg.num_layers, cfg.hybrid_attn_every
+    napps = L // every if every else 0
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _timed(lambda: init_params(cfg, seed=0, device=DEVICE))
+    nested, quant_s = _timed(lambda: quantize(params, QuantRecipe(bits=BITS), device=DEVICE))
+    del params
+    store = NestQuantStore(nested, mode="part", device=DEVICE)
+    del nested
+    torch.cuda.empty_cache()
+    quant_peak = torch.cuda.max_memory_allocated()
+    rung_bytes = [store.rung_resident_bytes(r) for r in range(3)]
+    lb = store.ladder_bytes()
+    per_forward = ssm_matmuls(cfg)
+    counted = sum(L if p.startswith("['blocks']") else napps if p.startswith("['shared']") else 1
+                  for p, _ in store.nested_leaves() if "embed" not in p)
+    if counted != per_forward:
+        raise AssertionError(f"{arch}: {counted} nested matmuls per forward, want {per_forward}")
+    log(f"[ssm] {arch} at full width, {L} layers ({napps} shared-block applications): init "
+        f"{init_s:.1f}s, adaptive (8,6,4) quantize {quant_s:.1f}s (peak device memory "
+        f"{quant_peak / 1e9:.2f} GB); base={lb['base']} deltas={lb['deltas']} "
+        f"scales={lb['scales']} fp={lb['fp']} rung bytes={rung_bytes}; {per_forward} K1-K3 "
+        f"launches per forward")
+    total = {n: [0, 0, 0] for n in KERNELS}
+
+    def add(launches):
+        for n, v in launches.items():
+            total[n] = [a + b for a, b in zip(total[n], v)]
+
+    # 1. warm-up, then the short serve at rungs 2, 0, 1, 2 (the main path
+    # starts after warm-up): no library, plan, counter buffer or decode
+    # instantiation is new
+    engine = ServeEngine(cfg, store, max_batch=BATCH, max_len=MAX_LEN)
+    calls, warm_s = _timed(lambda: engine.warmup(PROMPT, batch=BATCH))
+    built, instances = _build_state(), set(dispatch.DEC_INSTANCES)
+    dispatch.reset_counters()
+    serve = []
+    for phase, rung in enumerate(SERVE_SCHEDULE):
+        reqs = make_requests(phase, cfg.vocab_size)
+        wall, launches = _ssm_generate(engine, reqs, f"{arch} serve phase {phase}",
+                                       budget=budget_for(store, rung))
+        if store.rung != rung:
+            raise AssertionError(f"{arch} serve phase {phase}: rung {store.rung}, want {rung}")
+        add(launches)
+        serve.append({"rung": rung, "wall_s": wall, "launches": launches,
+                      "tokens": [r.out_tokens for r in reqs]})
+        log(f"[ssm] {arch} serve phase {phase}: rung {rung}, {BATCH}x{NEW_TOKENS} tokens in "
+            f"{wall:.3f}s; K1-K3 (all, decode body, tensor cores) {launches}")
+    if _build_state() != built or dispatch.DEC_INSTANCES != instances:
+        raise AssertionError(f"{arch}: the serve after warm-up built something: "
+                             f"{built} -> {_build_state()}, decode instantiations "
+                             f"{sorted(instances)} -> {sorted(dispatch.DEC_INSTANCES)}")
+    log(f"[ssm] {arch} warm-up: {calls} calls in {warm_s:.1f}s; the serve after it loaded no "
+        f"library, filled no plan, kept the counter buffer and launched no new decode "
+        f"instantiation ({sorted(instances)})")
+
+    # 2. the long prompt: mamba2 at rung 2; zamba2 on the nested KV cache,
+    # queue depths 0 then 8 (KV and weight rungs 2, then 1)
+    batch, prompt, new = SSM_LONG[arch]
+    max_len = prompt + new + 4
+    kv = KVCacheConfig(bits=(4, 6, 8), page=KV_PAGE, rounding="rtn") if every else None
+    long_eng = ServeEngine(cfg, store, max_batch=batch, max_len=max_len, kv=kv,
+                           policy=LoadAdaptivePolicy(high_depth=8, low_depth=0) if kv else None)
+    runs = ((0, None), (8, None)) if kv else ((None, budget_for(store, 2)),)
+    long_info = []
+    for phase, (depth, budget) in enumerate(runs):
+        reqs = _ssm_long_requests(arch, phase, cfg.vocab_size)
+        wall, launches = _ssm_generate(long_eng, reqs, f"{arch} long prompt {phase}",
+                                       budget=budget, queue_depth=depth, flash=napps)
+        add(launches)
+        info = {"rung": store.rung, "wall_s": wall, "launches": launches}
+        if kv:
+            want = kv_bytes_per_token(kv, long_eng.kv.rung, napps, cfg.num_kv_heads,
+                                      cfg.head_dim) * max_len
+            if long_eng._kv_layers() != napps or long_eng.kv_bytes_per_seq() != want:
+                raise AssertionError(f"{arch}: KV bytes per sequence "
+                                     f"{long_eng.kv_bytes_per_seq()}, want {want} over "
+                                     f"{napps} attention layers")
+            info.update(kv_rung=long_eng.kv.rung, kv_pages=len(long_eng.kv.pages),
+                        kv_bytes_per_seq=want)
+            if phase == 0:            # held against the dense prefill K/V below
+                rendered = [t.clone() for t in long_eng.kv.render(2)]
+        long_info.append(info)
+        log(f"[ssm] {arch} long prompt {batch}x{prompt} + {new} tokens at rung {store.rung} in "
+            f"{wall:.3f}s; K5 x{napps}; K1-K3 {launches}"
+            + (f"; KV rung {info['kv_rung']}, {info['kv_pages']} pages, "
+               f"{info['kv_bytes_per_seq']} B per sequence over {napps} layers" if kv else ""))
+    if kv:
+        events = [tuple(e) for e in long_eng.kv.ledger.events]
+        if events != long_eng.kv.expected_events or [e[:2] for e in events] != [(2, 1)] or any(
+                pin + pout != long_eng.kv.delta_bytes(min(f, t)) for f, t, pin, pout in events):
+            raise AssertionError(f"{arch}: KV ledger {events}, expected "
+                                 f"{long_eng.kv.expected_events}")
+        log(f"[ssm] {arch} KV ledger {events} equals its metadata bytes")
+    main_counts = _k_counts()            # the main path ends here
+    if ({n: list(main_counts[n][:3]) for n in KERNELS} != total
+            or main_counts["flash_attention"][0] != napps * len(runs)
+            or any(v[3] for v in main_counts.values())):
+        raise AssertionError(f"{arch} main path: counters {main_counts}, checked runs {total}")
+    if kv:
+        # the first long run's top-rung rendering against its dense prefill
+        # K/V (at that run's weight rung)
+        store.to_rung(long_info[0]["rung"])
+        _, dense = long_eng.model.prefill(store.params(), prompt_tokens(
+            _ssm_long_requests(arch, 0, cfg.vocab_size), DEVICE))
+        render = {t: _rel_norm(r, dense[t][:, :, :r.shape[2]])
+                  for t, r in zip("kv", rendered)}
+        long_info[0]["render_top_rel"] = render
+        if max(render.values()) > RENDER_TOP_TOL:
+            raise AssertionError(f"{arch}: top-rung render {render} > {RENDER_TOP_TOL}")
+        log(f"[ssm] {arch} rendered top-rung K/V vs dense prefill (relative norm): k "
+            f"{render['k']:.3e} v {render['v']:.3e} (tol {RENDER_TOP_TOL})")
+        del dense, rendered
+    del engine, long_eng
+
+    # 3. the reference pass, the long prefill against its plain version, the
+    # rows, the decode-step report and K5 at head dim 80 (none counted)
+    tol = SSM_BF16_TOL[arch]
+    reference, ref_s = _timed(lambda: phase_reference(cfg, store, f"{arch}-reference", tol))
+    log(f"[ssm] {arch} reference pass at rungs 2, 0, 1 took {ref_s:.1f}s")
+    toks = prompt_tokens(_ssm_long_requests(arch, 0, cfg.vocab_size), DEVICE)
+    long_check = long_prefill_check(cfg, store, toks)
+    params = store.params()
+    model = make_model(cfg, device=DEVICE)
+    _, pre_wall, ev = _events(lambda: model.prefill(params, toks))
+    long_prefill = {"wall_ms": pre_wall * 1e3, "device_busy_ms": sum(t for _, t in ev),
+                    "k1_k3_ms": _ms(ev, *K1_K3_NAMES), "k5_ms": _ms(ev, *K5_NAMES),
+                    "check": long_check}
+    log(f"[ssm] {arch} long prefill {batch}x{prompt} at rung 2 (profiled): wall "
+        f"{long_prefill['wall_ms']:.1f} ms, device busy {long_prefill['device_busy_ms']:.1f} "
+        f"ms, K1-K3 {long_prefill['k1_k3_ms']:.2f} ms, K5 {long_prefill['k5_ms']:.3f} ms")
+    del model, params
+    rows = ssm_rows(cfg, store, gen, batch, prompt)
+    steps = ssm_step_report(cfg, store, gen)
+    del store
+    torch.cuda.empty_cache()
+    flash = ssm_flash(cfg, gen, batch, prompt) if every else None
+    seconds = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[ssm] {arch} took {seconds:.1f}s; peak device memory {peak / 1e9:.2f} GB "
+        f"({smi_line()})")
+    return {"config": {"name": cfg.name, "num_layers": L, "d_model": cfg.d_model,
+                       "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_heads,
+                       "ssm_state": cfg.ssm_state, "shared_applications": napps},
+            "init_s": init_s, "quantize_s": quant_s, "quantize_peak_mem_bytes": quant_peak,
+            "rung_bytes": rung_bytes, "per_forward": per_forward, "warmup_calls": calls,
+            "serve": serve, "long": long_info, "reference": reference, "reference_s": ref_s,
+            "long_prefill": long_prefill, "rows": rows, "decode_steps": steps,
+            "flash_check": flash, "seconds": seconds, "peak_mem_bytes": peak,
+            "launches": {n: tuple(main_counts[n][:3]) for n in KERNELS},
+            "flash_launches": main_counts["flash_attention"][0]}
+
+
+def phase_ssm(gen):
+    """Phase 7: mamba2-780m, then zamba2-2.7b; see the module docstring."""
+    t0 = time.perf_counter()
+    out = {arch: phase_ssm_model(arch, gen) for arch in SSM_ARCHS}
+    log(f"[ssm] phase 7 took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def prefill_summary(rows, name, tc_launches):
     """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
     M = 4096 bf16 on the tensor-core body (every main-path shape but the
@@ -2588,7 +3111,7 @@ def prefill_summary(rows, name, tc_launches):
            and r.get("route") == "tensor_core"]
     tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)  # noqa: E731
     t_bytes = tot("bytes") / HBM_BYTES_PER_S * 1e3
-    t_ops = tot("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_ops = tot("ops") / PEAK_FLOPS[torch.bfloat16] * 1e3
     return {"route": "tensor_core", "launches": tc_launches,
             "per": f"one prefill: {sum(r['uses_per_forward'] for r in sel)} launches at "
                    f"M={M} bf16",
@@ -2610,20 +3133,21 @@ def decode_steps(rows, M, dtype):
     return out
 
 
-def kernel_summary(rows, launches, tc_launches, moe_info, M=4, dtype="bfloat16"):
+def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
     (every main-path shape times its uses per forward) on the decode body,
     the same launches on the CUDA-core body beside it (``cuda_core_ms``);
-    ``launches`` the main paths' (all bodies; phase 6's included),
+    ``launches`` the main paths' (all bodies; phases 6 and 7 included),
     ``decode_launches`` those on the decode body; the long prefill's
     tensor-core launches as its ``prefill`` entry; phase 6's (all, decode
-    body, tensor cores) as ``moe_launches``."""
+    body, tensor cores) as ``moe_launches``, phase 7's per model as
+    ``ssm_launches``."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
         tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)
         t_bytes = sum(r["bytes"] * r["uses_per_forward"] for r in sel) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(r["flops"] * r["uses_per_forward"] for r in sel) / 989e12 * 1e3
+        t_ops = sum(r["ops"] * r["uses_per_forward"] for r in sel) / 989e12 * 1e3
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name][0], "decode_launches": launches[name][1],
@@ -2636,11 +3160,12 @@ def kernel_summary(rows, launches, tc_launches, moe_info, M=4, dtype="bfloat16")
             "per": f"one decode step: {sum(r['uses_per_forward'] for r in sel)} "
                    f"launches at M={M} {dtype}, decode body",
             "prefill": prefill_summary(rows, name, tc_launches[name]),
-            "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],)})
+            "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],),
+            "ssm_launches": {arch: m["launches"][name] for arch, m in ssm_info.items()}})
     return out
 
 
-def kv_kernel_summary(rows, launches, moe_flash):
+def kv_kernel_summary(rows, launches, moe_flash, ssm_flash):
     """K4-K6 entries of the kernels line, each at its main-path shape: K4 on
     the served cache (rung 2 of (4, 6, 8), one decode token's G = 6 query
     heads per kv head), K5 one long prefill's attention (S = 2048, bf16,
@@ -2680,7 +3205,7 @@ def kv_kernel_summary(rows, launches, moe_flash):
         if name == "nested_qk":          # the CUDA-core control and the launch floor
             out[-1].update(cuda_core_ms=tot("cuda_core_ms"), launch_floor_ms=floor_ms)
         if name == "flash_attention":
-            out[-1]["moe_check"] = moe_flash
+            out[-1].update(moe_check=moe_flash, ssm_check=ssm_flash)
     return out
 
 
@@ -2737,14 +3262,20 @@ def main() -> int:
     moe_info = phase_moe(gen)
     moe_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[moe] peak device memory over phase 6 {moe_info['peak_mem_bytes'] / 1e9:.2f} GB")
-    launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i] for i in range(2))
+    peak_before_ssm = max(peak_before_moe, moe_info["peak_mem_bytes"])
+    ssm_info = phase_ssm(gen)
+    launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
+                         + sum(m["launches"][n][i] for m in ssm_info.values())
+                         for i in range(2))
                 for n in KERNELS}
     kv_launches = {"flash_attention": (long_info["launches"]["flash_attention"]
-                                       + moe_info["flash_launches"]),
+                                       + moe_info["flash_launches"]
+                                       + sum(m["flash_launches"] for m in ssm_info.values())),
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info)
-               + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"]))
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info, ssm_info)
+               + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
+                                   ssm_info["zamba2-2.7b"]["flash_check"]))
     steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
              for dt in ("bfloat16", "float32")}
     for key, by in steps.items():
@@ -2757,9 +3288,10 @@ def main() -> int:
               "fleet": fleet,
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
-              "served_recompose": served_recompose, "moe": moe_info,
+              "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
               "kernels": kernels, "decode_steps": steps,
-              "peak_mem_bytes": max(peak_before_moe, moe_info["peak_mem_bytes"]),
+              "peak_mem_bytes": max([peak_before_ssm]
+                                    + [m["peak_mem_bytes"] for m in ssm_info.values()]),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))

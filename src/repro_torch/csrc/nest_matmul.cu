@@ -1391,4 +1391,8 @@ int nq_dec_workspace(const int* bits, int nstreams, int M, int N, int K, int blo
   return static_cast<int>(dec_workspace(a));
 }
 
+// Rows of the decode-body instantiation an M-row launch runs, or -1 above
+// the decode body's M.  ``dispatch.dec_rows`` must agree (a gpu test holds it).
+int nq_dec_rows(int M) { return M >= 1 && M <= kDecMaxM ? dec_mb(M) : -1; }
+
 }  // extern "C"

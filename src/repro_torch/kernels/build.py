@@ -27,8 +27,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# exported C entry points of each source: name -> argtypes (all return int,
-# the cudaError_t of the launch)
+# exported C entry points of each source: name -> argtypes (all return int:
+# the cudaError_t of a launch, or the count a query asks for)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "nest_matmul.cu": {
         "nq_packed_matmul": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I,
@@ -38,6 +38,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "nq_ladder_matmul": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                              _I, _I, _I, _I, _I, _P],
         "nq_dec_workspace": [_P, _I, _I, _I, _I, _I, _P],
+        "nq_dec_rows": [_I],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -143,17 +143,36 @@ def count_launch(counter: LaunchCounter, route: str) -> None:
     counter.dec_launches += int(route == DECODE)
 
 
+# The decode body's instantiations: one per (streams, rows) with rows in
+# ``DEC_ROWS``; a launch of M rows runs the instantiation of ``dec_rows(M)``
+# (``dec_mb`` in csrc/nest_matmul.cu, which the library reports through
+# ``nq_dec_rows``: tests/test_torch_gpu.py holds the two equal).  Each opts into large shared memory
+# at its first launch in the process; ``DEC_INSTANCES`` holds the (streams,
+# rows) pairs launched so far (``reset_counters`` leaves it as it is).
+DEC_ROWS = (1, 2, 4, 8)
+DEC_INSTANCES: set = set()
+
+
+def dec_rows(M: int) -> int:
+    """Rows of the decode-body instantiation an M-row launch runs."""
+    return next(r for r in DEC_ROWS if M <= r)
+
+
 def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
-                  counter: LaunchCounter, launch) -> torch.Tensor:
-    """Run ``launch(x_rows, out_rows, body)`` (one K1-K3 kernel launch into
-    a row slice of the (M, N) output) on ``route``: once, or on the decode
-    body once per group of at most ``DEC_MAX_M`` rows; each launch is
-    counted."""
+                  counter: LaunchCounter, launch, streams: int) -> torch.Tensor:
+    """Run ``launch(x_rows, out_rows, body)`` (one K1-K3 kernel launch of
+    ``streams`` packed streams into a row slice of the (M, N) output) on
+    ``route``: once, or on the decode body once per group of at most
+    ``DEC_MAX_M`` rows; each launch is counted, and each decode-body
+    launch's instantiation recorded in ``DEC_INSTANCES``."""
     out = torch.empty((x.shape[0], N), dtype=out_dtype, device=x.device)
     step = DEC_MAX_M if route == DECODE else x.shape[0]
     for g in range(0, x.shape[0], step):
-        launch(x[g:g + step], out[g:g + step], BODY[route])
+        rows = x[g:g + step]
+        launch(rows, out[g:g + step], BODY[route])
         count_launch(counter, route)
+        if route == DECODE:
+            DEC_INSTANCES.add((streams, dec_rows(rows.shape[0])))
     return out
 
 

@@ -27,7 +27,7 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
             x2, words_high.shape[1], out_dtype, route, NESTED_COUNTER,
             lambda xs, out, body: kernel.nested_matmul(
                 xs, words_high, words_low, scale, n=n, h=h, K=K, block_k=block_k,
-                out_dtype=out_dtype, body=body, out=out))
+                out_dtype=out_dtype, body=body, out=out), streams=2)
     else:
         y = ref.nested_matmul_ref(x2, words_high, words_low, scale, n=n, h=h,
                                   K=K, block_k=block_k, out_dtype=out_dtype)
@@ -55,7 +55,7 @@ def ladder_matmul(x, streams, scale, *, bits, K: int,
             x2, streams[0].shape[1], out_dtype, route, LADDER_COUNTER,
             lambda xs, out, body: kernel.ladder_matmul(
                 xs, streams, scale, bits=bits, K=K, block_k=block_k,
-                out_dtype=out_dtype, body=body, out=out))
+                out_dtype=out_dtype, body=body, out=out), streams=len(streams))
     else:
         y = ref.ladder_matmul_ref(x2, streams, scale, bits=bits, K=K,
                                   block_k=block_k, out_dtype=out_dtype)

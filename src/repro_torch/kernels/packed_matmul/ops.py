@@ -52,7 +52,7 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
             x2, words.shape[1], out_dtype, route, COUNTER,
             lambda xs, out, body: kernel.packed_matmul(
                 xs, words, scale, k=k, K=K, block_k=block_k, out_dtype=out_dtype,
-                body=body, out=out))
+                body=body, out=out), streams=1)
     else:
         y = ref.packed_matmul_ref(x2, words, scale, k=k, K=K, block_k=block_k,
                                   out_dtype=out_dtype)

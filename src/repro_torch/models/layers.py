@@ -31,8 +31,7 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None,
     if nt.w_base.ndim != 2:
         raise NotImplementedError(
             f"packed_linear takes a 2-D weight, got a stacked leaf of shape {nt.shape}; "
-            "expert stacks go through models/moe.py one expert view at a time "
-            "(ROADMAP queue 1, item 14)")
+            "expert stacks go through models/moe.py one expert view at a time")
     x = x.contiguous()
     r = nt.rung
     rung_scale = nt.rung_scale(r).reshape(1, -1)

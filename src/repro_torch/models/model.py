@@ -1,5 +1,7 @@
-"""LM assembly, dense and MoE families; counterpart of
-``repro/models/model.py``.
+"""LM assembly for every family the JAX package builds - dense and MoE
+transformers, pure SSM stacks (mamba2) and the Zamba2 hybrid (a Mamba2
+trunk and one shared attention/MLP block applied every N layers);
+counterpart of ``repro/models/model.py``.
 
 Parameters keep the reference's layout: a nested dict with layer weights
 stacked on a leading L axis, so keystr paths, the recipe predicate (which
@@ -12,13 +14,20 @@ Public surface, built by :func:`make_model`:
   init(seed)                          -> params
   prefill(params, inputs)             -> (last_logits f32, cache)
   decode_step(params, inputs, cache)  -> (logits f32, cache)  (cache updated in place)
-  decode_chunk(params, inputs, cache) -> (logits f32 (B,S,V), cache)  (the same)
+  decode_chunk(params, inputs, cache) -> (logits f32 (B,S,V), cache)  (the same;
+                                         None for the ssm and hybrid families)
   make_cache(batch_size, max_len)     -> cache
+
+``inputs`` holds ``tokens`` (B,S) or, for a config with
+``input_kind="embeddings"`` (the stubbed vision and audio frontends),
+``embeddings`` (B,S,d), which are cast to the compute dtype.
 
 A MoE layer's FFN is ``models/moe.py::moe_ffn``: each expert with rows
 runs its three matmuls through ``packed_linear`` on its 2-D view.  Runs
 that build a cache (prefill) and every decode run route droplessly, as
-the reference's do.
+the reference's do.  A Mamba2 layer is ``models/mamba2.py``: only its
+``in_proj`` and ``out_proj`` are matmuls; the hybrid's shared block runs
+attention and a gelu MLP on concat(hidden, first embedding), 2d wide.
 
 The decode phase (``decode_step`` and the speculative verify pass
 ``decode_chunk``) names the K1-K3 route ``dispatch.DECODE`` at every
@@ -45,16 +54,10 @@ from ..core.nesting import NestedTensor
 from ..device import resolve_device, torch_dtype
 from ..kernels import dispatch
 from ..kernels.flash_attention import ops as flash_ops
+from . import mamba2
 from .attention import decode_attention, full_attention
 from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
 from .moe import moe_ffn
-
-SUPPORTED_FAMILIES = ("dense", "moe")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, "
-                              f"item {item})")
 
 
 # ===========================================================================
@@ -69,13 +72,14 @@ def _dense_init(gen, shape, dtype, scale=None):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
                 generator: Optional[torch.Generator] = None) -> Dict:
-    """Random parameters of a dense or MoE config, drawn on ``device``
-    from a seeded ``torch.Generator`` (or the one given), in the
-    reference's layout (a MoE layer: ``blocks.moe.router.w`` (L, d, E)
-    f32, ``blocks.moe.experts.{w_gate,w_up,w_down}.w`` (L, E, d, ff) /
-    (L, E, ff, d))."""
-    if cfg.family not in SUPPORTED_FAMILIES:
-        _not_ported(f"family {cfg.family!r}", "14")
+    """Random parameters of ``cfg``, drawn on ``device`` from a seeded
+    ``torch.Generator`` (or the one given), in the reference's layout (a
+    MoE layer: ``blocks.moe.router.w`` (L, d, E) f32,
+    ``blocks.moe.experts.{w_gate,w_up,w_down}.w`` (L, E, d, ff) / (L, E,
+    ff, d); a Mamba2 layer: ``blocks.{in_proj,out_proj}.w``, the conv, the
+    SSM scalars and its gated norm; the hybrid's unstacked ``shared``
+    block with 2d-wide q/k/v and MLP input).  No embed table where the
+    inputs are embeddings."""
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.dtype)
@@ -88,28 +92,61 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
             p["bias"] = torch.zeros(shape, dtype=torch.float32, device=dev)
         return p
 
-    blocks = {"attn_norm": norm_init((L, d)), "mlp_norm": norm_init((L, d))}
-    for name, shape in (("q", (L, d, qd)), ("k", (L, d, kvd)),
-                        ("v", (L, d, kvd)), ("o", (L, qd, d))):
-        blocks[name] = {"w": _dense_init(gen, shape, dt)}
-    if cfg.qkv_bias:
-        for name, width in (("q", qd), ("k", kvd), ("v", kvd)):
-            blocks[name]["b"] = torch.zeros((L, width), dtype=torch.float32, device=dev)
-    if cfg.family == "moe":
-        E = cfg.num_experts
-        blocks["moe"] = {
-            "router": {"w": _dense_init(gen, (L, d, E), torch.float32)},
-            "experts": {name: {"w": _dense_init(gen, (L, E) + shape, dt)}
-                        for name, shape in (("w_gate", (d, cfg.d_ff)),
-                                            ("w_up", (d, cfg.d_ff)),
-                                            ("w_down", (cfg.d_ff, d)))}}
-    else:
-        mlp_p = {"w_up": {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)},
-                 "w_down": {"w": _dense_init(gen, (L, cfg.d_ff, d), dt)}}
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def attn_init(lead, in_dim, bias):
+        p = {name: {"w": _dense_init(gen, lead + shape, dt)}
+             for name, shape in (("q", (in_dim, qd)), ("k", (in_dim, kvd)),
+                                 ("v", (in_dim, kvd)), ("o", (qd, d)))}
+        if bias:
+            for name, width in (("q", qd), ("k", kvd), ("v", kvd)):
+                p[name]["b"] = zeros(*lead, width)
+        return p
+
+    def mlp_init(lead, in_dim):
+        p = {"w_up": {"w": _dense_init(gen, lead + (in_dim, cfg.d_ff), dt)},
+             "w_down": {"w": _dense_init(gen, lead + (cfg.d_ff, d), dt)}}
         if cfg.act == "swiglu":
-            mlp_p["w_gate"] = {"w": _dense_init(gen, (L, d, cfg.d_ff), dt)}
-        blocks["mlp"] = mlp_p
-    params: Dict[str, Any] = {"blocks": blocks}
+            p["w_gate"] = {"w": _dense_init(gen, lead + (in_dim, cfg.d_ff), dt)}
+        return p
+
+    params: Dict[str, Any] = {}
+    if cfg.family in ("dense", "moe"):
+        blocks = {"attn_norm": norm_init((L, d)), "mlp_norm": norm_init((L, d))}
+        blocks.update(attn_init((L,), d, cfg.qkv_bias))
+        if cfg.family == "moe":
+            E = cfg.num_experts
+            blocks["moe"] = {
+                "router": {"w": _dense_init(gen, (L, d, E), torch.float32)},
+                "experts": {name: {"w": _dense_init(gen, (L, E) + shape, dt)}
+                            for name, shape in (("w_gate", (d, cfg.d_ff)),
+                                                ("w_up", (d, cfg.d_ff)),
+                                                ("w_down", (cfg.d_ff, d)))}}
+        else:
+            blocks["mlp"] = mlp_init((L,), d)
+    elif cfg.family in ("ssm", "hybrid"):
+        din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_dim = din + 2 * N
+        blocks = {"norm": norm_init((L, d)),
+                  "in_proj": {"w": _dense_init(gen, (L, d, 2 * din + 2 * N + H), dt)},
+                  "conv": {"w": _dense_init(gen, (L, cfg.ssm_conv_width, conv_dim),
+                                            torch.float32, scale=0.5),
+                           "b": zeros(L, conv_dim)},
+                  "dt_bias": zeros(L, H),
+                  "A_log": zeros(L, H),                         # A = -1
+                  "D": torch.ones((L, H), dtype=torch.float32, device=dev),
+                  "ssm_norm": {"scale": torch.ones((L, din), dtype=torch.float32,
+                                                   device=dev)},
+                  "out_proj": {"w": _dense_init(gen, (L, din, d), dt)}}
+        if cfg.family == "hybrid":
+            shared = {"attn_norm": norm_init((2 * d,)), "mlp_norm": norm_init((2 * d,))}
+            shared.update(attn_init((), 2 * d, bias=False))
+            shared["mlp"] = mlp_init((), 2 * d)           # w_down maps d_ff -> d
+            params["shared"] = shared
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    params["blocks"] = blocks
     if cfg.input_kind == "tokens":
         params["embed"] = {"table": _dense_init(gen, (cfg.vocab_size, d), dt, scale=0.02)}
     params["final_norm"] = norm_init((d,))
@@ -265,12 +302,98 @@ def transformer_decode_chunk(params, x, cfg, cache, pos: int):
 
 
 # ===========================================================================
+# SSM / hybrid forward
+# ===========================================================================
+def _check_groups(cfg) -> None:
+    """The hybrid runs whole groups: one shared-block application, then
+    ``hybrid_attn_every`` Mamba2 layers."""
+    every = cfg.hybrid_attn_every
+    if every and cfg.num_layers % every:
+        raise ValueError(f"hybrid_attn_every={every} must divide num_layers="
+                         f"{cfg.num_layers}")
+
+
+def _check_prompt(cfg, S: int) -> None:
+    """A Mamba2 decode reads the last ``ssm_conv_width - 1`` inputs from the
+    conv buffer prefill leaves; a shorter prompt leaves fewer, which the
+    JAX package's decode step cannot take (its ``conv_step`` einsum fails).
+    The port refuses such a prompt up front."""
+    need = cfg.ssm_conv_width - 1
+    if S < need:
+        raise ValueError(f"family {cfg.family!r} needs a prompt of at least "
+                         f"ssm_conv_width - 1 = {need} tokens (the decode conv buffer "
+                         f"holds the last {need} inputs); got {S}")
+
+
+def _shared_block_seq(h, emb0, sp, cfg):
+    """The hybrid's shared attention/MLP block over concat(h, emb0), 2d
+    wide; returns (h, (k, v))."""
+    a, kv = attn_seq(norm(torch.cat([h, emb0], dim=-1), sp["attn_norm"], cfg.norm), sp, cfg)
+    h = h + a
+    m = mlp(norm(torch.cat([h, emb0], dim=-1), sp["mlp_norm"], cfg.norm), sp["mlp"], cfg.act)
+    return h + m, kv
+
+
+def ssm_seq(params, x, cfg, want_cache: bool):
+    """Mamba2 trunk over x (B,S,d), with the hybrid's groups: one shared
+    block application, then ``hybrid_attn_every`` Mamba2 layers.  Returns
+    (h, cache or None): state (L,B,H,P,N) f32, conv_buf (L,B,W-1,C) and,
+    for the hybrid, k/v (napps,B,S,Hkv,hd) in the compute dtype."""
+    every = cfg.hybrid_attn_every
+    emb0, h = x, x
+    states, bufs, ks, vs = [], [], [], []
+    for i in range(cfg.num_layers):
+        if every and i % every == 0:
+            h, (k, v) = _shared_block_seq(h, emb0, params["shared"], cfg)
+            if want_cache:
+                ks.append(k)
+                vs.append(v)
+        lp = layer_params(params["blocks"], i)
+        y, mc = mamba2.mamba_block(norm(h, lp["norm"], cfg.norm), lp, cfg)
+        h = h + y
+        if want_cache:
+            states.append(mc["state"])
+            bufs.append(mc["conv_buf"])
+    if not want_cache:
+        return h, None
+    cache = {"state": torch.stack(states), "conv_buf": torch.stack(bufs)}
+    if every:
+        cdt = torch_dtype(cfg.compute_dtype)
+        cache["k"], cache["v"] = torch.stack(ks).to(cdt), torch.stack(vs).to(cdt)
+    return h, cache
+
+
+def ssm_decode(params, x, cfg, cache, pos: int):
+    """One decode step over the trunk (x: (B,1,d)), in the groups of
+    :func:`ssm_seq`; the state, the conv buffer and the hybrid's k/v
+    (napps,B,Smax,Hkv,hd) are updated in place."""
+    every = cfg.hybrid_attn_every
+    emb0, h = x, x
+    route = dispatch.DECODE
+    for i in range(cfg.num_layers):
+        if every and i % every == 0:
+            sp, a = params["shared"], i // every
+            u = norm(torch.cat([h, emb0], dim=-1), sp["attn_norm"], cfg.norm)
+            h = h + attn_decode(u, sp, cfg, cache["k"][a], cache["v"][a], pos)
+            u = norm(torch.cat([h, emb0], dim=-1), sp["mlp_norm"], cfg.norm)
+            h = h + mlp(u, sp["mlp"], cfg.act, route=route)
+        lp = layer_params(params["blocks"], i)
+        y, mc = mamba2.mamba_decode_step(
+            norm(h, lp["norm"], cfg.norm), lp,
+            {"state": cache["state"][i], "conv_buf": cache["conv_buf"][i]}, cfg)
+        cache["state"][i] = mc["state"]
+        cache["conv_buf"][i] = mc["conv_buf"]
+        h = h + y
+    return h
+
+
+# ===========================================================================
 # Embedding / head
 # ===========================================================================
 def embed_inputs(params, inputs, cfg):
     cdt = torch_dtype(cfg.compute_dtype)
     if cfg.input_kind != "tokens":
-        _not_ported(f"input kind {cfg.input_kind!r}", "14")
+        return inputs["embeddings"].to(cdt)
     tok = inputs["tokens"]
     table = params["embed"]["table"]
     if isinstance(table, NestedTensor):
@@ -302,17 +425,22 @@ class Model(NamedTuple):
 
 
 def make_model(cfg: ModelConfig, device="cuda") -> Model:
-    """The dense- or MoE-family model on ``device``; other families raise."""
-    if cfg.family not in SUPPORTED_FAMILIES:
-        _not_ported(f"family {cfg.family!r}", "14")
+    """The model of ``cfg`` (any family) on ``device``."""
     dev = resolve_device(device)
+    transformer = cfg.family in ("dense", "moe")
+    if not transformer:
+        _check_groups(cfg)
 
     def init(seed: int = 0):
         return init_params(cfg, seed=seed, device=dev)
 
     def prefill(params, inputs):
         h = embed_inputs(params, inputs, cfg)
-        h, cache = transformer_seq(params, h, cfg, want_cache=True)
+        if transformer:
+            h, cache = transformer_seq(params, h, cfg, want_cache=True)
+        else:
+            _check_prompt(cfg, h.shape[1])
+            h, cache = ssm_seq(params, h, cfg, want_cache=True)
         h = norm(h, params["final_norm"], cfg.norm)
         last = lm_logits(params, h[:, -1:, :], cfg)
         cache["pos"] = h.shape[1]
@@ -321,7 +449,10 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
     def decode_step(params, inputs, cache):
         pos = int(cache["pos"])
         h = embed_inputs(params, inputs, cfg)
-        h = transformer_decode(params, h, cfg, cache, pos)
+        if transformer:
+            h = transformer_decode(params, h, cfg, cache, pos)
+        else:
+            h = ssm_decode(params, h, cfg, cache, pos)
         h = norm(h, params["final_norm"], cfg.norm)
         logits = lm_logits(params, h, cfg, route=dispatch.DECODE)
         cache["pos"] = pos + 1
@@ -342,8 +473,26 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
 
     def make_cache(batch_size: int, max_len: int, dtype=None):
         dt = torch_dtype(dtype or cfg.compute_dtype)
-        shp = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
-        return {"pos": 0, "k": torch.zeros(shp, dtype=dt, device=dev),
-                "v": torch.zeros(shp, dtype=dt, device=dev)}
+        L = cfg.num_layers
+        cache: Dict[str, Any] = {"pos": 0}
+        if transformer:
+            kv_layers = L
+        else:
+            H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+            cache["state"] = torch.zeros((L, batch_size, H, P, N), dtype=torch.float32,
+                                         device=dev)
+            cache["conv_buf"] = torch.zeros(
+                (L, batch_size, cfg.ssm_conv_width - 1, cfg.d_inner + 2 * N), dtype=dt,
+                device=dev)
+            every = cfg.hybrid_attn_every
+            kv_layers = -(-L // every) if every else 0
+        if kv_layers:
+            shp = (kv_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shp, dtype=dt, device=dev)
+            cache["v"] = torch.zeros(shp, dtype=dt, device=dev)
+        return cache
 
-    return Model(cfg, init, prefill, decode_step, make_cache, decode_chunk)
+    # a state recurrence has no cached multi-token re-score path; the
+    # speculative decoder refuses these families, as the reference's does
+    return Model(cfg, init, prefill, decode_step, make_cache,
+                 decode_chunk if transformer else None)

@@ -35,6 +35,7 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.nesting import NestedTensor
+from ..kernels import dispatch
 from .layers import gelu, linear, pdot, silu
 
 
@@ -114,6 +115,26 @@ def _expert_compute(x_e, experts: Dict, e: int, act: str, route):
     else:
         h = gelu(lin(x_e, "w_up"))
     return lin(h, "w_down")
+
+
+def warm_decode_rows(params: Dict, dtype: torch.dtype, device) -> None:
+    """Launch the decode route at every row count of the decode body's
+    instantiations (``dispatch.DEC_ROWS``: 1, 2, 4, 8) on one expert view
+    of each nested expert leaf of ``params``.  An expert group has as many
+    rows as the routing gives it, so one decode step reaches only some
+    instantiations, and each opts into large shared memory at its first
+    launch (``dispatch.DEC_INSTANCES`` records the launched ones).  Does
+    nothing on a model without experts, or off the card, where no
+    instantiation exists."""
+    if torch.device(device).type != "cuda":
+        return
+    experts = params.get("blocks", {}).get("moe", {}).get("experts", {})
+    for leaf in experts.values():
+        if isinstance(leaf["w"], NestedTensor):
+            view = _expert_view(leaf["w"].layer(0), 0)
+            for M in dispatch.DEC_ROWS:
+                linear(torch.zeros((M, view.K), dtype=dtype, device=device), view,
+                       route=dispatch.DECODE)
 
 
 class GroupLog(NamedTuple):

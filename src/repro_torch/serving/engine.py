@@ -21,6 +21,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.switching import NestQuantStore, RungAssignment
 from ..device import resolve_device, torch_dtype
+from ..models import moe
 from ..models.model import Model, make_model
 from ..storage.artifact import ArtifactError
 from ..storage.pager import PagerError
@@ -146,6 +147,7 @@ class ServeEngine:
         self.last_profile: Optional[DecodeProfile] = None
         self._tracker = SignalTracker()
         self._params = None
+        self._kv_layer_count: Optional[int] = None
 
     # -- deployment --------------------------------------------------------
     @classmethod
@@ -212,20 +214,24 @@ class ServeEngine:
         kernel libraries, the first decode-body launch of a shape fills its
         plan (``kernels/build.py::dec_plan``) and may grow the arrival
         counters (``build.dec_counters``), which would replace the buffer a
-        captured graph holds.  The counters are one buffer per (device,
-        stream): warm-up sizes the buffer of the stream it runs on, so
-        serve on that stream.  So this loads every kernel library
-        (on the card), then runs the prefill of each prompt length and one
-        decode step at each rung on
+        captured graph holds, and the first launch of each decode-body
+        instantiation (streams, rows) opts it into large shared memory.
+        The counters are one buffer per (device, stream): warm-up sizes the
+        buffer of the stream it runs on, so serve on that stream.  So this
+        loads every kernel library (on the card), then runs the prefill of
+        each prompt length and one decode step at each rung on
         :meth:`~repro_torch.core.switching.NestQuantStore.rung_view` trees,
         whose leaves match ``store.params()`` at that rung (no residency
-        change, no ledger event), and with a nested KV cache runs its
-        quantize and render for each prompt length.  ``prompt_len`` is an
-        int or the prompt lengths after left-padding; ``batch`` defaults to
-        ``max_batch`` (what a bucketing Scheduler dispatches); ``spec`` also
-        runs a draft-stamped decode step and a (k+1)-position verify chunk
-        at each rung.  Returns the number of warm-up calls, as the JAX
-        package counts them."""
+        change, no ledger event); on a MoE model it also launches the
+        decode route at every instantiation's row count on an expert view
+        (:func:`~repro_torch.models.moe.warm_decode_rows`); with a nested
+        KV cache it runs the cache's quantize and render for each prompt
+        length.  ``prompt_len``
+        is an int or the prompt lengths after left-padding; ``batch``
+        defaults to ``max_batch`` (what a bucketing Scheduler dispatches);
+        ``spec`` also runs a draft-stamped decode step and, where the family
+        has one, a (k+1)-position verify chunk at each rung.  Returns the
+        number of warm-up calls, as the JAX package counts them."""
         B = self.max_batch if batch is None else batch
         plens = ([prompt_len] if isinstance(prompt_len, int)
                  else sorted(set(prompt_len)))
@@ -252,15 +258,16 @@ class ServeEngine:
                 self.model.decode_step(p, {"tokens": tok1},
                                        self.model.make_cache(B, self.max_len))
                 calls += 1
-            if spec is not None:
+            if spec is not None and self.model.decode_chunk is not None:
                 self.model.decode_chunk(
                     params, {"tokens": torch.zeros((B, spec.k + 1), dtype=torch.int64,
                                                    device=self.device)},
                     self.model.make_cache(B, self.max_len))
                 calls += 1
-        if self.kv is not None:
+            moe.warm_decode_rows(params, torch_dtype(self.cfg.compute_dtype), self.device)
+        if self.kv is not None and self._kv_layers():
             for S in plens:
-                calls += self.kv.warm(self.cfg.num_layers, B, S, self.cfg.num_kv_heads,
+                calls += self.kv.warm(self._kv_layers(), B, S, self.cfg.num_kv_heads,
                                       self.cfg.head_dim, device=self.device)
         return calls
 
@@ -361,11 +368,23 @@ class ServeEngine:
             return
         self.stats.kv_switches += 1
 
+    def _kv_layers(self) -> int:
+        """Attention layers whose K/V the cache holds, from one
+        ``make_cache`` probe: ``num_layers`` for a transformer, the shared
+        block's applications for the hybrid, 0 for a pure SSM stack."""
+        if self._kv_layer_count is None:
+            probe = self.model.make_cache(1, 1)
+            self._kv_layer_count = probe["k"].shape[0] if "k" in probe else 0
+        return self._kv_layer_count
+
     def kv_bytes_per_seq(self, rung: Optional[int] = None) -> int:
         """Cache bytes ONE sequence of ``max_len`` positions costs: the
         nested cost at ``rung`` (default: the cache's rung) with a nested
-        cache, the dense compute-dtype cost otherwise (metadata only)."""
-        L = self.cfg.num_layers
+        cache, the dense compute-dtype cost otherwise (metadata only); 0
+        where the cache holds no K/V."""
+        L = self._kv_layers()
+        if not L:
+            return 0
         if self.kv is None:
             per_tok = dense_kv_bytes_per_token(
                 L, self.cfg.num_kv_heads, self.cfg.head_dim,
@@ -391,7 +410,7 @@ class ServeEngine:
         """Quantize the prompt region of a re-homed cache into nested pages
         and render them back into it at the cache's rung (in place).  The
         partial tail page and every decode position stay dense."""
-        if self.kv is None:
+        if self.kv is None or "k" not in cache:
             return
         n = self.kv.ingest(cache["k"][:, :, :S], cache["v"][:, :, :S])
         if not n:
@@ -429,6 +448,10 @@ class ServeEngine:
                     else SpecConfig(k=int(speculate)))
             if spec.k < 1:
                 raise ValueError(f"speculate needs k >= 1, got {spec.k}")
+            if self.model.decode_chunk is None:
+                raise NotImplementedError(
+                    f"speculative decoding needs a chunked verify pass; "
+                    f"family {self.cfg.family!r} has none")
         self.ensure_mode(memory_budget_bytes,
                          queue_depth=len(requests) if queue_depth is None else queue_depth,
                          backlog_age_s=backlog_age_s)
@@ -449,12 +472,15 @@ class ServeEngine:
         logits, cache = self.model.prefill(
             params, {"tokens": torch.from_numpy(toks).to(self.device)})
         self.stats.prefills += 1
-        # re-home the prefill cache into a max_len buffer
+        # re-home the prefill cache into a max_len buffer: K/V along their
+        # position axis, a state and conv buffer as they are
         full = self.model.make_cache(B, self.max_len,
                                      dtype=torch_dtype(self.cfg.compute_dtype))
-        full["k"][:, :, :S] = cache["k"]
-        full["v"][:, :, :S] = cache["v"]
-        full["pos"] = cache["pos"]
+        for key, v in cache.items():
+            if key in ("k", "v") and v.shape[-3] == S:
+                full[key][:, :, :S] = v
+            else:
+                full[key] = v
         cache = full
         self._kv_ingest(cache, S)
         next_tok = logits[:, -1, :].argmax(dim=-1)[:, None]

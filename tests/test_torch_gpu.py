@@ -1115,3 +1115,53 @@ def test_moe_decode_chunk_rows_equal_decode_steps_bit_for_bit(cuda):
     a, _ = moe.moe_ffn(x, lp, **kw)
     b, _ = moe.moe_ffn(x, lp, **kw)
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_decode_instantiation_rows_are_the_library_s(cuda):
+    """The rows ``dispatch.dec_rows`` records for an M-row decode-body launch
+    (in ``DEC_INSTANCES``, which the warm-up checks read) are those of the
+    instantiation the library launches (``nq_dec_rows``, its ``dec_mb``), at
+    every M the decode body takes; the library refuses an M above it."""
+    from repro_torch.kernels import build
+
+    lib = build.library("nest_matmul.cu")
+    Ms = range(1, dispatch.DEC_MAX_M + 1)
+    assert [dispatch.dec_rows(M) for M in Ms] == [lib.nq_dec_rows(M) for M in Ms]
+    assert {lib.nq_dec_rows(M) for M in Ms} == set(dispatch.DEC_ROWS)
+    assert lib.nq_dec_rows(0) == lib.nq_dec_rows(dispatch.DEC_MAX_M + 1) == -1
+
+
+def test_moe_warmup_then_serve_makes_no_first_decode_launch(cuda):
+    """After ``warmup`` a reduced-dbrx serve (bf16) at every rung, with 1 to
+    4 requests, launches no decode-body instantiation (streams, rows) that
+    warm-up did not: warm-up launches the decode route at every row count
+    of the instantiations on an expert view, where an expert group's rows
+    depend on the routing.  It loads no library and fills no plan either."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.core.switching import NestQuantStore
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    store = NestQuantStore(quantize(init_params(cfg, seed=0, device=cuda),
+                                    QuantRecipe(bits=(8, 6, 4), rounding="rtn"), device=cuda),
+                           mode="part", device=cuda)
+    engine = ServeEngine(cfg, store, max_batch=4, max_len=32)
+    dispatch.DEC_INSTANCES.clear()
+    engine.warmup(8, batch=4)
+    warmed = set(dispatch.DEC_INSTANCES)
+    assert {(s, r) for s in (1, 2, 3) for r in dispatch.DEC_ROWS} <= warmed
+    libs, plans = sorted(build._libs), dict(build._dec_plans)
+    need = [store.rung_resident_bytes(r) for r in range(3)]
+    for rung in (0, 1, 2, 1):
+        budget = need[-1] * 2 if rung == 2 else need[rung]
+        for n in (1, 3, 4):
+            reqs = [Request(i, torch.arange(8, dtype=torch.int32).numpy() * (i + 1) + rung,
+                            max_new_tokens=4) for i in range(n)]
+            engine.generate(reqs, memory_budget_bytes=budget)
+            assert store.rung == rung
+            assert dispatch.DEC_INSTANCES == warmed, (rung, n)
+    assert sorted(build._libs) == libs and build._dec_plans == plans

@@ -115,6 +115,19 @@ def test_serve_moe_budget_schedule(capsys):
         ["[store]", "[phase", "[phase", "[phase", "[phase", "[switching]"]
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_serve_ssm_budget_schedule(capsys, arch):
+    """The ssm and hybrid families through the serve CLI: reduced
+    mamba2-780m and zamba2-2.7b over a budget schedule that walks every
+    rung print the JAX CLI's lines but for the wall seconds."""
+    args = ["--arch", arch, "--smoke", "--bits", "8,6,4", "--budget-schedule",
+            "full,part,rung1,full", "--requests", "4", "--new-tokens", "2"]
+    ref, port = _both(capsys, jserve_cli.main, pserve_cli.main, args)
+    assert _unwall(port) == _unwall(ref)
+    assert [line.split(" ")[0] for line in port] == \
+        ["[store]", "[phase", "[phase", "[phase", "[phase", "[switching]"]
+
+
 def test_serve_speculative_trace(capsys):
     """Two new tokens per request: every batch's one draft/verify round is
     charged the same virtual time whatever the drafts' acceptance, so only

@@ -13,7 +13,8 @@ rmsnorm) against the JAX package.
   identical; the cached decode against the full forward (the mirror of
   ``tests/test_models_smoke.py::test_decode_matches_full_forward``);
 * ``ServeEngine.generate`` over rungs 2, 0, 1, 2 against the JAX engine
-  (tokens, switches, ledger bytes), speculative tokens equal to plain
+  (tokens, switches, ledger bytes), a long serve on the nested KV cache
+  against it (tokens, KV ledger), speculative tokens equal to plain
   greedy, and ``decode_chunk`` row j within 1e-6 of max |logit| of decode
   step j (the CPU's products differ by M).
 
@@ -294,6 +295,54 @@ def test_generate_walks_rungs_token_identical_with_exact_ledger():
     assert peng.store.ledger.switches == jeng.store.ledger.switches == 6
     assert (peng.stats.switches, peng.stats.prefills, peng.stats.decode_steps) == \
         (jeng.stats.switches, jeng.stats.prefills, jeng.stats.decode_steps)
+
+
+KV_PROMPTS, KV_NEW, KV_QUEUE = (1040, 1033), 3, (0, 8, 0)
+
+
+def test_long_serve_on_the_nested_kv_cache_matches_reference():
+    """A long serve of the reduced dbrx-132b (2 x 1040 prompt tokens: the
+    blockwise attention branch, 65 KV pages) on ``KVCacheConfig((4, 6, 8),
+    16, "rtn")`` under ``LoadAdaptivePolicy``, queue depths walking the KV
+    and weight rungs 2 -> 1 -> 2 (tests/test_torch_kv_cache.py walks the
+    whole ladder on qwen2): greedy tokens, KV and weight ledger events and
+    per-sequence KV bytes equal to the JAX engine's."""
+    from repro.serving import KVCacheConfig as JaxKVConfig
+    from repro.serving import LoadAdaptivePolicy as JaxLoadPolicy
+    from repro_torch.serving import KVCacheConfig, LoadAdaptivePolicy
+
+    arch = ARCHS[0]
+    jcfg, _, nested = reduced_moe(arch)
+    cfg = get_config(arch).reduced()
+    max_len = KV_PROMPTS[0] + KV_NEW
+    jeng = JaxEngine(jcfg, jsw.NestQuantStore(nested, mode="full", dtype=jnp.float32),
+                     max_batch=2, max_len=max_len,
+                     policy=JaxLoadPolicy(high_depth=8, low_depth=0),
+                     kv=JaxKVConfig(bits=(4, 6, 8), page=16, rounding="rtn"))
+    peng = ServeEngine(cfg, NestQuantStore(jax_tree_to_torch(nested), mode="full", device="cpu"),
+                       max_batch=2, max_len=max_len,
+                       policy=LoadAdaptivePolicy(high_depth=8, low_depth=0),
+                       kv=KVCacheConfig(bits=(4, 6, 8), page=16, rounding="rtn"))
+    rungs = []
+    for phase, depth in enumerate(KV_QUEUE):
+        rng = np.random.default_rng(60 + phase)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in KV_PROMPTS]
+        jreqs = [JaxRequest(i, p, max_new_tokens=KV_NEW) for i, p in enumerate(prompts)]
+        preqs = [Request(i, p, max_new_tokens=KV_NEW) for i, p in enumerate(prompts)]
+        jeng.generate(jreqs, queue_depth=depth)
+        peng.generate(preqs, queue_depth=depth)
+        assert peng.kv.rung == jeng.kv.rung and peng.store.rung == jeng.store.rung
+        assert [r.out_tokens for r in preqs] == [r.out_tokens for r in jreqs], phase
+        assert len(peng.kv.pages) == KV_PROMPTS[0] // 16
+        assert peng.kv_bytes_per_seq() == jeng.kv_bytes_per_seq()
+        rungs.append(peng.kv.rung)
+    assert rungs == [2, 1, 2]
+    assert peng.kv.ledger.events == jeng.kv.ledger.events
+    assert [e[:2] for e in peng.kv.ledger.events] == [(2, 1), (1, 2)]
+    assert peng.kv.expected_events == jeng.kv.expected_events
+    assert peng.store.ledger.events == jeng.store.ledger.events
+    for name in ("kv_switches", "kv_pages", "switches", "prefills", "decode_steps"):
+        assert getattr(peng.stats, name) == getattr(jeng.stats, name), name
 
 
 def test_speculative_tokens_equal_plain_greedy():

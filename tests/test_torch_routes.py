@@ -87,7 +87,8 @@ def test_launch_counts_per_route_and_reset():
 def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
     """The decode route launches the decode body once per group of at most
     DEC_MAX_M rows, each into its row slice of one output, counting each
-    launch as a decode-body launch; another body launches once."""
+    launch as a decode-body launch and recording its (streams, rows)
+    instantiation; another body launches once and records none."""
     x = torch.arange(M * 3, dtype=torch.float32).reshape(M, 3)
     calls = []
 
@@ -96,7 +97,9 @@ def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
         out.copy_(xs[:, :2] * 2)
 
     c = dispatch.LaunchCounter("probe")
-    y = dispatch.launch_matmul(x, 2, torch.float32, DEC, c, launch)
+    seen = set(dispatch.DEC_INSTANCES)
+    dispatch.DEC_INSTANCES.clear()
+    y = dispatch.launch_matmul(x, 2, torch.float32, DEC, c, launch, streams=3)
     groups = -(-M // dispatch.DEC_MAX_M)
     assert [n for _, n, _, _ in calls] == \
         [min(dispatch.DEC_MAX_M, M - g * dispatch.DEC_MAX_M) for g in range(groups)]
@@ -105,10 +108,16 @@ def test_decode_rows_route_launches_once_per_group_of_8_rows(M):
         [x[g * dispatch.DEC_MAX_M:].data_ptr() for g in range(groups)]
     assert torch.equal(y, x[:, :2] * 2)
     assert (c.launches, c.dec_launches, c.tc_launches) == (groups, groups, 0)
+    instances = {(3, dispatch.dec_rows(n)) for _, n, _, _ in calls}
+    assert dispatch.DEC_INSTANCES == instances
+    assert {dispatch.dec_rows(n) for n in range(1, 9)} == set(dispatch.DEC_ROWS)
     calls.clear()
-    dispatch.launch_matmul(x, 2, torch.float32, CC, c, launch)
+    dispatch.launch_matmul(x, 2, torch.float32, CC, c, launch, streams=1)
     assert len(calls) == 1 and calls[0][1:3] == (M, dispatch.BODY[CC])
     assert (c.launches, c.dec_launches) == (groups + 1, groups)
+    assert dispatch.DEC_INSTANCES == instances
+    dispatch.DEC_INSTANCES.clear()
+    dispatch.DEC_INSTANCES.update(seen)
 
 
 @pytest.mark.parametrize("bits,rung", [((4, 6, 8), 2), ((2, 4, 6, 8), 3)])

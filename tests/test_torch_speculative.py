@@ -259,11 +259,20 @@ def test_spec_guards_and_non_dense_families():
         peng.generate(_reqs(Request, 1, plen=6, new_tokens=8), speculate=SpecConfig(k=3))
     with pytest.raises(ValueError, match="k >= 1"):
         peng.generate(_reqs(Request, 1, new_tokens=2), speculate=SpecConfig(k=0))
-    # families without a rewindable KV cache (ssm, hybrid; the JAX package's
-    # decode_chunk is None for them) have no model in the port at all yet
+    # families without a rewindable KV cache (ssm, hybrid) have no chunked
+    # verify pass (decode_chunk is None, as in the JAX package): the engine
+    # refuses to speculate on them before any prefill
+    from repro_torch.core.recipe import QuantRecipe, quantize
     for name in ("mamba2-780m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            make_model(get_config(name).reduced(), device="cpu")
+        cfg = get_config(name).reduced()
+        model = make_model(cfg, device="cpu")
+        assert model.decode_chunk is None
+        store = NestQuantStore(quantize(model.init(0), QuantRecipe(bits=(8, 4), rounding="rtn"),
+                                        device="cpu"), mode="part", device="cpu")
+        eng = ServeEngine(cfg, store, max_batch=2, max_len=32)
+        with pytest.raises(NotImplementedError, match=f"family {cfg.family!r} has none"):
+            eng.generate(_reqs(Request, 1, new_tokens=2), speculate=SpecConfig(k=2))
+        assert eng.stats.prefills == 0
 
 
 @pytest.mark.parametrize("B", [1, 4])

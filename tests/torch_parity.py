@@ -55,39 +55,58 @@ def j2n(x) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def reduced_qwen2(seed: int = 0):
-    """Reduced qwen2-1.5b in the JAX package: (config, dense params, their
-    rtn (8, 6, 4) nesting).  Cached: the model and engine tests share one
-    JAX quantization in a process.  It runs under ``jax.jit`` (one compile
-    instead of hundreds of eager ones); XLA may round a few scales one ulp
-    away from the eager result, and the codes are the same.  The tree is
-    the input of both packages here, and eager quantization is held bit for
-    bit in tests/test_torch_quant.py."""
+def reduced_dense(name: str, seed: int = 0):
+    """A reduced config of the JAX package and its ``PRNGKey(seed)`` init."""
     from repro.configs import get_config
-    from repro.core.recipe import QuantRecipe, quantize
-    from repro.models import make_model
-
-    cfg = get_config("qwen2-1.5b").reduced()
-    dense = make_model(cfg).init(jax.random.PRNGKey(seed))
-    recipe = QuantRecipe(bits=(8, 6, 4), rounding="rtn")
-    return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
-
-
-@functools.lru_cache(maxsize=None)
-def reduced_moe(name: str, seed: int = 0):
-    """A reduced MoE config of the JAX package (``dbrx-132b``: top-2 of 4
-    experts, layernorm; ``llama4-scout-17b-a16e``: top-1, rmsnorm): (config,
-    dense params, their rtn (8, 6, 4) nesting, expert stacks as 4-D leaves
-    and the f32 router kept dense), quantized once per process under
-    ``jax.jit`` as :func:`reduced_qwen2` is."""
-    from repro.configs import get_config
-    from repro.core.recipe import QuantRecipe, quantize
     from repro.models import make_model
 
     cfg = get_config(name).reduced()
-    dense = make_model(cfg).init(jax.random.PRNGKey(seed))
-    recipe = QuantRecipe(bits=(8, 6, 4), rounding="rtn")
+    return cfg, make_model(cfg).init(jax.random.PRNGKey(seed))
+
+
+@functools.lru_cache(maxsize=None)
+def reduced_model(name: str, seed: int = 0, rounding: str = "rtn"):
+    """A reduced config of the JAX package: (config, dense params, their
+    (8, 6, 4) nesting with ``rounding``).  Cached: the test files of a
+    process share one JAX quantization per (config, seed, rounding).  The
+    quantization runs under ``jax.jit`` (one compile instead of hundreds
+    of eager ones); XLA may round a few scales one ulp away from the eager
+    result, and the codes are the same.  The tree is the input of both
+    packages here, and eager quantization is held bit for bit in
+    tests/test_torch_quant.py.  A MoE config keeps its expert stacks as
+    4-D leaves and the f32 router dense."""
+    from repro.core.recipe import QuantRecipe, quantize
+
+    cfg, dense = reduced_dense(name, seed)
+    recipe = QuantRecipe(bits=(8, 6, 4), rounding=rounding)
     return cfg, dense, jax.jit(lambda p: quantize(p, recipe))(dense)
+
+
+def reduced_qwen2(seed: int = 0):
+    """Reduced qwen2-1.5b with its rtn (8, 6, 4) nesting (:func:`reduced_model`)."""
+    return reduced_model("qwen2-1.5b", seed)
+
+
+def reduced_moe(name: str, seed: int = 0):
+    """A reduced MoE config (``dbrx-132b``: top-2 of 4 experts, layernorm;
+    ``llama4-scout-17b-a16e``: top-1, rmsnorm) with its rtn (8, 6, 4)
+    nesting (:func:`reduced_model`)."""
+    return reduced_model(name, seed)
+
+
+def rehome(cache, pad, n):
+    """A prefill cache of n positions into a longer cache ``pad`` (torch or
+    JAX), as the engines re-home it: K/V along their position axis, a
+    state, conv buffer and ``pos`` as they are."""
+    for key, v in cache.items():
+        if key in ("k", "v") and v.shape[-3] == n:
+            if isinstance(pad[key], torch.Tensor):
+                pad[key][:, :, :n] = v
+            else:
+                pad[key] = pad[key].at[:, :, :n].set(v)
+        else:
+            pad[key] = v
+    return pad
 
 
 @contextlib.contextmanager
