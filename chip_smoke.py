@@ -178,6 +178,32 @@ Phases (each raises on failure; the script then exits non-zero):
    busy, K1-K3 against their byte bound, the SSM state update against
    its); K5 alone at zamba2's 2 x 1100, 32/32 heads of 80, beside SDPA.
 
+8. Training on the card, then NestQuant of the trained weights (phase 8,
+   ``phase_train``; full-width qwen2-1.5b, remat on, batch 2 x 2048 of the
+   seeded ``SyntheticLM`` stream).  (a) One ``loss_fn`` and its gradients
+   at the first 4 layers with K5 (forward and remat recompute, writing its
+   row statistics; the blockwise backward) against the same computation
+   under ``reference_pass``: f32 loss within 1e-5, every leaf within 1e-4
+   of its max |g|; bf16 under ``BF16_GRAD_TOL``, which the control (K5
+   launched outside ``BlockwiseAttention``: q/k/v get no gradient)
+   exceeds; every leaf's gradient nonzero.  (b) All 28 layers, bf16
+   parameters, f32 AdamW state: ``TRAIN_STEPS`` steps of the train CLI's
+   step, each profiled (wall, device busy, K5, the attention backward, the
+   optimizer, tokens/s, MFU, peak memory), 56 K5 launches a step, none
+   plain, the loss falling.  (c) NestQuant of the trained weights
+   (``api.quantize``, adaptive (8, 6, 4), a ``NestQuantStore``) and
+   ``loss_fn`` on two held-out batches at rungs 2, 1, 0 through K1-K3 (197
+   launches of the rung's kernel and 28 of K5 a forward, none plain),
+   each within ``SCORE_TOL`` of the same tree's plain pass, which the tree
+   one stream short exceeds; the dense loss beside them.  (d) The train
+   CLI as subprocesses (2 layers, 1 x 2048, 6 steps, a checkpoint every
+   4): straight through and killed before step 5 (exit 42) side by side,
+   then resumed; the step-6 checkpoints equal bit for bit, restored with
+   ``CheckpointManager`` (timed) and compared on the card, one saved again
+   (timed), every directory under ``build/`` removed.  Phase 4 also holds
+   K5 with its row statistics against the plain forward at S 1100 and 2048
+   (o as K5's limits, m and l within 1e-5) and times it beside K5 without.
+
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
 kernels (launches, error, times, bound); the last line is
@@ -1825,6 +1851,35 @@ def check_flash(q, k, v, what, tag="kv-kernels"):
     return err, peak, row, ctl_err, ctl_row
 
 
+STATS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+
+
+def check_flash_stats(q, k, v, what):
+    """K5 with its row statistics (the training forward's launch) against
+    the plain forward at one KV block (``attention._flash_fwd_inner``): o
+    within ``TOL`` of max |o|; m within ``STATS_TOL`` of max(1, |m|) and l
+    within ``STATS_TOL`` relative, row by row.  Returns the readings."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import _flash_fwd_inner
+
+    dtype = q.dtype
+    what = f"flash_attention {what} {str(dtype).replace('torch.', '')} with statistics"
+    o, m, l = fa.flash_attention_stats(q, k, v)
+    want_o, want_m, want_l = _flash_fwd_inner(q, k, v, True, q.shape[1])
+    torch.cuda.synchronize()
+    peak = want_o.float().abs().max().item()
+    err = (o.float() - want_o.float()).abs().max().item()
+    m_err = ((m - want_m).abs() / want_m.abs().clamp_min(1.0)).max().item()
+    l_err = ((l - want_l).abs() / want_l).max().item()
+    if not (err <= TOL[dtype] * peak and m_err <= STATS_TOL[dtype]
+            and l_err <= STATS_TOL[dtype]):
+        raise AssertionError(f"{what}: o {err / peak:.3e} of max |o| (tol {TOL[dtype]}), "
+                             f"m {m_err:.3e}, l {l_err:.3e} (tol {STATS_TOL[dtype]})")
+    log(f"[kv-kernels] {what}: o {err / peak:.3e} of max |o|, m {m_err:.3e}, l "
+        f"{l_err:.3e} (tol {STATS_TOL[dtype]:.0e})")
+    return {"max_abs_err": err, "max_abs_ref": peak, "m_rel_err": m_err, "l_rel_err": l_err}
+
+
 def phase_kv_kernels(cfg, gen):
     """K4 bit-exact at every KV rung of (4, 6, 8) and (3, 5, 6, 8), M = 6
     and 48; K5 within 1e-4 (f32) / 2e-2 (bf16) of max |o| and of every
@@ -1893,12 +1948,17 @@ def phase_kv_kernels(cfg, gen):
             lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
             nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
             flops = 2.0 * B * Hq * S * S * hd          # QK^T and PV, causal half
+            stats = None
+            if S <= PROMPT_LONG:          # the training forward's launch
+                stats = check_flash_stats(q, k, v, f"S={S}")
+                stats["ms"] = time_graph_ms(lambda i: fa.flash_attention_stats(q, k, v), 10)
+                stats["ms_without"] = ms
             rows.append(_row("flash_attention", f"S={S}", S, str(dtype).replace("torch.", ""),
                              err, ms, plain_ms, nbytes, flops, PEAK_FLOPS[dtype], lib_ms,
                              max_abs_ref=peak, worst_row_rel=row,
                              control_drop_tile={"err_over_max": ctl_err / peak,
                                                 "worst_row_rel": ctl_row},
-                             B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd))
+                             with_stats=stats, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd))
             del q, k, v
     d, L = cfg.d_model, cfg.num_layers
     shapes = [("q/o", d, cfg.num_heads * cfg.head_dim, 512, 2 * L),
@@ -1936,7 +1996,8 @@ def phase_kv_kernels(cfg, gen):
             f"err={r['max_abs_err']:.2e} ms={r['ms']:.4f} plain={r['plain_ms']:.3f} "
             f"bound={r['bound_ms']:.4f} ({r['bound_by']}) library="
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}"
-            + (f" cuda-core={r['cuda_core_ms']:.4f}" if "cuda_core_ms" in r else ""))
+            + (f" cuda-core={r['cuda_core_ms']:.4f}" if "cuda_core_ms" in r else "")
+            + (f" with-stats={r['with_stats']['ms']:.4f}" if r.get("with_stats") else ""))
     tree = [r for r in rows if r["kernel"] == "nest_recompose" and (r["n"], r["h"]) == (6, 4)]
     log(f"[kv-kernels] K6 page-in of the tree at (6, 4): "
         f"{sum(r['ms'] * r['uses_per_tree'] for r in tree):.4f} ms over "
@@ -3101,6 +3162,452 @@ def phase_ssm(gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training on the card, then NestQuant of the trained weights
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_CHECK_LAYERS = 4             # the gradient check's depth (of 28)
+# peak learning rate 3e-4: at the CLI's default of 3e-3 the full-width
+# model's loss rose over 24 steps (12.18 -> 12.49, a gradient-norm spike
+# of 41 at step 14; PERF.md), which says nothing of the port
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 24, 8, 3e-4
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-5, 1e-4
+# bf16 gradients against the plain bf16 pass, per leaf relative to the
+# leaf's max |g| (the worst leaf): about the geometric mean of the sound
+# reading (1.28e-2) and the control (K5 outside the Function: q/k/v get no
+# gradient, 1.015) on the H100 (PERF.md)
+BF16_GRAD_TOL = 0.1
+SCORE_STEPS = (10_000, 10_001)     # held-out batches of the training stream
+# a nested loss against the same tree's plain pass, |kernel - plain| /
+# plain: about the geometric mean of the worst sound reading (4.1e-5) and
+# the lowest one-stream-short control (1.07e-3) on the H100 (PERF.md)
+SCORE_TOL = 2e-4
+TRAIN_CLI = ["--arch", "qwen2-1.5b", "--layers", "2", "--batch", "1", "--seq", "2048",
+             "--steps", "6", "--ckpt-every", "4"]
+TRAIN_CLI_FAIL_AT = 5
+
+
+def train_config(layers: int, dtype: str):
+    """Full-width qwen2-1.5b with ``layers`` layers, parameters and compute in
+    ``dtype``, remat on."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers, dtype=dtype,
+                               compute_dtype=dtype, remat=True)
+
+
+def train_batch(cfg, step: int):
+    """Batch ``step`` of the seeded synthetic stream on the card."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import to_device
+
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    return to_device(data.batch(step), DEVICE)
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, {keystr: gradient or None}) of one ``loss_fn`` and its backward."""
+    from repro_torch import tree
+
+    flat = tree.flatten_with_path(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    loss = model.loss_fn(tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), {k: g for (k, _), g in zip(flat, grads)}
+
+
+class _K5OutsideFunction:
+    """The gradient check's control: the training forward's K5 launched
+    outside ``BlockwiseAttention``.  Its output has no grad_fn, so q, k and
+    v, and the projections before them, get no gradient through attention:
+    the failure the Function exists to prevent."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel, ops
+
+        self.ops, self.before = ops, ops.blockwise_attention
+        ops.blockwise_attention = lambda q, k, v, causal, kv_block: kernel.flash_attention(
+            q.detach(), k.detach(), v.detach())
+
+    def __exit__(self, *exc):
+        self.ops.blockwise_attention = self.before
+
+
+def grad_gap(got, want):
+    """(worst leaf's max |g - g_plain| / max |g_plain|, that leaf); a
+    missing gradient reads as zeros."""
+    worst, where = 0.0, None
+    for key, w in want.items():
+        g = torch.zeros_like(w) if got[key] is None else got[key]
+        r = ((g.float() - w.float()).abs().max()
+             / w.float().abs().max().clamp_min(1e-30)).item()
+        if not math.isfinite(r) or r > worst:
+            worst, where = (r if math.isfinite(r) else float("inf")), key
+    return worst, where
+
+
+def train_grad_check():
+    """8(a): one ``loss_fn`` and its gradients at the first
+    ``TRAIN_CHECK_LAYERS`` layers, batch 2 x 2048, with K5 (forward and remat
+    recompute, writing its statistics; the blockwise backward) against the
+    same computation under ``reference_pass``; f32 and bf16; every leaf's
+    gradient nonzero; the control that loses q/k/v's gradient."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import make_model
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = train_config(TRAIN_CHECK_LAYERS, dtype)
+        model = make_model(cfg, device=DEVICE)
+        params = model.init(1)
+        batch = train_batch(cfg, 0)
+        dispatch.reset_counters()
+        (loss_k, g_k), t_k = _timed(lambda: loss_and_grads(model, params, batch))
+        k5 = dispatch.COUNTERS["flash_attention"]
+        launches, plain = k5.launches, sum(c.plain_launches for c in dispatch.COUNTERS.values())
+        if launches != 2 * cfg.num_layers or plain:
+            raise AssertionError(f"train check {dtype}: K5 launched {launches} times (want "
+                                 f"{2 * cfg.num_layers}: forward and recompute), {plain} plain")
+        with dispatch.reference_pass():
+            (loss_p, g_p), t_p = _timed(lambda: loss_and_grads(model, params, batch))
+        with _K5OutsideFunction():
+            loss_c, g_c = loss_and_grads(model, params, batch)
+        zero = [k for k, g in g_k.items() if g is None or not bool((g != 0).any())]
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        gap, where = grad_gap(g_k, g_p)
+        ctl, ctl_where = grad_gap(g_c, g_p)
+        tol = F32_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+        r = {"layers": cfg.num_layers, "loss": loss_k.item(), "plain_loss": loss_p.item(),
+             "loss_rel": loss_rel, "grad_gap": gap, "grad_gap_leaf": where,
+             "control_grad_gap": ctl, "control_leaf": ctl_where, "grad_tol": tol,
+             "k5_launches": launches, "zero_grad_leaves": zero, "kernel_s": t_k,
+             "plain_s": t_p}
+        log(f"[train] check {dtype}, {cfg.num_layers} layers, {TRAIN_BATCH}x{TRAIN_SEQ}: loss "
+            f"{r['loss']:.6f} vs plain {r['plain_loss']:.6f} (rel {loss_rel:.2e}); worst leaf "
+            f"grad gap {gap:.3e} at {where} (tol {tol:.1e}); control (K5 outside the "
+            f"Function) {ctl:.3e} at {ctl_where}; K5 launches {launches}; {t_k:.2f}s kernel, "
+            f"{t_p:.2f}s plain")
+        ok = (not zero and gap <= tol and ctl > tol
+              and (dtype != "float32" or loss_rel <= F32_LOSS_TOL))
+        out[dtype] = r
+        del params, g_k, g_p, g_c, model
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"train check {dtype} failed: {r}")
+    return out
+
+
+class _SpanTimers:
+    """CUDA events around every blockwise attention backward and every
+    AdamW update while active (the autograd thread records on the forward's
+    stream): device ms per span, read after a synchronize."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+        from repro_torch.optim import adamw
+
+        self.spans = {"attention_backward": [], "optimizer": []}
+        self.saved = (attention._flash_bwd, adamw.apply_update)
+
+        def wrap(fn, key):
+            def timed(*a, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                res = fn(*a, **kw)
+                end.record()
+                self.spans[key].append((start, end))
+                return res
+            return timed
+
+        attention._flash_bwd = wrap(self.saved[0], "attention_backward")
+        adamw.apply_update = wrap(self.saved[1], "optimizer")
+        return self
+
+    def take(self):
+        torch.cuda.synchronize()
+        out = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.spans.items()}
+        for v in self.spans.values():
+            v.clear()
+        return out
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+        from repro_torch.optim import adamw
+
+        attention._flash_bwd, adamw.apply_update = self.saved
+
+
+def train_run():
+    """8(b): all 28 layers, bf16 parameters, f32 AdamW state, remat, batch 2 x
+    2048, ``TRAIN_STEPS`` steps of the CLI's train step (warmup
+    ``TRAIN_WARMUP``): every step launches K5 56 times (28 forward, 28 in
+    the recompute), none plain, and the loss falls.  Each step is profiled
+    (device activity only)."""
+    from repro_torch import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import adamw
+
+    cfg = train_config(28, "bfloat16")
+    model = make_model(cfg, device=DEVICE)
+    params = model.init(2)
+    opt = adamw.init_state(params)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * n_params * tokens
+    step_fn = make_train_step(model, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    steps, k5_total = [], 0
+    with _SpanTimers() as timers:
+        for step in range(TRAIN_STEPS):
+            batch = train_batch(cfg, step)
+            dispatch.reset_counters()
+            (params, opt, metrics), wall, ev = _events(
+                lambda p=params, o=opt, b=batch, s=step: step_fn(p, o, b, s))
+            spans = timers.take()
+            k5 = dispatch.COUNTERS["flash_attention"]
+            plain = sum(c.plain_launches for c in dispatch.COUNTERS.values())
+            if k5.launches != 2 * cfg.num_layers or plain:
+                raise AssertionError(f"train step {step}: K5 launched {k5.launches} times "
+                                     f"(want {2 * cfg.num_layers}), {plain} plain")
+            k5_total += k5.launches
+            busy = sum(t for _, t in ev)
+            r = {"step": step, "loss": metrics["loss"].item(), "lr": metrics["lr"].item(),
+                 "grad_norm": metrics["grad_norm"].item(), "wall_ms": wall * 1e3,
+                 "device_busy_ms": busy, "k5_ms": _ms(ev, *K5_NAMES),
+                 "attention_backward_ms": spans["attention_backward"],
+                 "optimizer_ms": spans["optimizer"], "tokens_per_s": tokens / wall,
+                 "mfu": flops / wall / PEAK_FLOPS[torch.bfloat16], "kernels": len(ev),
+                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+            steps.append(r)
+            log(f"[train] step {step:2d}: loss {r['loss']:.4f} lr {r['lr']:.2e} gnorm "
+                f"{r['grad_norm']:.3f}; wall {r['wall_ms']:.1f} ms, busy {busy:.1f} ms, K5 "
+                f"{r['k5_ms']:.2f} ms, attention backward {r['attention_backward_ms']:.1f} ms, "
+                f"optimizer {r['optimizer_ms']:.1f} ms; {r['tokens_per_s']:.0f} tokens/s, "
+                f"MFU {r['mfu']:.3f}; peak {r['peak_mem_bytes'] / 1e9:.2f} GB")
+    first = sum(r["loss"] for r in steps[:4]) / 4
+    last = sum(r["loss"] for r in steps[-4:]) / 4
+    # the blockwise backward's five products per KV block of 512 keys, on
+    # the query rows at or after the block (``attention._flash_bwd``)
+    rows = sum(TRAIN_SEQ - j0 for j0 in range(0, TRAIN_SEQ, 512))
+    bwd_flops = (5 * 2.0 * TRAIN_BATCH * cfg.num_heads * cfg.head_dim * 512 * rows
+                 * cfg.num_layers)
+    # AdamW reads p, g (bf16), m, v, master and writes m, v, master, p
+    opt_bytes = n_params * (2 + 2 + 12 + 12 + 2)
+    bounds = {"attention_backward_f32_ms": bwd_flops / PEAK_FLOPS[torch.float32] * 1e3,
+              "attention_backward_bf16_ms": bwd_flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+              "optimizer_ms": opt_bytes / HBM_BYTES_PER_S * 1e3}
+    out = {"params": n_params, "flops_per_step": flops, "steps": steps,
+           "mean_loss_first4": first, "mean_loss_last4": last, "k5_launches": k5_total,
+           "bounds": bounds}
+    log(f"[train] {n_params / 1e9:.3f} B parameters, {flops / 1e12:.1f} TFLOP per step "
+        f"(6 N tokens); mean loss of the first 4 steps {first:.4f}, last 4 {last:.4f}; "
+        f"bounds: attention backward {bwd_flops / 1e12:.2f} TFLOP, "
+        f"{bounds['attention_backward_f32_ms']:.1f} ms at the f32 rate, "
+        f"{bounds['attention_backward_bf16_ms']:.2f} ms at bf16's; AdamW "
+        f"{opt_bytes / 1e9:.1f} GB, {bounds['optimizer_ms']:.1f} ms")
+    if not last < first:
+        raise AssertionError(f"training did not lower the loss: {first} -> {last}")
+    del opt
+    torch.cuda.empty_cache()
+    return cfg, params, out
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def train_cli_resume():
+    """8(c): the train CLI as subprocesses on the card at full width
+    (``TRAIN_CLI``): straight through and with ``--simulate-failure-at 5``
+    (exit 42) side by side, then resumed; the resumed run's step-6
+    checkpoint must equal the straight run's bit for bit.  Both are
+    restored with ``CheckpointManager`` (timed) and compared on the card,
+    and one is saved again (timed); every directory is removed."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import make_model
+    from repro_torch.optim import adamw
+
+    base = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()             # the two runs side by side need ~30 GB
+    log(f"[train-cli] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of "
+        f"device memory while the CLI runs")
+    dirs = {k: base / k for k in ("straight", "resumed", "again")}
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cli(name, *extra):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+               "--ckpt-dir", str(dirs[name]), *extra]
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def finish(proc, want_rc, what):
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != want_rc:
+            raise AssertionError(f"train CLI {what} exited {proc.returncode}, want "
+                                 f"{want_rc}:\n{text[-3000:]}")
+        for line in text.strip().splitlines():
+            log(f"[train-cli] {what}: {line}")
+        return text
+
+    peak_disk = 0
+    try:
+        t0 = time.perf_counter()
+        runs = {"straight": cli("straight"),
+                "crashed": cli("resumed", "--simulate-failure-at", str(TRAIN_CLI_FAIL_AT))}
+        finish(runs["straight"], 0, "straight")
+        crashed = finish(runs["crashed"], 42, "crashed")
+        t_pair = time.perf_counter() - t0
+        peak_disk = _dir_bytes(base)
+        if f"[failure-injection] dying at step {TRAIN_CLI_FAIL_AT}" not in crashed:
+            raise AssertionError("the crashed run did not die where asked")
+        shutil.rmtree(dirs["straight"] / "step_0000000004")       # read no further
+        t0 = time.perf_counter()
+        resumed = finish(cli("resumed"), 0, "resumed")
+        t_resume = time.perf_counter() - t0
+        peak_disk = max(peak_disk, _dir_bytes(base))
+        if "[resume] from step 4" not in resumed:
+            raise AssertionError("the resumed run did not resume from step 4")
+        model = make_model(train_config(2, "bfloat16"), device=DEVICE)
+        params = model.init(0)
+        tmpl = {"params": params, "opt": adamw.init_state(params)}
+        got = {}
+        for name in ("straight", "resumed"):
+            (tree_, manifest), t = _timed(
+                lambda n=name: CheckpointManager(str(dirs[n])).restore(tmpl, step=6))
+            got[name] = (tree_, manifest, t)
+        from repro_torch.checkpoint.manager import _flatten
+        a, b = (dict(_flatten(got[n][0])) for n in ("straight", "resumed"))
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        nbytes = _dir_bytes(dirs["straight"] / "step_0000000006")
+        shutil.rmtree(dirs["straight"])
+        shutil.rmtree(dirs["resumed"])
+        _, t_save = _timed(lambda: CheckpointManager(str(dirs["again"])).save(
+            6, got["straight"][0], extra=got["straight"][1]["extra"]))
+        peak_disk = max(peak_disk, _dir_bytes(base))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out = {"leaves": len(a), "differing_leaves": differ, "checkpoint_bytes": nbytes,
+           "save_s": t_save, "restore_s": [got[n][2] for n in ("straight", "resumed")],
+           "straight_and_crashed_s": t_pair, "resumed_s": t_resume,
+           "data_step": [got[n][1]["extra"]["data_step"] for n in ("straight", "resumed")],
+           "peak_disk_bytes": peak_disk}
+    log(f"[train-cli] resumed step-6 checkpoint vs straight: {len(a) - len(differ)} of "
+        f"{len(a)} leaves bit for bit; checkpoint {nbytes / 1e9:.2f} GB, save "
+        f"{t_save:.1f}s, restore {out['restore_s'][0]:.1f} / {out['restore_s'][1]:.1f}s; "
+        f"runs {t_pair:.1f}s (straight and crashed side by side) + {t_resume:.1f}s "
+        f"(resumed); peak disk {peak_disk / 1e9:.1f} GB")
+    del got, a, b, tmpl, params
+    torch.cuda.empty_cache()
+    if differ or out["data_step"] != [6, 6]:
+        raise AssertionError(f"resume is not bitwise: {differ[:8]}, data steps "
+                             f"{out['data_step']}")
+    return out
+
+
+def train_score(cfg, params):
+    """8(d): NestQuant the trained weights (``api.quantize``, adaptive
+    (8, 6, 4)) into a ``NestQuantStore``; ``loss_fn`` on the held-out
+    batches at rungs 2, 1, 0 through K1-K3 (one forward: 197 launches of
+    the rung's kernel and 28 of K5, none plain), each within
+    ``SCORE_TOL`` of the same tree's plain pass, which the tree one stream
+    short (the kernel path at the rung below) must exceed; the dense
+    trained weights' loss beside them."""
+    from repro_torch.api import NestQuantStore, QuantRecipe, make_model, quantize
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.kernels import dispatch
+
+    model = make_model(cfg, device=DEVICE)
+    batches = [train_batch(cfg, s) for s in SCORE_STEPS]
+    with torch.no_grad():
+        dispatch.reset_counters()
+        dense = [model.loss_fn(params, b).item() for b in batches]
+        k5 = dispatch.COUNTERS["flash_attention"].launches
+        nested, t_q = _timed(lambda: quantize(params, QuantRecipe(bits=BITS), device=DEVICE))
+        store = NestQuantStore(nested, mode="full", device=DEVICE)
+        del nested
+        per_forward = packed_linears_per_forward(store)
+        rung_bytes = [store.rung_resident_bytes(r) for r in range(store.num_rungs)]
+        log(f"[score] adaptive (8, 6, 4) quantize of the trained weights {t_q:.1f}s; "
+            f"resident bytes per rung {rung_bytes}; dense loss "
+            f"{', '.join(f'{x:.5f}' for x in dense)}")
+        rungs, launches, failures = {}, {n: [0, 0, 0] for n in KERNELS}, []
+        for rung in (2, 1, 0):
+            store.to_rung(rung)
+            tree_ = store.params()
+            name = next(n for n, v in KERNELS.items() if v[0] == rung)
+            r = {"kernel": [], "plain": [], "control": []}
+            for b in batches:
+                dispatch.reset_counters()
+                r["kernel"].append(model.loss_fn(tree_, b).item())
+                c = dispatch.COUNTERS
+                got = (c[name].launches, c[name].tc_launches, c["flash_attention"].launches,
+                       sum(x.plain_launches for x in c.values()))
+                for n in KERNELS:
+                    launches[n][0] += c[n].launches
+                    launches[n][1] += c[n].dec_launches
+                    launches[n][2] += c[n].tc_launches
+                if got[0] != per_forward or got[2] != cfg.num_layers or got[3]:
+                    raise AssertionError(f"score rung {rung}: {name} {got[0]} launches (want "
+                                         f"{per_forward}), K5 {got[2]} (want "
+                                         f"{cfg.num_layers}), plain {got[3]}")
+                r["tc_launches"] = got[1]
+                k5 += got[2]
+                with dispatch.reference_pass():
+                    r["plain"].append(model.loss_fn(tree_, b).item())
+                if rung > 0:
+                    r["control"].append(model.loss_fn(set_tree_rung(tree_, rung - 1), b).item())
+            r["rel"] = max(abs(k - p) / p for k, p in zip(r["kernel"], r["plain"]))
+            r["control_rel"] = (max(abs(k - p) / p for k, p in zip(r["control"], r["plain"]))
+                                if rung > 0 else None)
+            r["gap_to_dense"] = [k - d for k, d in zip(r["kernel"], dense)]
+            rungs[rung] = r
+            log(f"[score] rung {rung}: loss {', '.join(f'{x:.5f}' for x in r['kernel'])} "
+                f"(plain {', '.join(f'{x:.5f}' for x in r['plain'])}; rel "
+                f"{r['rel']:.2e}, tol {SCORE_TOL:.1e}"
+                + (f"; one stream short {r['control_rel']:.2e}" if rung > 0 else "")
+                + f"); gap to dense {', '.join(f'{x:+.5f}' for x in r['gap_to_dense'])}; "
+                f"{name} {per_forward} launches a forward ({r['tc_launches']} on the tensor "
+                f"cores), K5 {cfg.num_layers}")
+            if not (r["rel"] <= SCORE_TOL and (rung == 0 or r["control_rel"] > SCORE_TOL)
+                    and all(math.isfinite(x) for x in r["kernel"])):
+                failures.append(rung)
+    out = {"quantize_s": t_q, "rung_bytes": rung_bytes, "dense_loss": dense,
+           "rungs": rungs, "launches": {n: tuple(v) for n, v in launches.items()},
+           "k5_launches": k5,
+           "full_bit_gap": rungs[2]["gap_to_dense"], "part_bit_gap": rungs[0]["gap_to_dense"]}
+    log(f"[score] full-bit (rung 2) loss gap to dense "
+        f"{', '.join(f'{x:+.5f}' for x in out['full_bit_gap'])}; part-bit (rung 0) "
+        f"{', '.join(f'{x:+.5f}' for x in out['part_bit_gap'])}")
+    del store
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"scoring failed at rungs {failures}: {rungs}")
+    return out
+
+
+def phase_train():
+    """Phase 8: the gradient check, training, NestQuant of the trained
+    weights and scoring at every rung, then the CLI's crash and resume."""
+    t0 = time.perf_counter()
+    check = train_grad_check()
+    cfg, params, run = train_run()
+    score = train_score(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    cli = train_cli_resume()
+    seconds = time.perf_counter() - t0
+    log(f"[train] phase 8 took {seconds:.1f}s ({smi_line()})")
+    return {"check": check, "run": run, "cli": cli, "score": score, "seconds": seconds,
+            "k5_launches": (check["float32"]["k5_launches"] + check["bfloat16"]["k5_launches"]
+                            + run["k5_launches"] + score["k5_launches"]),
+            "launches": score["launches"]}
+
+
 def prefill_summary(rows, name, tc_launches):
     """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
     M = 4096 bf16 on the tensor-core body (every main-path shape but the
@@ -3133,7 +3640,8 @@ def decode_steps(rows, M, dtype):
     return out
 
 
-def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, M=4, dtype="bfloat16"):
+def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, train_info, M=4,
+                   dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
     (every main-path shape times its uses per forward) on the decode body,
     the same launches on the CUDA-core body beside it (``cuda_core_ms``);
@@ -3141,7 +3649,8 @@ def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, M=4, dtype="
     ``decode_launches`` those on the decode body; the long prefill's
     tensor-core launches as its ``prefill`` entry; phase 6's (all, decode
     body, tensor cores) as ``moe_launches``, phase 7's per model as
-    ``ssm_launches``."""
+    ``ssm_launches``, phase 8's scoring (all, decode body, tensor cores) as
+    ``score_launches``."""
     out = []
     for name, (_, source, replaces) in KERNELS.items():
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
@@ -3161,11 +3670,12 @@ def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, M=4, dtype="
                    f"launches at M={M} {dtype}, decode body",
             "prefill": prefill_summary(rows, name, tc_launches[name]),
             "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],),
-            "ssm_launches": {arch: m["launches"][name] for arch, m in ssm_info.items()}})
+            "ssm_launches": {arch: m["launches"][name] for arch, m in ssm_info.items()},
+            "score_launches": train_info["launches"][name]})
     return out
 
 
-def kv_kernel_summary(rows, launches, moe_flash, ssm_flash):
+def kv_kernel_summary(rows, launches, moe_flash, ssm_flash, train):
     """K4-K6 entries of the kernels line, each at its main-path shape: K4 on
     the served cache (rung 2 of (4, 6, 8), one decode token's G = 6 query
     heads per kv head), K5 one long prefill's attention (S = 2048, bf16,
@@ -3205,7 +3715,9 @@ def kv_kernel_summary(rows, launches, moe_flash, ssm_flash):
         if name == "nested_qk":          # the CUDA-core control and the launch floor
             out[-1].update(cuda_core_ms=tot("cuda_core_ms"), launch_floor_ms=floor_ms)
         if name == "flash_attention":
-            out[-1].update(moe_check=moe_flash, ssm_check=ssm_flash)
+            out[-1].update(moe_check=moe_flash, ssm_check=ssm_flash,
+                           train_launches=train["k5_launches"],
+                           with_stats=sel[0]["with_stats"])
     return out
 
 
@@ -3264,18 +3776,28 @@ def main() -> int:
     log(f"[moe] peak device memory over phase 6 {moe_info['peak_mem_bytes'] / 1e9:.2f} GB")
     peak_before_ssm = max(peak_before_moe, moe_info["peak_mem_bytes"])
     ssm_info = phase_ssm(gen)
+    peak_before_train = max([peak_before_ssm]
+                            + [m["peak_mem_bytes"] for m in ssm_info.values()])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_info = phase_train()
+    train_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
     launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
                          + sum(m["launches"][n][i] for m in ssm_info.values())
+                         + train_info["launches"][n][i]
                          for i in range(2))
                 for n in KERNELS}
     kv_launches = {"flash_attention": (long_info["launches"]["flash_attention"]
                                        + moe_info["flash_launches"]
-                                       + sum(m["flash_launches"] for m in ssm_info.values())),
+                                       + sum(m["flash_launches"] for m in ssm_info.values())
+                                       + train_info["k5_launches"]),
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info, ssm_info)
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info, ssm_info,
+                              train_info)
                + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
-                                   ssm_info["zamba2-2.7b"]["flash_check"]))
+                                   ssm_info["zamba2-2.7b"]["flash_check"], train_info))
     steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
              for dt in ("bfloat16", "float32")}
     for key, by in steps.items():
@@ -3289,9 +3811,9 @@ def main() -> int:
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
+              "train": train_info,
               "kernels": kernels, "decode_steps": steps,
-              "peak_mem_bytes": max([peak_before_ssm]
-                                    + [m["peak_mem_bytes"] for m in ssm_info.values()]),
+              "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)
     args.report.write_text(json.dumps(report, indent=1))

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -359,6 +359,39 @@ def default_predicate(path: str, leaf: Any, min_dim: int = 64) -> bool:
         return False
     lowered = path.lower()
     return not any(kw in lowered for kw in ("norm", "bias", "conv", "a_log", "router"))
+
+
+def nest_quantize_tree(params, n: int = 8, h: Optional[int] = None,
+                       rounding: str = "adaptive",
+                       predicate: Callable[[str, Any], bool] = default_predicate,
+                       group_size: Optional[int] = None,
+                       block: Optional[int] = None,
+                       bits: Optional[Sequence[int]] = None, device="cuda"):
+    """Apply Algorithm 1 across a parameter tree (on ``device``).
+
+    DEPRECATED keyword-soup shim, as in the reference: build a declarative
+    :class:`repro_torch.core.recipe.QuantRecipe` and call
+    ``repro_torch.api.quantize(params, recipe)`` instead.
+
+    ``bits`` selects a K-rung ladder (e.g. ``(8, 6, 4)``); otherwise
+    ``h=None`` selects the critical nested combination per model via
+    Eq. 12 (model size in MB, 4 bytes per element of every leaf)."""
+    import warnings
+
+    from .recipe import QuantRecipe, quantize
+    warnings.warn(
+        "nest_quantize_tree is a compatibility shim; prefer "
+        "repro_torch.api.quantize(params, QuantRecipe(...)) (DESIGN.md Sec. 9)",
+        DeprecationWarning, stacklevel=2)
+    if bits is None:
+        if h is None:
+            size_mb = sum(x.numel() * 4 / 1e6 for x in tree.leaves(params)
+                          if hasattr(x, "numel"))
+            h = critical_nested_bits(size_mb, n)
+        bits = (h, n)
+    recipe = QuantRecipe(bits=normalize_bits(bits), rounding=rounding,
+                         block=block, group_size=group_size, predicate=predicate)
+    return quantize(params, recipe, device=device)
 
 
 def _is_nested(x) -> bool:

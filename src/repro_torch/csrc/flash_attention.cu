@@ -69,6 +69,17 @@
 // (exp(0) terms that the first unmasked tile rescales by
 // exp(-1e30 - m) = 0).
 //
+// Row statistics (the training forward): when ``stats`` is not null, both
+// bodies also write each row's final running max m (in the units of the
+// scaled scores, natural log: the kernel exponentiates with __expf) and
+// its denominator l (the f32 sum of the unrounded p) as f32, m at
+// stats[(b * Hq + h) * S + s] and l at stats[B * Hq * S + (b * Hq + h) * S
+// + s]: the (m, l) of the reference's _flash_fwd_inner, which the
+// blockwise backward recomputes p from.  Rows past S are not written.  One
+// lane of the lanes that hold a row writes it (a quad in the bf16 body, 16
+// column lanes in the f32 body), after the reduction that already gives
+// every lane of the row the same value.  The serving launch passes null.
+//
 // Limits (the Python wrapper checks them first): bf16 or f32, q/k/v of
 // one dtype, hd <= 128 and a multiple of 8, Hq a multiple of Hkv.
 
@@ -99,9 +110,18 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* stats;  // null, or (2, B, Hq, S) f32: m then l
   int B, S, Hq, Hkv, hd;
   float scale;
 };
+
+// row (b, h, s)'s (m, l) into the statistics, when asked for
+__device__ __forceinline__ void store_stats(const Args& a, int b, int h, int s, float m,
+                                            float l) {
+  const size_t i = (static_cast<size_t>(b) * a.Hq + h) * a.S + s;
+  a.stats[i] = m;
+  a.stats[static_cast<size_t>(a.B) * a.Hq * a.S + i] = l;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core body
@@ -279,6 +299,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qpos = row0 + r * 8;
     if (qpos >= a.S) continue;
+    if (a.stats != nullptr && t4 == 0) store_stats(a, b, h, qpos, m[r], l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * a.S + qpos) * a.Hq + h) * a.hd;
 #pragma unroll
@@ -432,6 +453,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= a.S) continue;
+    if (a.stats != nullptr && tx == 0) store_stats(a, b, h, qpos, m[i], l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
@@ -463,15 +485,16 @@ int launch_t(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // q (B, S, Hq, hd), k/v (B, S, Hkv, hd), o like q; all contiguous, one
-// dtype (bf16 when is_bf16, else f32).
-int nq_flash_attention(const void* q, const void* k, const void* v, void* o,
+// dtype (bf16 when is_bf16, else f32).  stats: null, or (2, B, Hq, S) f32
+// for each row's (m, l).
+int nq_flash_attention(const void* q, const void* k, const void* v, void* o, float* stats,
                        int is_bf16, int B, int S, int Hq, int Hkv, int hd,
                        float scale, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || hd < 8 ||
       hd > kMaxHd || hd % 8 != 0 || Hq > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a = {q, k, v, o, B, S, Hq, Hkv, hd, scale};
+  const Args a = {q, k, v, o, stats, B, S, Hq, Hkv, hd, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return launch_t<float>(a, s);
   return hd <= 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);

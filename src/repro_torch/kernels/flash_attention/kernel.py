@@ -8,6 +8,7 @@ the CUDA source.  Operands are checked by the wrapper in ``ops.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -16,11 +17,14 @@ from .. import build
 SOURCE = "flash_attention.cu"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """o like q; with ``stats`` (a contiguous f32 (2, B, Hq, S) tensor) the
+    kernel also writes each row's running max m and denominator l there."""
     B, S, Hq, hd = q.shape
     o = torch.empty_like(q)
     err = build.library(SOURCE).nq_flash_attention(
-        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
+        build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o), build.ptr(stats),
         int(q.dtype == torch.bfloat16), B, S, Hq, k.shape[2], hd,
         1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")

@@ -4,11 +4,16 @@ counterpart of ``repro/kernels/flash_attention/ops.py``.
 The reference sends an S that is not a multiple of its block to
 ``attention_ref``; here a CUDA tensor launches K5 at any S (the kernel
 masks a ragged tail itself) or raises, and a CPU tensor runs the plain
-version, the model's ``blockwise_attention`` (as the reference model's
-long prefill does).  ``ref.attention_ref`` is the tests' oracle."""
+version, the model's ``blockwise_forward`` (as the reference model's
+long prefill does).  Where a gradient is asked for, the op runs the
+model's differentiable ``blockwise_attention`` instead, whose forward
+launches K5 through :func:`flash_attention_stats`.  ``ref.attention_ref``
+is the tests' oracle."""
 from __future__ import annotations
 
-from ...models.attention import blockwise_attention
+import torch
+
+from ...models.attention import blockwise_attention, blockwise_forward
 from .. import dispatch
 from . import kernel
 
@@ -16,14 +21,33 @@ COUNTER = dispatch.counter("flash_attention")
 
 
 def flash_attention(q, k, v, kv_block: int = 512):
-    """Causal GQA attention, forward: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) ->
-    (B,S,Hq,hd) in q's dtype.  A CUDA tensor launches K5 (or raises); a
-    CPU tensor runs the plain blockwise version with ``kv_block`` keys per
-    block (an S that is no multiple of it runs direct attention)."""
+    """Causal GQA attention: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)
+    in q's dtype.  With grad enabled and an input that requires it, the
+    differentiable ``blockwise_attention`` (K5 with its row statistics on
+    the card, the blockwise backward).  Otherwise a CUDA tensor launches
+    K5 (or raises) and a CPU tensor runs the plain blockwise version with
+    ``kv_block`` keys per block (an S that is no multiple of it runs
+    direct attention)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return blockwise_attention(q, k, v, True, kv_block)
     if dispatch.takes_kernel(q):
         dispatch.check_flash_operands(q, k, v)
         o = kernel.flash_attention(q, k, v)
         COUNTER.launches += 1
         return o
     COUNTER.plain_launches += 1
-    return blockwise_attention(q, k, v, True, kv_block)
+    return blockwise_forward(q, k, v, True, kv_block)
+
+
+def flash_attention_stats(q, k, v):
+    """K5 on the card with its row statistics: (o, m, l), m and l f32
+    (B, Hkv, G, S), the layout of the plain forward's.  The training
+    forward's launch; it is counted like the served one."""
+    dispatch.check_flash_operands(q, k, v)
+    B, S, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    stats = torch.empty((2, B, Hq, S), dtype=torch.float32, device=q.device)
+    o = kernel.flash_attention(q, k, v, stats)
+    COUNTER.launches += 1
+    m, l = (t.view(B, Hkv, Hq // Hkv, S) for t in stats.unbind(0))
+    return o, m, l

@@ -27,8 +27,7 @@ import json
 
 import torch
 
-from ..configs import get_config
-from ..models.model import make_model
+from ..api import get_config, make_model
 from .flags import chaos_profile, traffic_parent
 
 K8S_TEMPLATE = """\
@@ -72,7 +71,7 @@ spec:
 def make_specs(args, need: list) -> list:
     """The CLI's replica mix: round-robin link speeds, burst traffic on
     even replicas when --trace burst, chaos on every --chaos-every'th."""
-    from ..fleet import ReplicaSpec
+    from ..api import ReplicaSpec
     links = [float(x) for x in args.link_mbps.split(",")]
     specs = []
     for i in range(args.replicas):
@@ -141,8 +140,7 @@ def main(argv=None):
               f"{args.replicas} completions")
         return
 
-    from ..core.recipe import QuantRecipe, quantize
-    from ..fleet import FleetController, build_fleet
+    from ..api import FleetController, QuantRecipe, build_fleet, quantize
     device = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -47,12 +47,9 @@ import time
 import numpy as np
 import torch
 
-from ..configs import get_config
+from ..api import (NestQuantStore, QuantRecipe, Request, ServeEngine, SpecConfig,
+                   get_config, make_model, quantize, recipe_summary)
 from ..core.nesting import mode_to_rung
-from ..core.recipe import QuantRecipe, quantize, recipe_summary
-from ..core.switching import NestQuantStore
-from ..models.model import make_model
-from ..serving.engine import Request, ServeEngine, SpecConfig
 from .flags import traffic_parent
 
 

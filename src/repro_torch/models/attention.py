@@ -1,13 +1,17 @@
 """Attention: GQA + RoPE, direct attention for short prefill and decode,
-and the forward of the blockwise (flash-semantics) path used for long
-prefill; counterpart of ``repro/models/attention.py``.
+and the blockwise (flash-semantics) path used for long prefill, with its
+backward; counterpart of ``repro/models/attention.py``.
 
-This is plain tensor code, as in the reference.  A prompt over 1024
-tokens goes from ``models/model.py::attn_seq`` to the flash-attention op
-(``kernels/flash_attention``): on the card it launches the hand-written
-kernel K5, and ``blockwise_attention`` is the op's plain version (CPU
-tensors and ``reference_pass``).  Scores and the softmax are
-f32; the probabilities are cast to v's dtype before the PV product.
+A prompt over 1024 tokens goes from ``models/model.py::attn_seq`` to the
+flash-attention op (``kernels/flash_attention``).  Served (no gradient),
+the op launches the hand-written kernel K5 on the card and
+``blockwise_forward`` is its plain version (CPU tensors and
+``reference_pass``).  In training the op runs :class:`BlockwiseAttention`,
+the reference's ``custom_vjp``: K5 (or the plain forward) also gives the
+row statistics (m, l), and the backward is the reference's blockwise
+``_flash_bwd``, plain PyTorch on both devices (the JAX package has no
+backward kernel).  Scores and the softmax are f32; the probabilities are
+cast to v's dtype before the PV product.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import math
 from typing import Optional
 
 import torch
+
+from ..kernels import dispatch
 
 NEG_INF = -1e30
 
@@ -45,14 +51,12 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return o.reshape(B, Sq, Hq, hd)
 
 
-def blockwise_attention(q, k, v, causal: bool = True,
-                        kv_block: int = 512) -> torch.Tensor:
-    """Forward of flash-semantics attention: KV blocks with running
-    (max, denom, acc) so the S x S score matrix is never formed.
-    q: (B,S,Hq,hd), k/v: (B,S,Hkv,hd)."""
+def _flash_fwd_inner(q, k, v, causal: bool, kv_block: int):
+    """Plain forward over KV blocks with running (max, denom, acc), so the
+    S x S score matrix is never formed; S a multiple of ``kv_block``.
+    Returns (o in q's dtype, m, l), m and l the f32 row statistics
+    (B, Hkv, G, S) the backward recomputes the probabilities from."""
     B, S, Hq, hd = q.shape
-    if S % kv_block != 0:
-        return full_attention(q, k, v, causal=causal)
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, S, Hkv, G, hd)
@@ -77,7 +81,108 @@ def blockwise_attention(q, k, v, causal: bool = True,
         acc = acc * corr[..., None] + pv
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
-    return torch.movedim(o, -2, 1).reshape(B, S, Hq, hd).to(q.dtype)
+    return torch.movedim(o, -2, 1).reshape(B, S, Hq, hd).to(q.dtype), m, l
+
+
+def blockwise_forward(q, k, v, causal: bool = True, kv_block: int = 512) -> torch.Tensor:
+    """The plain forward alone (no row statistics, nothing saved): the
+    served path's plain version of K5.  An S that is no multiple of
+    ``kv_block`` runs direct attention, as the reference does."""
+    if q.shape[1] % kv_block != 0:
+        return full_attention(q, k, v, causal=causal)
+    return _flash_fwd_inner(q, k, v, causal, kv_block)[0]
+
+
+def _flash_bwd(q, k, v, o, m, l, do, causal: bool, kv_block: int):
+    """The reference's ``_flash_bwd``: D = sum dO * O, then per KV block
+    recompute p = exp(s - m) / l from the saved row statistics and form
+    dv, dp, ds = p (dp - D) scale, dq, and dk and dv summed over each GQA
+    group - every product in f32, the S x S matrix never formed at once.
+    A ragged last block is as wide as what is left of S.  Under ``causal``
+    the query rows before a block's first key see none of its keys (their
+    p is exactly 0 there), so each block's products start at that row."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, Hkv, G, hd).float()
+    dog = do.reshape(B, S, Hkv, G, hd).float()
+    og = o.reshape(B, S, Hkv, G, hd).float()
+    delta = torch.movedim((dog * og).sum(dim=-1), 1, -1)          # (B,Hkv,G,S)
+    linv = 1.0 / torch.clamp(l, min=1e-30)
+    qpos = torch.arange(S, device=q.device)
+    dq = torch.zeros_like(qg)
+    dk = torch.empty((B, S, Hkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for j0 in range(0, S, kv_block):
+        j1 = min(j0 + kv_block, S)
+        r0 = j0 if causal else 0
+        kj, vj = k[:, j0:j1].float(), v[:, j0:j1].float()
+        qr, dor = qg[:, r0:], dog[:, r0:]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qr, kj) * scale
+        if causal:
+            kpos = torch.arange(j0, j1, device=q.device)
+            s = torch.where(kpos[None, :] <= qpos[r0:, None], s, torch.full_like(s, NEG_INF))
+        p = torch.exp(s - m[..., r0:, None]) * linv[..., r0:, None]
+        dv[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", p, dor)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dor, vj)
+        ds = p * (dp - delta[..., r0:, None]) * scale
+        del s, p, dp
+        dq[:, r0:] += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj)
+        dk[:, j0:j1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qr)
+    return (dq.reshape(B, S, Hq, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+class BlockwiseAttention(torch.autograd.Function):
+    """Flash-semantics attention with a blockwise backward: the counterpart
+    of the reference's ``custom_vjp`` pair ``_flash_fwd`` / ``_flash_bwd``.
+
+    Forward: a CUDA tensor launches K5 with its row statistics (or raises);
+    a CPU tensor, or any tensor inside ``dispatch.reference_pass``, runs
+    the plain blockwise forward.  Either way o and the f32 (m, l) are
+    saved.  An S that is no multiple of ``kv_block`` takes direct
+    attention on the plain path and saves no statistics; its backward is
+    then direct attention's own, as the reference differentiates
+    ``full_attention`` there (K5 masks a ragged S itself and writes the
+    statistics, so the blockwise backward takes a ragged last block)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, kv_block: int):
+        if dispatch.takes_kernel(q):
+            if not causal:
+                raise ValueError("K5 is causal attention; a non-causal call on the card "
+                                 "has no kernel")
+            from ..kernels.flash_attention import ops
+
+            o, m, l = ops.flash_attention_stats(q, k, v)
+        else:
+            dispatch.counter("flash_attention").plain_launches += 1
+            if q.shape[1] % kv_block != 0:
+                o, m, l = full_attention(q, k, v, causal=causal), None, None
+            else:
+                o, m, l = _flash_fwd_inner(q, k, v, causal, kv_block)
+        ctx.causal, ctx.kv_block = causal, kv_block
+        ctx.save_for_backward(q, k, v, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, m, l = ctx.saved_tensors
+        if m is None:
+            with torch.enable_grad():
+                leaves = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+                out = full_attention(*leaves, causal=ctx.causal)
+                grads = torch.autograd.grad(out, leaves, do)
+        else:
+            grads = _flash_bwd(q, k, v, o, m, l, do, ctx.causal, ctx.kv_block)
+        return grads + (None, None)
+
+
+def blockwise_attention(q, k, v, causal: bool = True,
+                        kv_block: int = 512) -> torch.Tensor:
+    """Flash-semantics attention, differentiable (:class:`BlockwiseAttention`).
+    q: (B,S,Hq,hd), k/v: (B,S,Hkv,hd)."""
+    return BlockwiseAttention.apply(q, k, v, causal, kv_block)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:

@@ -10,8 +10,11 @@ match.  Where the reference scans layers with ``lax.scan``, the port
 loops over them in Python with a per-layer view of every leaf
 (:meth:`NestedTensor.layer` for nested ones).
 
-Public surface, built by :func:`make_model`:
+Public surface, built by :func:`make_model` (fields of :class:`Model` in
+the reference's order; take them by name):
   init(seed)                          -> params
+  loss_fn(params, batch)              -> scalar f32 loss: next-token cross
+                                         entropy + 0.01 * the MoE aux loss
   prefill(params, inputs)             -> (last_logits f32, cache)
   decode_step(params, inputs, cache)  -> (logits f32, cache)  (cache updated in place)
   decode_chunk(params, inputs, cache) -> (logits f32 (B,S,V), cache)  (the same;
@@ -25,7 +28,19 @@ Public surface, built by :func:`make_model`:
 A MoE layer's FFN is ``models/moe.py::moe_ffn``: each expert with rows
 runs its three matmuls through ``packed_linear`` on its 2-D view.  Runs
 that build a cache (prefill) and every decode run route droplessly, as
-the reference's do.  A Mamba2 layer is ``models/mamba2.py``: only its
+the reference's do; ``loss_fn`` keeps the capacity-dropped dispatch and
+sums the layers' Switch aux losses.
+
+Training: ``loss_fn`` is differentiable in every dense leaf with
+``torch.autograd``.  A long sequence's attention is the differentiable
+``attention.blockwise_attention`` (K5 with its row statistics forward on
+the card, the reference's blockwise backward).  With ``cfg.remat`` each
+layer body (and the hybrid's shared block) runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`` while a
+gradient is being recorded: only the layer inputs are kept and the body
+is recomputed in the backward, as ``jax.checkpoint(..., nothing_saveable)``
+does.  On a nested tree ``loss_fn`` reads the packed words as serving
+does (K1-K3 for every matmul, a row gather for the embedding).  A Mamba2 layer is ``models/mamba2.py``: only its
 ``in_proj`` and ``out_proj`` are matmuls; the hybrid's shared block runs
 attention and a gelu MLP on concat(hidden, first embedding), 2d wide.
 
@@ -48,6 +63,7 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.nesting import NestedTensor
@@ -180,7 +196,9 @@ def attn_seq(x, lp, cfg, kv_block: int = 512):
     """Full-sequence causal attention. Returns (out, (k, v)).  A prompt
     over 1024 tokens goes to the flash-attention op: K5 on a CUDA tensor
     (or raises), its plain blockwise version on a CPU tensor or inside
-    ``reference_pass``."""
+    ``reference_pass``; with a gradient recorded, through the
+    differentiable ``blockwise_attention`` (K5 writing its row
+    statistics on the card)."""
     B, S = x.shape[:2]
     q, k, v = _qkv(x, lp, cfg)
     pos = torch.arange(S, device=x.device)
@@ -243,35 +261,58 @@ def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
 # ===========================================================================
 # Transformer forward (dense / moe)
 # ===========================================================================
-def _ffn(h, lp, cfg, dropless: bool = False, route=None, per_position: bool = False):
-    """The layer's FFN: the MLP, or for the MoE family ``moe_ffn`` (no aux
-    loss computed: nothing here trains).  ``per_position``: route a MoE
-    layer's tokens position by position (the decode chunk)."""
+def _ffn(h, lp, cfg, dropless: bool = False, route=None, per_position: bool = False,
+         want_aux: bool = False):
+    """The layer's FFN -> (y, aux): the MLP (aux 0.0), or for the MoE family
+    ``moe_ffn``, whose Switch aux loss is computed only with ``want_aux``
+    (training; eager PyTorch would otherwise compute it on every serving
+    call).  ``per_position``: route a MoE layer's tokens position by
+    position (the decode chunk)."""
     if cfg.family == "moe":
-        y, _ = moe_ffn(h, lp["moe"], num_experts=cfg.num_experts, top_k=cfg.top_k,
-                       capacity_factor=cfg.capacity_factor, act=cfg.act,
-                       dropless=dropless, route=route, per_position=per_position,
-                       want_aux=False)
-        return y
-    return mlp(h, lp["mlp"], cfg.act, route=route)
+        y, aux = moe_ffn(h, lp["moe"], num_experts=cfg.num_experts, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act,
+                         dropless=dropless, route=route, per_position=per_position,
+                         want_aux=want_aux)
+        return y, (aux if want_aux else 0.0)
+    return mlp(h, lp["mlp"], cfg.act, route=route), 0.0
+
+
+def _remat(body, cfg, want_cache: bool):
+    """``body`` under activation checkpointing on a training run (no cache)
+    when ``cfg.remat`` asks for it and a gradient is being recorded (the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``); else
+    ``body`` itself, so the served path runs as it did."""
+    if want_cache or not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
+def _tf_layer_seq(h, lp, cfg, dropless: bool):
+    """One transformer layer over the sequence -> (h, (k, v), aux)."""
+    a, kv = attn_seq(norm(h, lp["attn_norm"], cfg.norm), lp, cfg)
+    h = h + a
+    y, aux = _ffn(norm(h, lp["mlp_norm"], cfg.norm), lp, cfg, dropless=dropless,
+                  want_aux=not dropless)
+    return h + y, kv, aux
 
 
 def transformer_seq(params, x, cfg, want_cache: bool):
-    """x: (B,S,d) embedded input. Returns (h, cache or None).  A run that
-    builds a cache routes MoE layers droplessly, so the cached decode
-    reproduces it."""
-    h = x
+    """x: (B,S,d) embedded input. Returns (h, cache or None, aux sum).  A
+    run that builds a cache (prefill) routes MoE layers droplessly, so the
+    cached decode reproduces it; training (``want_cache=False``) keeps the
+    capacity-dropped dispatch and sums the layers' aux losses in layer
+    order."""
+    body = _remat(_tf_layer_seq, cfg, want_cache)
+    h, aux = x, 0.0
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        a, (k, v) = attn_seq(norm(h, lp["attn_norm"], cfg.norm), lp, cfg)
-        h = h + a
-        h = h + _ffn(norm(h, lp["mlp_norm"], cfg.norm), lp, cfg, dropless=want_cache)
+        h, (k, v), aux_l = body(h, layer_params(params["blocks"], i), cfg, want_cache)
+        aux = aux + aux_l
         if want_cache:
             ks.append(k)
             vs.append(v)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
-    return h, cache
+    return h, cache, aux
 
 
 def transformer_decode(params, x, cfg, cache, pos: int):
@@ -283,7 +324,7 @@ def transformer_decode(params, x, cfg, cache, pos: int):
         h = h + attn_decode(norm(h, lp["attn_norm"], cfg.norm), lp, cfg,
                             cache["k"][i], cache["v"][i], pos)
         h = h + _ffn(norm(h, lp["mlp_norm"], cfg.norm), lp, cfg, dropless=True,
-                     route=dispatch.DECODE)
+                     route=dispatch.DECODE)[0]
     return h
 
 
@@ -297,7 +338,7 @@ def transformer_decode_chunk(params, x, cfg, cache, pos: int):
         a = _per_position(lambda t: norm(t, lp["attn_norm"], cfg.norm), h)
         h = h + attn_decode_chunk(a, lp, cfg, cache["k"][i], cache["v"][i], pos)
         m = _per_position(lambda t: norm(t, lp["mlp_norm"], cfg.norm), h)
-        h = h + _ffn(m, lp, cfg, dropless=True, route=dispatch.DECODE, per_position=True)
+        h = h + _ffn(m, lp, cfg, dropless=True, route=dispatch.DECODE, per_position=True)[0]
     return h
 
 
@@ -337,30 +378,34 @@ def _shared_block_seq(h, emb0, sp, cfg):
 def ssm_seq(params, x, cfg, want_cache: bool):
     """Mamba2 trunk over x (B,S,d), with the hybrid's groups: one shared
     block application, then ``hybrid_attn_every`` Mamba2 layers.  Returns
-    (h, cache or None): state (L,B,H,P,N) f32, conv_buf (L,B,W-1,C) and,
-    for the hybrid, k/v (napps,B,S,Hkv,hd) in the compute dtype."""
+    (h, cache or None, aux 0.0): state (L,B,H,P,N) f32, conv_buf
+    (L,B,W-1,C) and, for the hybrid, k/v (napps,B,S,Hkv,hd) in the compute
+    dtype.  Under remat the Mamba2 block and the shared block are each
+    recomputed in the backward, as the reference wraps them."""
     every = cfg.hybrid_attn_every
     emb0, h = x, x
+    block = _remat(mamba2.mamba_block, cfg, want_cache)
+    shared = _remat(_shared_block_seq, cfg, want_cache)
     states, bufs, ks, vs = [], [], [], []
     for i in range(cfg.num_layers):
         if every and i % every == 0:
-            h, (k, v) = _shared_block_seq(h, emb0, params["shared"], cfg)
+            h, (k, v) = shared(h, emb0, params["shared"], cfg)
             if want_cache:
                 ks.append(k)
                 vs.append(v)
         lp = layer_params(params["blocks"], i)
-        y, mc = mamba2.mamba_block(norm(h, lp["norm"], cfg.norm), lp, cfg)
+        y, mc = block(norm(h, lp["norm"], cfg.norm), lp, cfg)
         h = h + y
         if want_cache:
             states.append(mc["state"])
             bufs.append(mc["conv_buf"])
     if not want_cache:
-        return h, None
+        return h, None, 0.0
     cache = {"state": torch.stack(states), "conv_buf": torch.stack(bufs)}
     if every:
         cdt = torch_dtype(cfg.compute_dtype)
         cache["k"], cache["v"] = torch.stack(ks).to(cdt), torch.stack(vs).to(cdt)
-    return h, cache
+    return h, cache, 0.0
 
 
 def ssm_decode(params, x, cfg, cache, pos: int):
@@ -412,12 +457,34 @@ def lm_logits(params, h, cfg, route=None):
     return pdot(h, w.to(h.dtype), preferred=torch.float32)
 
 
+def xent_loss(logits, labels) -> torch.Tensor:
+    """Mean next-token cross entropy in f32: logsumexp minus the gold
+    logit, averaged over every position."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _forward_seq(params, inputs, cfg, want_cache: bool):
+    """Embed, run every layer, final norm -> (h, cache or None, aux sum)."""
+    h = embed_inputs(params, inputs, cfg)
+    if cfg.family in ("dense", "moe"):
+        h, cache, aux = transformer_seq(params, h, cfg, want_cache)
+    else:
+        if want_cache:
+            _check_prompt(cfg, h.shape[1])
+        h, cache, aux = ssm_seq(params, h, cfg, want_cache)
+    return norm(h, params["final_norm"], cfg.norm), cache, aux
+
+
 # ===========================================================================
 # Public model surface
 # ===========================================================================
 class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     make_cache: Callable
@@ -434,14 +501,14 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
     def init(seed: int = 0):
         return init_params(cfg, seed=seed, device=dev)
 
+    def loss_fn(params, batch):
+        """Next-token cross entropy of ``batch`` (``tokens`` or
+        ``embeddings``, and ``labels`` (B,S)) + 0.01 * the MoE aux loss."""
+        h, _, aux = _forward_seq(params, batch, cfg, want_cache=False)
+        return xent_loss(lm_logits(params, h, cfg), batch["labels"]) + 0.01 * aux
+
     def prefill(params, inputs):
-        h = embed_inputs(params, inputs, cfg)
-        if transformer:
-            h, cache = transformer_seq(params, h, cfg, want_cache=True)
-        else:
-            _check_prompt(cfg, h.shape[1])
-            h, cache = ssm_seq(params, h, cfg, want_cache=True)
-        h = norm(h, params["final_norm"], cfg.norm)
+        h, cache, _ = _forward_seq(params, inputs, cfg, want_cache=True)
         last = lm_logits(params, h[:, -1:, :], cfg)
         cache["pos"] = h.shape[1]
         return last, cache
@@ -494,5 +561,6 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
 
     # a state recurrence has no cached multi-token re-score path; the
     # speculative decoder refuses these families, as the reference's does
-    return Model(cfg, init, prefill, decode_step, make_cache,
-                 decode_chunk if transformer else None)
+    return Model(cfg=cfg, init=init, loss_fn=loss_fn, prefill=prefill,
+                 decode_step=decode_step, make_cache=make_cache,
+                 decode_chunk=decode_chunk if transformer else None)

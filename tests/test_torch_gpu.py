@@ -1165,3 +1165,127 @@ def test_moe_warmup_then_serve_makes_no_first_decode_launch(cuda):
             assert store.rung == rung
             assert dispatch.DEC_INSTANCES == warmed, (rung, n)
     assert sorted(build._libs) == libs and build._dec_plans == plans
+
+
+# ---------------------------------------------------------------------------
+# training: K5 with its row statistics, the blockwise backward, a train step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [(2, 2048, 12, 2, 128), (2, 1100, 12, 2, 128),
+                                           (1, 65, 4, 4, 64), (1, 300, 8, 2, 40)])
+def test_flash_attention_stats_match_plain_forward(cuda, B, S, Hq, Hkv, hd, dtype):
+    """K5 with statistics: o as without them (bit for bit) and within the
+    K5 limits of the plain forward; each row's running max m and
+    denominator l within 1e-5 of the plain forward's (m against max(1,
+    |m|), l relative)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import _flash_fwd_inner
+
+    g = torch.Generator(device=cuda).manual_seed(S + 1)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = fa.COUNTER.launches
+    o, m, l = fa.flash_attention_stats(q, k, v)
+    assert fa.COUNTER.launches == before + 1
+    assert torch.equal(o, fa.flash_attention(q, k, v))
+    want_o, want_m, want_l = _flash_fwd_inner(q, k, v, True, S)
+    torch.cuda.synchronize()
+    assert m.shape == want_m.shape == (B, Hkv, Hq // Hkv, S) and l.dtype == torch.float32
+    err = (o.float() - want_o.float()).abs().max().item()
+    assert err <= TOL[dtype] * want_o.float().abs().max().item(), err
+    assert ((m - want_m).abs() / want_m.abs().clamp_min(1.0)).max().item() <= 1e-5
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,kv_block", [(1024, 256), (1100, 256)])
+def test_blockwise_attention_grads_with_k5_match_plain(cuda, S, kv_block, dtype):
+    """The differentiable blockwise attention on the card (K5 forward with
+    statistics, the blockwise backward) against the same Function on the
+    plain path, and, at a ragged S, the plain path's own gradient (direct
+    attention's).  Gradients within 1e-4 (f32) / 2e-2 (bf16) of each
+    input's max |g|."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import blockwise_attention
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(2, S, h, 64, generator=g, device=cuda).to(dtype)
+               for h in (6, 2, 2))
+    do = torch.randn(2, S, 6, 64, generator=g, device=cuda).to(dtype)
+
+    def grads():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = blockwise_attention(*leaves, True, kv_block)
+        return torch.autograd.grad(out, leaves, do)
+
+    before = fa.COUNTER.launches
+    got = grads()
+    assert fa.COUNTER.launches == before + 1
+    with dispatch.reference_pass():
+        want = grads()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item(), err
+
+
+def test_train_step_gives_every_leaf_a_gradient(cuda):
+    """One train step of the reduced qwen2 at 2 x 1100 tokens in bf16 on the
+    card (K5 in the forward and the remat recompute): every leaf gets a
+    nonzero gradient, the loss is finite and every parameter moves."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import make_model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), dtype="bfloat16",
+                              compute_dtype="bfloat16", remat=True)
+    model = make_model(cfg, device=cuda)
+    params = model.init(0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1101), generator=g, device=cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = tree.flatten_with_path(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    before = fa.COUNTER.launches
+    loss = model.loss_fn(tree.unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    assert fa.COUNTER.launches == before + 2 * cfg.num_layers
+    assert math.isfinite(loss.item())
+    for (key, _), gr in zip(flat, grads):
+        assert bool((gr != 0).any()), key
+    step = make_train_step(model, peak_lr=1e-3, warmup=0, total=10)
+    new, _, metrics = step(params, adamw.init_state(params), batch, 1)
+    assert math.isfinite(metrics["loss"].item())
+    for (key, a), b in zip(flat, tree.leaves(new)):
+        assert not torch.equal(a, b), key
+
+
+def test_train_step_gradients_repeat_bit_for_bit(cuda):
+    """Full-width qwen2-1.5b cut to 2 layers, 2 x 2048 tokens, bf16: three
+    identical gradient computations agree leaf for leaf, bit for bit,
+    without ``torch.use_deterministic_algorithms`` (the train CLI turns it
+    on as well)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import make_model
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    model = make_model(cfg, device=cuda)
+    params = model.init(0)
+    batch = to_device(SyntheticLM(DataConfig(cfg.vocab_size, 2048, 2)).batch(0), cuda)
+
+    def grads():
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        loss = model.loss_fn(tree.unflatten(params, leaves), batch)
+        return torch.autograd.grad(loss, leaves)
+
+    first = grads()
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(first, grads()))

@@ -84,14 +84,17 @@ def test_logits_and_greedy_tokens_match_at_every_rung(trees, source):
 
 
 def test_model_surface_raises_for_what_is_not_ported():
-    """Every family builds now; what is still not ported is training (the
-    reference's ``loss_fn``, ROADMAP queue 1 item 16), and a stacked leaf
-    (an expert stack) raises in ``packed_linear`` instead of dequantizing
-    around the kernels."""
+    """Every family builds and has the reference's ``loss_fn`` now, with
+    ``Model``'s fields in the reference's order; what still raises is a
+    stacked leaf (an expert stack) in ``packed_linear``, instead of
+    dequantizing around the kernels."""
+    from repro.models.model import Model as JaxModel
     from repro_torch.models.layers import packed_linear
+    from repro_torch.models.model import Model
+    assert Model._fields == JaxModel._fields
     for arch in ("qwen2-1.5b", "dbrx-132b", "mamba2-780m", "zamba2-2.7b"):
         model = make_model(get_config(arch).reduced(), device="cpu")
-        assert not hasattr(model, "loss_fn"), arch
+        assert callable(model.loss_fn), arch
     stacked = tn.nest_quantize(torch.randn(2, 64, 32, generator=torch.Generator().manual_seed(0)),
                                bits=(8, 4), rounding="rtn", block=64)
     with pytest.raises(NotImplementedError, match="takes a 2-D weight"):

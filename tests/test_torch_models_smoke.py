@@ -7,8 +7,10 @@ logits within 1e-4 of max |logit| of the JAX model's on the same inputs.
 The cached decode against the full forward (atol 2e-5, rtol 1e-4, the
 reference's own) for qwen2-1.5b, dbrx-132b, mamba2-780m and zamba2-2.7b.
 
-The train-step half of the reference's test (``loss_fn``, AdamW) waits
-for the port's training stack (ROADMAP queue 1 item 16)."""
+The train-step half of the reference's test: on the same parameters every
+config's ``loss_fn`` and its gradient are finite and one AdamW update
+moves the parameters (the loss and gradients of the four families are
+held against the JAX package's in tests/test_torch_train.py)."""
 import functools
 
 import jax
@@ -18,8 +20,10 @@ import torch
 
 from repro.configs import ARCHS
 from repro.models import make_model as jax_make_model
+from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.models import make_model
+from repro_torch.optim import adamw
 from torch_parity import j2n, jax_tree_to_torch, rehome, t2n
 
 TOL = 1e-4
@@ -83,3 +87,26 @@ def test_decode_matches_full_forward(arch):
     pad = rehome(cache, model.make_cache(B, S + 8, dtype="float32"), S)
     logits_dec, _ = model.decode_step(params, {"tokens": toks[:, S:S + 1]}, pad)
     np.testing.assert_allclose(t2n(logits_full), t2n(logits_dec), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_arch_smoke_train_step(arch):
+    cfg = get_config(arch).reduced()
+    jmodel, jparams = _jax_params(arch, 0)
+    batch, _ = _batch(jmodel.cfg, jax.random.PRNGKey(0))
+    toks = jax.random.randint(jax.random.PRNGKey(0), (2, 17), 0, cfg.vocab_size)
+    batch["labels"] = toks[:, 1:]
+    model = make_model(cfg, device="cpu")
+    params = jax_tree_to_torch(jparams)
+    inputs = _to_port(batch)
+    inputs["labels"] = inputs["labels"].long()
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    loss = model.loss_fn(tree.unflatten(params, leaves), inputs)
+    grads = torch.autograd.grad(loss, leaves)
+    assert np.isfinite(loss.item())
+    assert all(bool(g.isfinite().all()) for g in grads)
+    new, _, metrics = adamw.apply_update(params, tree.unflatten(params, grads),
+                                         adamw.init_state(params), lr=1e-3)
+    assert np.isfinite(metrics["grad_norm"].item())
+    assert max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(tree.leaves(params), tree.leaves(new))) > 0
