@@ -204,6 +204,31 @@ Phases (each raises on failure; the script then exits non-zero):
    K5 with its row statistics against the plain forward at S 1100 and 2048
    (o as K5's limits, m and l within 1e-5) and times it beside K5 without.
 
+9. The sharded steps of ``distributed/`` (phase 9, ``phase_sharded``): a
+   (data 2, model 2) mesh of four rank processes of this script (``--rank``)
+   joined by gloo, all on the one card (so their times measure no
+   scaling), each on its own blocks, against the world-1 steps (a (1, 1)
+   mesh, no process group) on the same card.  (a) The train step of
+   qwen2-1.5b at full width with 4 of its 28 layers, 4 x 2048 in
+   microbatches of 2: the loss, and each rank's blocks of the f32 state
+   after the step against the world-1 state's under ``SHARDED_STATE_TOL``,
+   which the control without the data-axis gradient average exceeds: m
+   and v per leaf (largest |diff| over the leaf's largest |value|), master
+   in units of the learning rate where m is large (``rank_train``); 16
+   K5 launches per rank, none plain; the step wall, the all-reduce bytes
+   beside ``predicted_train_comm`` and the peak memory per rank.  (b)
+   qwen2-1.5b with all 28 layers nested (4, 8) rtn as
+   ``steps.quantize_abstract`` lays it out, each rank nesting its own
+   blocks: a prefill of 4 x 64 tokens and 8 decode steps at rungs 0 and
+   1, f32 (logits within 1e-4, greedy tokens identical) and bf16 (within
+   3e-2), fed the world-1 run's tokens; each rank's K1/K2 launches (197 a
+   forward, the bodies by M) counted, none plain.  (c) dbrx-132b at its
+   published widths with 2 layers, nested, f32: a prefill of 4 x 8 tokens
+   and 4 decode steps; each data rank routes its own tokens, each model
+   rank computes its 8 of the 16 experts; every ``moe_ffn`` call equals
+   the one-card ``moe_ffn`` on the same tokens, each rank's expert groups
+   what its tokens' routing implies, and its K2 launches those groups'.
+
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
 kernels (launches, error, times, bound); the last line is
@@ -213,6 +238,7 @@ outside a checkout of the repository, the script fails before any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -3608,6 +3634,670 @@ def phase_train():
             "launches": score["launches"]}
 
 
+# ===========================================================================
+# Phase 9: the sharded steps (distributed/), four gloo ranks sharing the card
+# ===========================================================================
+SHARDED_MESH = (2, 2)                  # (data, model)
+SHARDED_TIMEOUT_S = 600
+# (a) on the H100 (PERF.md, PR 23): the loss 7.8e-8 from the world-1
+# step's (f32 partial sums over model in another order); per leaf, m and v
+# 1.75e-2 of the leaf's largest value (bf16 gradients rounded per data
+# rank), master 4.0e-4 of the learning rate where m is large; the control
+# without the data average 1.0-1.24 and 2.0.  (Read over each whole field,
+# a recompute that lost the sharding context read 0.187.)  The limit sits
+# between the sound readings and the controls; ``state_gaps`` says how
+# each is read.
+SHARDED_LOSS_TOL = 1e-5
+SHARDED_STATE_TOL = 0.1
+SHARDED_SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}     # phase 3's qwen2 limits
+SHARDED_MOE_TOL = 1e-4
+
+
+def sharded_plan():
+    """What phase 9 runs (read by every rank from ``plan.json``): (a) the
+    train step of qwen2-1.5b at full width with 4 of its 28 layers, global
+    batch 4 x 2048 in microbatches of 2, at schedule step 50 (learning rate
+    half its peak); (b) qwen2-1.5b, all 28 layers, nested (4, 8) rtn as
+    ``quantize_abstract`` lays it out: a prefill of 4 x 64 tokens and 8
+    decode steps at rungs 0 and 1, f32 and bf16; (c) dbrx-132b at its
+    published widths with 2 of its 40 layers, nested (4, 8), f32: a prefill
+    of 4 x 8 tokens and 4 greedy decode steps."""
+    return {"device": DEVICE, "mesh": list(SHARDED_MESH),
+            "train": {"arch": "qwen2-1.5b", "layers": 4, "batch": 4, "seq": 2048,
+                      "micro": 2, "step": 50},
+            "serve": {"arch": "qwen2-1.5b", "layers": None, "batch": 4, "prompt": 64,
+                      "new": 8, "rungs": [0, 1], "dtypes": ["float32", "bfloat16"]},
+            "moe": {"arch": MOE_ARCH, "layers": MOE_LAYERS, "batch": 4, "prompt": 8,
+                    "new": 4, "dtype": "float32"}}
+
+
+def _plan_config(part, **changes):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(part["arch"])
+    if part.get("layers"):
+        changes["num_layers"] = part["layers"]
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def _train_parts(plan):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import to_device
+
+    t = plan["train"]
+    cfg = _plan_config(t, **({"compute_dtype": t["compute"]} if t.get("compute") else {}))
+    shape = ShapeConfig("sharded_train", "train", t["seq"], t["batch"], microbatch=t["micro"])
+    data = SyntheticLM(DataConfig(cfg.vocab_size, t["seq"], t["batch"]), 0, 1)
+    return cfg, shape, to_device(data.batch(0), plan["device"])
+
+
+def _serve_shapes(part):
+    from repro_torch.configs.base import ShapeConfig
+    return (ShapeConfig("sharded_prefill", "prefill", part["prompt"], part["batch"]),
+            ShapeConfig("sharded_decode", "decode", part["prompt"] + part["new"],
+                        part["batch"]))
+
+
+def _nest_as_specs(dense, nested_specs, device):
+    """(4, 8) rtn nesting of exactly the leaves whose spec is nested (the
+    layout of ``steps.quantize_abstract``)."""
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.core.recipe import QuantRecipe, quantize
+
+    nested = {k for k, s in tree.flatten_with_path(nested_specs) if isinstance(s, NestedTensor)}
+    recipe = QuantRecipe(bits=(4, 8), rounding="rtn", predicate=lambda path, _: path in nested)
+    return quantize(dense, recipe, device=device)
+
+
+def _dense_specs(nested_specs):
+    """The dense weight's spec for each nested spec: its packed words' (the
+    output dim only), which cut a dense weight into the column block whose
+    nesting is this rank's block of the whole weight's."""
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+
+    return tree.map_with_path(
+        lambda _, s: s.w_base if isinstance(s, NestedTensor) else s, nested_specs)
+
+
+def _serve_prompt(cfg, part, device):
+    g = torch.Generator(device="cpu").manual_seed(9)
+    return torch.randint(0, cfg.vocab_size, (part["batch"], part["prompt"]),
+                         generator=g).to(device)
+
+
+def sharded_serve(prefill, decode, ps, ds, params, prompt, forced, mesh):
+    """A prefill, then one decode step per forced token column (None: own
+    greedy tokens, ``decode_new`` steps) -> (logits per forward on this
+    data rank's rows, greedy tokens, wall seconds)."""
+    from repro_torch.distributed.sharding import local_shard, shard_tree
+
+    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, pcache = prefill(params, {"tokens": local_shard(prompt, ps["batch"]["tokens"],
+                                                            mesh)})
+    B, S = prompt.shape
+    cache = shard_tree(ds["model"].make_cache(B, ds["max_len"]), ds["cache"], mesh)
+    for key in ("k", "v"):
+        cache[key][:, :, :S] = pcache[key]
+    cache["pos"] = pcache["pos"]
+    outs, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+    for j in range(ds["new"]):
+        tok = toks[-1] if forced is None else forced[j]
+        logits, cache = decode(params, {"tokens": tok[:, None]}, cache)
+        outs.append(logits[:, -1])
+        toks.append(logits[:, -1].argmax(-1))
+    sync()
+    return torch.stack(outs), torch.stack(toks), time.perf_counter() - t0
+
+
+def _serve_steps(cfg, part, mesh, quant="nested"):
+    from repro_torch.distributed import steps
+
+    pshape, dshape = _serve_shapes(part)
+    prefill, ps = steps.build_prefill_step(cfg, pshape, mesh, quant)
+    decode, ds = steps.build_decode_step(cfg, dshape, mesh, quant)
+    ds.update(max_len=dshape.seq_len, new=part["new"])
+    return prefill, ps, decode, ds
+
+
+def sharded_world1(plan, work: Path):
+    """The world-1 controls on the card (a (1, 1) mesh, no process group):
+    (a) the train step from the same init and batch, its loss and whole f32
+    state written to ``work``; (b) each (dtype, rung) serve's logits and
+    greedy tokens.  Launches here only compare, and are not counted."""
+    from repro_torch import tree
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import shape_only
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+
+    dev = plan["device"]
+    one = shape_only((1, 1), ("data", "model"), dev)
+    cfg, shape, batch = _train_parts(plan)
+    step, specs = steps.build_train_step(cfg, shape, one)
+    params = init_params(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, device=dev)
+    opt = adamw.init_state(params)
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch, plan["train"]["step"])
+    loss = float(metrics["loss"])
+    train_s = time.perf_counter() - t0
+    state = {f: {k: v.cpu() for k, v in tree.flatten_with_path(getattr(opt, f))}
+             for f in ("m", "v", "master")}
+    state["leafmax"] = {f: {k: float(v.abs().max()) for k, v in state[f].items()}
+                        for f in ("m", "v")}
+    state["loss"], state["lr"] = loss, float(metrics["lr"])
+    del params, opt, metrics
+    torch.save(state, work / "train_w1.pt")
+    del state
+    _empty_cache(dev)
+
+    part = plan["serve"]
+    scfg = _plan_config(part)
+    serve = {}
+    dense = init_params(scfg, seed=0, device=dev)
+    _, _, _, ds0 = _serve_steps(scfg, part, one)
+    nested = _nest_as_specs(dense, ds0["params"], dev)
+    del dense
+    prompt = _serve_prompt(scfg, part, dev)
+    for dt in part["dtypes"]:
+        prefill, ps, decode, ds = _serve_steps(
+            dataclasses.replace(scfg, compute_dtype=dt), part, one)
+        for rung in part["rungs"]:
+            logits, toks, wall = sharded_serve(prefill, decode, ps, ds,
+                                               set_tree_rung(nested, rung), prompt, None, one)
+            serve[f"{dt}/{rung}"] = {"logits": logits.float().cpu(), "tokens": toks.cpu(),
+                                     "wall_s": wall}
+    del nested
+    torch.save({"serve": serve, "prompt": prompt.cpu()}, work / "serve_w1.pt")
+    _empty_cache(dev)
+    return {"loss": loss, "train_s": train_s,
+            "serve_wall_s": {k: v["wall_s"] for k, v in serve.items()}}
+
+
+def _empty_cache(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+
+
+def _reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def predicted_train_comm(cfg, shape, mesh, pspec) -> dict:
+    """All-reduce payload bytes per rank of one train step, from the specs:
+    per microbatch the vocab-split embedding's sum (S d, compute dtype);
+    each layer's two row-split products summed in f32 (o, down; S d x 4
+    bytes each), and o's again in the remat recompute (which stops early:
+    nothing after down's sum is saved for the backward); the logsumexp's
+    three (S,) f32 sums; in the backward the LM head's and each layer's two
+    column-split inputs' gradients (S d, compute dtype) and the q/k/v
+    biases' (f32); then every local f32 gradient over the data axes, the
+    gradient norm and the loss.  (The dense family at head-TP with kv
+    heads split over model: no all-gather.)"""
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.device import torch_dtype
+
+    msz = mesh.shape["model"]
+    dpsz = mesh.axis_size(shd.dp_axes(mesh))
+    rows = shape.global_batch // dpsz // shape.num_microbatches
+    tok = rows * shape.seq_len
+    act = torch_dtype(cfg.compute_dtype).itemsize
+    d, L = cfg.d_model, cfg.num_layers
+    out = 0
+    if msz > 1:
+        bias = 0
+        if cfg.qkv_bias:
+            bias = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim * 4
+        per_micro = (tok * d * act                          # embedding sum
+                     + L * 3 * tok * d * 4                  # o, down; o's recompute
+                     + 3 * tok * 4                          # max, sum of exp, gold
+                     + tok * d * act                        # LM head input's gradient
+                     + L * (2 * tok * d * act + bias))      # q/k/v and gate/up inputs, biases
+        out += shape.num_microbatches * per_micro + 4       # + the gradient norm
+    if dpsz > 1:
+        local = 0
+        for (_, leaf), (_, spec) in zip(tree.flatten_with_path(steps_abstract(cfg)),
+                                        tree.flatten_with_path(pspec)):
+            n = leaf.numel()
+            for ax in spec:
+                n //= mesh.axis_size(ax) if ax else 1
+            local += n * 4
+        out += local + 4                                   # + the loss
+    return {"all_reduce": out, "all_gather": 0}
+
+
+def steps_abstract(cfg):
+    from repro_torch.distributed import steps
+    return steps.abstract_params(dataclasses.replace(cfg, dtype="bfloat16"))
+
+
+@contextlib.contextmanager
+def without_data_mean(mesh):
+    """The control of (a): inside, the mean over the data axes
+    (``comm.all_reduce`` with op "mean" on their group) returns this rank's
+    own tensor, so the train step leaves the gradients' data-parallel
+    average out (and reports this rank's own loss)."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import dp_axes
+
+    group, real = mesh.group(dp_axes(mesh)), comm.all_reduce
+
+    def local(x, g, op="sum"):
+        if op == "mean" and g is not None and g is group:
+            return x.clone()
+        return real(x, g, op)
+
+    comm.all_reduce = local
+    try:
+        yield
+    finally:
+        comm.all_reduce = real
+
+
+def state_gaps(opt, ospec, ref, mesh):
+    """This rank's blocks of the f32 state against the world-1 state's,
+    the worst leaf of each reading and where it is:
+
+    * ``moments``: per leaf of m and v, the largest |diff| over the leaf's
+      largest |value|;
+    * ``master``: per leaf, the largest |diff| in units of the step's
+      learning rate, on the elements whose world-1 m is at least
+      ``SHARDED_STATE_TOL`` of its leaf's largest |m|.  Adam's first step
+      moves master by lr * sign(g) (weight decay aside): where a gradient
+      is zero but for rounding master may go either way (2 lr apart), and
+      master's own value (norm scales near 1) is too large to show a step
+      at all; where |m| passes the mask, m's own limit keeps its sign, so
+      the two steps must agree to rounding.
+    """
+    from repro_torch import tree
+    from repro_torch.distributed.sharding import local_shard
+
+    out = {"moments": (0.0, None), "master": (0.0, None)}
+
+    def worst(kind, gap, where):
+        if gap >= out[kind][0]:
+            out[kind] = (gap, where)
+
+    flat = {f: tree.flatten_with_path(getattr(opt, f)) for f in ("m", "v", "master")}
+    specs = dict(tree.flatten_with_path(ospec.m))
+    for i, (key, _) in enumerate(flat["m"]):
+        got = {f: flat[f][i][1] for f in flat}
+        want = {f: local_shard(ref[f][key], specs[key], mesh).to(got[f].device) for f in flat}
+        gaps = {f: float((got[f] - want[f]).abs().max()) / max(ref["leafmax"][f][key], 1e-30)
+                for f in ("m", "v")}
+        mask = want["m"].abs() >= SHARDED_STATE_TOL * ref["leafmax"]["m"][key]
+        diff = (got["master"] - want["master"]).abs()[mask]
+        gaps["master"] = float(diff.max()) / ref["lr"] if diff.numel() else 0.0
+        del want, mask, diff
+        f = "m" if gaps["m"] >= gaps["v"] else "v"
+        worst("moments", gaps[f], f"{f}{key}")
+        worst("master", gaps["master"], f"master{key}")
+    return out
+
+
+def rank_train(plan, mesh, work: Path):
+    """(a) on this rank: the sharded train step (sound), then its control
+    without the data-axis gradient average (``without_data_mean``), each
+    from the same init, held block by block against the world-1 state
+    (``state_gaps``)."""
+    from repro_torch.distributed import comm, steps
+    from repro_torch.distributed.sharding import local_shard, shard_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+
+    dev = plan["device"]
+    cfg, shape, batch = _train_parts(plan)
+    ref = torch.load(work / "train_w1.pt", mmap=True, weights_only=False)
+    out = {}
+    for run in ("sound", "control"):
+        step, specs = steps.build_train_step(cfg, shape, mesh)
+        full = init_params(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, device=dev)
+        params = shard_tree(full, specs["params"], mesh)
+        del full
+        opt = adamw.init_state(params)
+        local = {k: local_shard(v, specs["batch"][k], mesh) for k, v in batch.items()}
+        _reset_peak(dev)
+        comm.reset_counts()
+        dispatch.reset_counters()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with without_data_mean(mesh) if run == "control" else contextlib.nullcontext():
+            params, opt, metrics = step(params, opt, local, plan["train"]["step"])
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+        k5 = dispatch.counter("flash_attention")
+        res = {"loss": loss, "wall_s": wall, "comm": comm.counts(),
+               "k5_launches": k5.launches, "k5_plain": k5.plain_launches,
+               "peak_mem_bytes": _peak(dev),
+               "predicted_comm": predicted_train_comm(cfg, shape, mesh, specs["params"])}
+        gaps = state_gaps(opt, specs["opt"], ref, mesh)
+        res.update(moments_gap=gaps["moments"][0], moments_gap_leaf=gaps["moments"][1],
+                   master_gap=gaps["master"][0], master_gap_leaf=gaps["master"][1],
+                   loss_gap=abs(loss - ref["loss"]) / abs(ref["loss"]))
+        out[run] = res
+        del params, opt, metrics, step
+        _empty_cache(dev)
+    return out
+
+
+def _k_totals():
+    from repro_torch.kernels import dispatch
+    return {n: {"launches": c.launches, "plain": c.plain_launches, "dec": c.dec_launches,
+                "tc": c.tc_launches} for n, c in dispatch.COUNTERS.items()}
+
+
+def rank_serve(plan, mesh, work: Path):
+    """(b) on this rank: quantize this rank's blocks of qwen2-1.5b (a column
+    block nests to the whole weight's block), then per (dtype, rung) the
+    sharded prefill and decode steps, fed the world-1 control's tokens,
+    against the control's logits on this data rank's rows."""
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.model import init_params
+
+    dev = plan["device"]
+    part = plan["serve"]
+    cfg = _plan_config(part)
+    ref = torch.load(work / "serve_w1.pt", weights_only=False)
+    _, _, _, ds0 = _serve_steps(cfg, part, mesh)
+    dense = init_params(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    local = shard_tree(dense, _dense_specs(ds0["params"]), mesh)
+    del dense
+    nested = _nest_as_specs(local, ds0["params"], dev)
+    del local
+    quant_s = time.perf_counter() - t0
+    _empty_cache(dev)
+    half = part["batch"] // mesh.shape["data"]
+    rows = slice(mesh.coord("data") * half, (mesh.coord("data") + 1) * half)
+    prompt = ref["prompt"].to(dev)
+    out = {"quantize_s": quant_s, "runs": {}}
+    for dt in part["dtypes"]:
+        prefill, ps, decode, ds = _serve_steps(dataclasses.replace(cfg, compute_dtype=dt),
+                                               part, mesh)
+        for rung in part["rungs"]:
+            want = ref["serve"][f"{dt}/{rung}"]
+            forced = want["tokens"][:, rows].to(dev)
+            dispatch.reset_counters()
+            logits, toks, wall = sharded_serve(prefill, decode, ps, ds,
+                                               set_tree_rung(nested, rung), prompt, forced, mesh)
+            counts = _k_totals()
+            w = want["logits"][:, rows]
+            gap = float((logits.float().cpu() - w).abs().max() / w.abs().max())
+            out["runs"][f"{dt}/{rung}"] = {
+                "gap": gap, "tokens_equal": bool(torch.equal(toks.cpu(), want["tokens"][:, rows])),
+                "wall_s": wall, "counts": counts,
+                "finite": bool(torch.isfinite(logits).all())}
+    out["peak_mem_bytes"] = _peak(dev)
+    return out
+
+
+def rank_moe(plan, mesh):
+    """(c) on this rank: dbrx-132b's nested tree (built by one rank at a time:
+    the dense draws are large), its sharded prefill and greedy decode steps
+    with every ``moe_ffn`` call recorded, then each call's output against
+    the one-card ``moe_ffn`` on the same tokens (no context), and this
+    rank's expert groups against the one-card routing's."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params
+
+    dev = plan["device"]
+    part = plan["moe"]
+    cfg = _plan_config(part, compute_dtype=part["dtype"])
+    prefill, ps, decode, ds = _serve_steps(cfg, part, mesh)
+    t0 = time.perf_counter()
+    params = None
+    for turn in range(mesh.size):
+        if turn == dist.get_rank():
+            dense = init_params(cfg, seed=0, device=dev)
+            nested = _nest_as_specs(dense, ds["params"], dev)
+            del dense
+            params = shard_tree(nested, ds["params"], mesh)
+            del nested
+            _empty_cache(dev)
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    calls = []
+    real = model_mod.moe_ffn
+
+    def recorded(x, p, **kw):
+        y, aux = real(x, p, **kw)
+        calls.append((x.detach().clone(), y.detach().clone(), p, kw))
+        return y, aux
+
+    prompt = _serve_prompt(cfg, part, dev)
+    _reset_peak(dev)
+    dispatch.reset_counters()
+    model_mod.moe_ffn = recorded
+    try:
+        with moe.record_groups() as log:
+            logits, toks, wall = sharded_serve(prefill, decode, ps, ds, params, prompt, None,
+                                               mesh)
+    finally:
+        model_mod.moe_ffn = real
+    counts = _k_totals()
+    r, m = mesh.coord("model"), mesh.shape["model"]
+    per = cfg.num_experts // m
+    worst, bitwise, groups_ok = 0.0, True, True
+    for (x, y, p, kw), g in zip(calls, log):
+        with moe.record_groups() as one_log:
+            want, _ = real(x, p, **kw)                      # one card: no context
+        diff = float((y - want).abs().max())
+        bitwise &= diff == 0.0
+        worst = max(worst, diff / max(float(want.abs().max()), 1e-30))
+        mine = tuple((e, n) for e, n in one_log[0].groups if e // per == r)
+        groups_ok &= g.groups == mine
+    attn = sum(1 for k in ("q", "k", "v", "o")
+               if type(ds["params"]["blocks"][k]["w"]).__name__ == "NestedTensor")
+    forwards = 1 + part["new"]
+    want_launches = (forwards * (cfg.num_layers * attn + 1)
+                     + 3 * sum(len(g.groups) for g in log))
+    return {"build_s": build_s, "wall_s": wall, "calls": len(calls), "worst": worst,
+            "bitwise": bitwise, "groups_ok": groups_ok, "counts": counts,
+            "want_launches": want_launches, "experts_per_rank": per,
+            "groups": [list(g.groups) for g in log],
+            "finite": bool(torch.isfinite(logits).all()), "peak_mem_bytes": _peak(dev)}
+
+
+def sharded_rank(rank: int, world: int, work: Path) -> int:
+    """One rank of phase 9: join the gloo world, run (a)-(c), write
+    ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    global DEVICE
+    plan = json.loads((work / "plan.json").read_text())
+    DEVICE = plan["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh(tuple(plan["mesh"]), ("data", "model"), backend="gloo",
+                          device_type=torch.device(DEVICE).type,
+                          init_method=f"file://{work / 'init'}", rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        out = {"rank": rank, "data": mesh.coord("data"), "model": mesh.coord("model")}
+        out["train"] = rank_train(plan, mesh, work)
+        out["serve"] = rank_serve(plan, mesh, work)
+        out["moe"] = rank_moe(plan, mesh)
+        out["seconds"] = time.perf_counter() - t0
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(work: Path, world: int):
+    """Start ``world`` rank processes of this script and wait for all; any
+    that fails (or outlives ``SHARDED_TIMEOUT_S``) fails the phase, and
+    every process started is stopped."""
+    procs = []
+    try:
+        for r in range(world):
+            log_f = open(work / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+                 "--world", str(world), "--workdir", str(work)],
+                stdout=log_f, stderr=subprocess.STDOUT), log_f))
+        deadline = time.time() + SHARDED_TIMEOUT_S
+        while any(p.poll() is None for p, _ in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0) for p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = "\n".join(f"--- rank {r} ---\n" + (work / f"rank{r}.log").read_text()[-3000:]
+                          for r in bad)
+        raise AssertionError(f"sharded ranks {bad} failed:\n{tails}")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def check_sharded(ranks, plan):
+    """Every rank's results against their limits (raises on any)."""
+    kernel_of = {0: "packed_matmul", 1: "nested_matmul"}
+    t = plan["train"]
+    for r in ranks:
+        tag = f"rank {r['rank']} (data {r['data']}, model {r['model']})"
+        sound, control = r["train"]["sound"], r["train"]["control"]
+        # per layer: the forward and its remat recompute, per microbatch
+        want_k5 = t["layers"] * 2 * (t["batch"] // t["micro"])
+        if sound["k5_launches"] != want_k5 or sound["k5_plain"]:
+            raise AssertionError(f"{tag}: K5 {sound['k5_launches']} launches "
+                                 f"({sound['k5_plain']} plain), want {want_k5}")
+        if (sound["loss_gap"] > SHARDED_LOSS_TOL or sound["moments_gap"] > SHARDED_STATE_TOL
+                or sound["master_gap"] > SHARDED_STATE_TOL):
+            raise AssertionError(
+                f"{tag}: train loss gap {sound['loss_gap']:.3e}, moments gap "
+                f"{sound['moments_gap']:.3e} at {sound['moments_gap_leaf']}, master gap "
+                f"{sound['master_gap']:.3e} at {sound['master_gap_leaf']}")
+        if min(control["moments_gap"], control["master_gap"]) <= SHARDED_STATE_TOL:
+            raise AssertionError(f"{tag}: the control (no data average) reads moments "
+                                 f"{control['moments_gap']:.3e}, master "
+                                 f"{control['master_gap']:.3e}: within the limit")
+        part = plan["serve"]
+        half = part["batch"] // plan["mesh"][0]
+        for key, run in r["serve"]["runs"].items():
+            dt, rung = key.split("/")
+            name = kernel_of[int(rung)]
+            c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0})
+            L = _plan_config(part).num_layers
+            per_fwd = 7 * L + 1
+            want = {"launches": per_fwd * (1 + part["new"]), "plain": 0,
+                    "dec": 1 + per_fwd * part["new"],
+                    "tc": (per_fwd - 1) if dt == "bfloat16" else 0}
+            got = {k: c[k] for k in want}
+            others = sum(v["launches"] + v["plain"] for n, v in run["counts"].items()
+                         if n != name and n in kernel_of.values())
+            if got != want or others:
+                raise AssertionError(f"{tag}: serve {key} K1-K3 {got} (others {others}), "
+                                     f"want {want} on {name}")
+            if run["gap"] > SHARDED_SERVE_TOL[dt] or not run["finite"]:
+                raise AssertionError(f"{tag}: serve {key} logits gap {run['gap']:.3e}")
+            if dt == "float32" and not run["tokens_equal"]:
+                raise AssertionError(f"{tag}: serve {key} greedy tokens differ")
+        mo = r["moe"]
+        k2 = mo["counts"].get("nested_matmul", {"launches": 0, "plain": 0})
+        plain = sum(v["plain"] for v in mo["counts"].values())
+        if k2["launches"] != mo["want_launches"] or plain:
+            raise AssertionError(f"{tag}: moe K2 {k2['launches']} launches ({plain} plain), "
+                                 f"want {mo['want_launches']}")
+        if not mo["groups_ok"] or mo["worst"] > SHARDED_MOE_TOL or not mo["finite"]:
+            raise AssertionError(f"{tag}: moe groups {mo['groups_ok']}, output gap "
+                                 f"{mo['worst']:.3e}")
+
+
+def phase_sharded():
+    """Phase 9: the sharded train, nested serve and MoE serve on a (2, 2)
+    mesh of four gloo rank processes sharing the card, against the world-1
+    steps on the same card; see the module docstring."""
+    import shutil
+
+    t0 = time.perf_counter()
+    plan = sharded_plan()
+    work = ROOT / "build" / "sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    try:
+        (work / "plan.json").write_text(json.dumps(plan))
+        w1 = sharded_world1(plan, work)
+        t_ranks = time.perf_counter()
+        ranks = run_ranks(work, world)
+        ranks_s = time.perf_counter() - t_ranks
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        s, c = r["train"]["sound"], r["train"]["control"]
+        pred = s["predicted_comm"]["all_reduce"]
+        got = s["comm"].get("all_reduce", {}).get("payload_bytes", 0)
+        log(f"[sharded] rank {r['rank']} (data {r['data']}, model {r['model']}): train step "
+            f"{s['wall_s']:.3f}s, loss {s['loss']:.6f} (world-1 {w1['loss']:.6f}, gap "
+            f"{s['loss_gap']:.2e}), moments gap {s['moments_gap']:.2e} at "
+            f"{s['moments_gap_leaf']}, master gap {s['master_gap']:.2e} at "
+            f"{s['master_gap_leaf']} (control {c['moments_gap']:.2e}, {c['master_gap']:.2e}), "
+            f"all-reduce {got / 1e6:.3f} MB (predicted "
+            f"{pred / 1e6:.3f} MB), all-gather "
+            f"{s['comm'].get('all_gather', {}).get('payload_bytes', 0) / 1e6:.3f} MB, K5 "
+            f"{s['k5_launches']}, peak {s['peak_mem_bytes'] / 1e9:.2f} GB")
+        for key, run in r["serve"]["runs"].items():
+            log(f"[sharded] rank {r['rank']}: serve {key} gap {run['gap']:.2e}, tokens equal "
+                f"{run['tokens_equal']}, {run['wall_s']:.3f}s, K1-K3 "
+                + ", ".join(f"{n} {v['launches']} (dec {v['dec']}, tc {v['tc']})"
+                            for n, v in run["counts"].items() if v["launches"]))
+        mo = r["moe"]
+        equal = "bit for bit" if mo["bitwise"] else f"within {mo['worst']:.2e}"
+        log(f"[sharded] rank {r['rank']}: moe {mo['calls']} moe_ffn calls {equal} "
+            f"of the one-card moe_ffn, groups {mo['groups_ok']}, K2 "
+            f"{mo['counts'].get('nested_matmul', {}).get('launches', 0)} launches (want "
+            f"{mo['want_launches']}), serve {mo['wall_s']:.3f}s, build {mo['build_s']:.1f}s, "
+            f"peak {mo['peak_mem_bytes'] / 1e9:.2f} GB; "
+            f"rank {r['seconds']:.1f}s")
+    log(f"[sharded] phase 9 took {seconds:.1f}s (world-1 controls {w1['train_s']:.1f}s "
+        f"train step; ranks {ranks_s:.1f}s) ({smi_line()})")
+    check_sharded(ranks, plan)
+    launches = {n: [0, 0] for n in KERNELS}
+    k5 = 0
+    for r in ranks:
+        k5 += r["train"]["sound"]["k5_launches"]
+        for run in list(r["serve"]["runs"].values()) + [r["moe"]]:
+            for n in KERNELS:
+                c = run["counts"].get(n)
+                if c:
+                    launches[n][0] += c["launches"]
+                    launches[n][1] += c["dec"]
+    return {"plan": plan, "world1": w1, "ranks": ranks, "seconds": seconds,
+            "ranks_s": ranks_s, "launches": {n: tuple(v) for n, v in launches.items()},
+            "k5_launches": k5}
+
+
 def prefill_summary(rows, name, tc_launches):
     """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
     M = 4096 bf16 on the tensor-core body (every main-path shape but the
@@ -3725,7 +4415,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--report", type=Path, default=ROOT / "build" / "chip_smoke.json",
                     help="where the JSON report of every phase is written")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:            # one rank of phase 9 (run_ranks starts it)
+        return sharded_rank(args.rank, args.world, args.workdir)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -3783,6 +4478,8 @@ def main() -> int:
     train_info = phase_train()
     train_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    sharded = phase_sharded()
     launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
                          + sum(m["launches"][n][i] for m in ssm_info.values())
                          + train_info["launches"][n][i]
@@ -3798,6 +4495,11 @@ def main() -> int:
                               train_info)
                + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
                                    ssm_info["zamba2-2.7b"]["flash_check"], train_info))
+    for k in kernels:          # phase 9's launches, summed over its four rank processes
+        if k["name"] in sharded["launches"]:
+            k["sharded_launches"] = sharded["launches"][k["name"]]
+        if k["name"] == "flash_attention":
+            k["sharded_launches"] = sharded["k5_launches"]
     steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
              for dt in ("bfloat16", "float32")}
     for key, by in steps.items():
@@ -3811,7 +4513,7 @@ def main() -> int:
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
-              "train": train_info,
+              "train": train_info, "sharded": sharded,
               "kernels": kernels, "decode_steps": steps,
               "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}

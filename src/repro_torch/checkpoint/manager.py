@@ -17,8 +17,14 @@ delta has none).  So a tree shaped as the reference's restores from the
 reference's checkpoint, and packed trees round-trip their int32 words and
 f32 scales without densifying.  ``restore(template, step, device)`` puts
 each leaf on ``device`` (default: the template leaf's), in the template's
-dtype; the reference's mesh-reshard path (``mesh``, ``pspecs``) waits for
-the port's distributed stack.
+dtype.
+
+Mesh-reshardable, as the reference's (the elastic-scaling path):
+``save(..., mesh, pspecs)`` takes a tree of this rank's blocks (laid out
+as ``pspecs`` on ``mesh``), gathers the whole arrays and writes them from
+one rank in the format above, so a checkpoint written sharded, on one
+card or by the JAX package is one format; ``restore(..., mesh, pspecs)``
+gives each rank its own block of every leaf, on any mesh shape.
 """
 from __future__ import annotations
 
@@ -103,8 +109,26 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree_, extra: Optional[Dict] = None) -> str:
-        """Atomic save of a tree at ``step``."""
+    def save(self, step: int, tree_, extra: Optional[Dict] = None, mesh=None,
+             pspecs=None) -> str:
+        """Atomic save of a tree at ``step``.  With (``mesh``, ``pspecs``)
+        ``tree_`` is this rank's blocks: every rank of the mesh calls this,
+        the whole arrays are gathered and mesh rank 0 writes them; the
+        others wait for it."""
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
+
+            from ..distributed.sharding import gather_tree
+            tree_ = gather_tree(tree_, pspecs, mesh)
+            if mesh.coord(tuple(mesh.axis_names)) == 0:
+                self._write(step, tree_, extra)
+            dist.barrier(group=mesh.group(tuple(mesh.axis_names)))
+            return final
+        self._write(step, tree_, extra)
+        return final
+
+    def _write(self, step: int, tree_, extra: Optional[Dict]) -> None:
         flat = dict(_flatten(tree_))
         tmp = tempfile.mkdtemp(dir=self.dir, prefix=f".tmp_{step}_")
         try:
@@ -124,7 +148,6 @@ class CheckpointManager:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
         self._gc()
-        return final
 
     def _gc(self):
         steps = self.all_steps()
@@ -145,11 +168,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def restore(self, template, step: Optional[int] = None,
-                device=None) -> Tuple[Any, Dict]:
+    def restore(self, template, step: Optional[int] = None, device=None, mesh=None,
+                pspecs=None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``template`` -> (tree, manifest).
         Each leaf takes its template leaf's dtype and lands on ``device``
-        (default: the template leaf's device)."""
+        (default: the template leaf's device; with a mesh, the mesh's).
+
+        With (``mesh``, ``pspecs``) each leaf is this rank's block of it
+        under its spec (the template holds whole shapes; meta tensors
+        will do) - the mesh-reshard path for elastic scaling."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.dir}")
@@ -168,10 +195,18 @@ class CheckpointManager:
             arr = by_key[key]
             if isinstance(tmpl, torch.Tensor):
                 out = torch.from_numpy(np.array(arr, order="C"))   # 0-d stays 0-d
+                if mesh is not None:              # cut on the host, then placed
+                    return out.to(dtype=tmpl.dtype)
                 return out.to(device=tmpl.device if device is None else device,
                               dtype=tmpl.dtype)
             if hasattr(tmpl, "dtype"):
                 return arr.astype(tmpl.dtype)
             return arr
 
-        return _rebuild(template, get), manifest
+        restored = _rebuild(template, get)
+        if mesh is not None:
+            from ..distributed.sharding import shard_tree
+            dev = mesh.device if device is None else device
+            restored = _rebuild(shard_tree(restored, pspecs, mesh),
+                                lambda _, x: x.to(dev) if isinstance(x, torch.Tensor) else x)
+        return restored, manifest

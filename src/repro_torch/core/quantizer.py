@@ -16,6 +16,22 @@ def int_range(n_bits: int):
     return -(2 ** (n_bits - 1)), 2 ** (n_bits - 1) - 1
 
 
+def compute_scale(w: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Per-tensor max-abs symmetric scale, as the reference computes it
+    under ``jax.jit``: XLA turns the division by the constant qmax into a
+    multiply by its f32 reciprocal (one ulp away from the division for
+    some inputs)."""
+    qmax = 2 ** (n_bits - 1) - 1
+    amax = torch.clamp(w.float().abs().amax(), min=1e-12)
+    return amax * torch.tensor(1.0 / qmax, dtype=torch.float32)
+
+
+def quantize_rtn(w: torch.Tensor, scale: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Round-to-nearest quantization (Eq. 2). Returns int32 codes."""
+    lo, hi = int_range(n_bits)
+    return torch.clamp(torch.round(w.float() / scale), lo, hi).to(torch.int32)
+
+
 def dequantize(w_int: torch.Tensor, scale: torch.Tensor,
                dtype=torch.float32) -> torch.Tensor:
     """Eq. 3: w_hat = s * w_int."""

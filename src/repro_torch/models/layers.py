@@ -1,11 +1,18 @@
 """Shared neural building blocks (norms, activations, RoPE, linear);
-counterpart of ``repro/models/layers.py``."""
+counterpart of ``repro/models/layers.py``.
+
+Inside a sharding context (``distributed/ctx.py``) a weight may be this
+rank's block of a matmul split over the ``model`` axis: it then holds
+fewer output columns (:func:`col_linear`) or input rows (:func:`row_linear`)
+than the config names.  Outside a context, or with every weight whole,
+both are :func:`linear`."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..core.nesting import NestedTensor
+from ..distributed import ctx
 from ..kernels.nested_matmul import ops as nested_ops
 from ..kernels.packed_matmul import ops as packed_ops
 
@@ -48,17 +55,55 @@ def packed_linear(x: torch.Tensor, nt: NestedTensor, out_dtype=None,
                                     block_k=nt.block, out_dtype=out_dtype, route=route)
 
 
-def linear(x: torch.Tensor, w, b=None, route=None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b=None, route=None, out_dtype=None) -> torch.Tensor:
     """y = x @ w (+ b): the matmul in x's dtype, the bias added in the
     matmul's output dtype, the sum cast to x's dtype (the reference's
-    cast order).  ``route``: as in :func:`packed_linear`."""
+    cast order).  ``route``: as in :func:`packed_linear`.  ``out_dtype``
+    (f32): the product accumulated and returned in it instead."""
     if isinstance(w, NestedTensor):
-        y = packed_linear(x, w, route=route)
+        y = packed_linear(x, w, out_dtype=out_dtype, route=route)
     else:
-        y = pdot(x, w.to(x.dtype))
+        y = pdot(x, w.to(x.dtype), preferred=out_dtype)
     if b is not None:
         y = y + b.to(y.dtype)
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
+
+
+def out_width(w) -> int:
+    """Output columns this rank holds of a (dense or nested) weight."""
+    return w.scale.shape[-1] if isinstance(w, NestedTensor) else w.shape[-1]
+
+
+def in_width(w) -> int:
+    """Input rows (K) this rank holds of a (dense or nested) weight."""
+    return w.K if isinstance(w, NestedTensor) else w.shape[-2]
+
+
+def col_linear(x, w, b=None, full: int = 0, route=None, xs=None) -> torch.Tensor:
+    """:func:`linear` of a weight whose ``full`` output columns may be split
+    over ``model``: a column block reads ``xs``, ``x`` entered into the
+    model axis (``ctx.enter_model``; pass it to share one entry between
+    projections), and this rank's block of the bias; the output is this
+    rank's columns."""
+    n = out_width(w)
+    if n == full:
+        return linear(x, w, b, route=route)
+    if b is not None:
+        b = ctx.model_slice(b, n)
+    return linear(ctx.enter_model(x) if xs is None else xs, w, b, route=route)
+
+
+def row_linear(x, w, full: int, route=None) -> torch.Tensor:
+    """:func:`linear` (no bias) of a weight whose ``full`` input rows may be
+    split over ``model``.  A row block takes this rank's columns of ``x``
+    and its f32 partial products are summed over ``model``, then cast to
+    x's dtype; a whole weight fed this rank's columns gathers them first."""
+    k = in_width(w)
+    if x.shape[-1] < k:
+        x = ctx.gather_model(x, -1)
+    if k == full:
+        return linear(x, w, route=route)
+    return ctx.sum_model(linear(x, w, route=route, out_dtype=torch.float32)).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -112,10 +157,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def mlp(x, params, act: str, route=None):
-    if act == "swiglu":
-        g = linear(x, params["w_gate"]["w"], route=route)
-        u = linear(x, params["w_up"]["w"], route=route)
-        return linear(silu(g) * u, params["w_down"]["w"], route=route)
-    u = linear(x, params["w_up"]["w"], route=route)
-    return linear(gelu(u), params["w_down"]["w"], route=route)
+def mlp(x, params, act: str, d_ff: int, route=None):
+    """The MLP, its ``d_ff``-wide hidden dim possibly split over ``model``
+    (gate/up by columns, down by rows)."""
+    xs = ctx.enter_model(x)
+
+    def up(name):
+        return col_linear(x, params[name]["w"], full=d_ff, route=route, xs=xs)
+
+    h = silu(up("w_gate")) * up("w_up") if act == "swiglu" else gelu(up("w_up"))
+    return row_linear(h, params["w_down"]["w"], d_ff, route=route)

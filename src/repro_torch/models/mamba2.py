@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed.ctx import shard_hint
 from ..kernels import dispatch
 from .layers import linear, rms_norm, silu
 
@@ -154,6 +155,7 @@ def mamba_block(u: torch.Tensor, params: Dict, cfg,
     C_mat = xBC[..., din + N:]
     dt = softplus(dt.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
+    x = shard_hint(x, ("batch", None, "heads", None))
     y, state = ssd_chunked(x, dt, A, B_mat, C_mat, cfg.ssm_chunk, init_state=init_state)
     out = _gate_out(y, x, z, params, (Bsz, S, din), u.dtype)
     return out, {"state": state, "conv_buf": xBC_raw_tail(u, zxbcdt, din, N, cfg)}

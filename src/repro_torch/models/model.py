@@ -68,11 +68,14 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..core.nesting import NestedTensor
 from ..device import resolve_device, torch_dtype
+from ..distributed import ctx
+from ..distributed.ctx import shard_hint
 from ..kernels import dispatch
 from ..kernels.flash_attention import ops as flash_ops
 from . import mamba2
 from .attention import decode_attention, full_attention
-from .layers import apply_rope, linear, mlp, norm, packed_linear, pdot
+from .layers import (apply_rope, col_linear, in_width, linear, mlp, norm, out_width,
+                     packed_linear, pdot, row_linear)
 from .moe import moe_ffn
 
 
@@ -80,9 +83,12 @@ from .moe import moe_ffn
 # Initialization (random; torch.Generator draws, not jax.random's)
 # ===========================================================================
 def _dense_init(gen, shape, dtype, scale=None):
+    """Scaled normal draws from ``gen``; with no generator, a meta tensor
+    (shapes and dtypes only)."""
     if scale is None:
         scale = 1.0 / math.sqrt(shape[-2] if len(shape) >= 2 else shape[-1])
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    device = gen.device if gen is not None else torch.device("meta")
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return w.mul_(scale).to(dtype)
 
 
@@ -95,9 +101,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     ff, d); a Mamba2 layer: ``blocks.{in_proj,out_proj}.w``, the conv, the
     SSM scalars and its gated norm; the hybrid's unstacked ``shared``
     block with 2d-wide q/k/v and MLP input).  No embed table where the
-    inputs are embeddings."""
+    inputs are embeddings.  ``device="meta"`` gives the shapes and dtypes
+    alone (the reference's ``jax.eval_shape`` of its init)."""
     dev = resolve_device(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    if dev.type == "meta":
+        gen = None
+    else:
+        gen = generator or torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.dtype)
     L, d = cfg.num_layers, cfg.d_model
     qd, kvd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
@@ -183,13 +193,43 @@ def layer_params(blocks, i: int):
 # Attention sub-block
 # ===========================================================================
 def _qkv(x, lp, cfg, route=None):
-    q = linear(x, lp["q"]["w"], lp["q"].get("b"), route=route)
-    k = linear(x, lp["k"]["w"], lp["k"].get("b"), route=route)
-    v = linear(x, lp["v"]["w"], lp["v"].get("b"), route=route)
+    """q, k, v (B,S,heads,hd).  Sharded, each holds this rank's heads: a
+    projection split over ``model`` by columns gives them directly; a k/v
+    projection split where the rules keep kv heads whole is gathered, and
+    whole k/v then give this rank's q heads their kv heads
+    (:func:`_local_kv`)."""
+    hd = cfg.head_dim
+    kvd = cfg.num_kv_heads * hd
+    xs = ctx.enter_model(x)
+
+    def proj(name, full):
+        return col_linear(x, lp[name]["w"], lp[name].get("b"), full, route, xs)
+
+    q = proj("q", cfg.num_heads * hd)
+    k = shard_hint(proj("k", kvd), ("batch", None, "kv_heads"), full=(None, None, kvd))
+    v = shard_hint(proj("v", kvd), ("batch", None, "kv_heads"), full=(None, None, kvd))
     B, S = x.shape[:2]
-    return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
+    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
+    return (q,) + _local_kv(k, v, q.shape[2], cfg)
+
+
+def _local_kv(k, v, hq: int, cfg):
+    """The kv heads this rank's ``hq`` q heads read, where q holds a block
+    of the heads and k/v hold all of them: q head j of model rank r is
+    global head r * hq + j, which reads kv head (r * hq + j) // G.  Kept
+    grouped (each kv head once) where the block's heads fall into equal
+    runs, else one kv head per q head."""
+    if hq == cfg.num_heads or k.shape[2] != cfg.num_kv_heads:
+        return k, v
+    r, _ = ctx.model_index()
+    G = cfg.num_heads // cfg.num_kv_heads
+    need = [(r * hq + j) // G for j in range(hq)]
+    uniq = sorted(set(need))
+    if hq % len(uniq) == 0 and need == [u for u in uniq for _ in range(hq // len(uniq))]:
+        need = uniq
+    idx = torch.tensor(need, device=k.device)
+    return (ctx.enter_model(k).index_select(2, idx),
+            ctx.enter_model(v).index_select(2, idx))
 
 
 def attn_seq(x, lp, cfg, kv_block: int = 512):
@@ -204,13 +244,15 @@ def attn_seq(x, lp, cfg, kv_block: int = 512):
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard_hint(q, ("batch", "attn_seq", "heads", None))
     if S > 1024:
         o = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                       kv_block=kv_block)
     else:
         o = full_attention(q, k, v, causal=True)
-    o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return linear(o, lp["o"]["w"]), (k, v)
+    o = shard_hint(o, ("batch", "attn_seq", "heads", None))
+    o = o.reshape(B, S, -1)
+    return row_linear(o, lp["o"]["w"], cfg.num_heads * cfg.head_dim), (k, v)
 
 
 def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
@@ -225,9 +267,9 @@ def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
     k = apply_rope(k, p, cfg.rope_theta)
     k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
     v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, pos)
-    o = o.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return linear(o, lp["o"]["w"], route=route)
+    o = shard_hint(decode_attention(q, k_cache, v_cache, pos), ("batch", None, "heads", None))
+    o = o.reshape(B, 1, -1)
+    return row_linear(o, lp["o"]["w"], cfg.num_heads * cfg.head_dim, route=route)
 
 
 def _per_position(fn, h):
@@ -254,8 +296,8 @@ def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
     v_cache[:, pos:pos + S] = v.to(v_cache.dtype)
     o = torch.cat([decode_attention(q[:, j:j + 1].contiguous(), k_cache, v_cache, pos + j)
                    for j in range(S)], dim=1)
-    o = o.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return linear(o, lp["o"]["w"], route=route)
+    o = o.reshape(B, S, -1)
+    return row_linear(o, lp["o"]["w"], cfg.num_heads * cfg.head_dim, route=route)
 
 
 # ===========================================================================
@@ -274,17 +316,21 @@ def _ffn(h, lp, cfg, dropless: bool = False, route=None, per_position: bool = Fa
                          dropless=dropless, route=route, per_position=per_position,
                          want_aux=want_aux)
         return y, (aux if want_aux else 0.0)
-    return mlp(h, lp["mlp"], cfg.act, route=route), 0.0
+    y = mlp(h, lp["mlp"], cfg.act, cfg.d_ff, route=route)
+    return shard_hint(y, ("batch", None, None)), 0.0
 
 
 def _remat(body, cfg, want_cache: bool):
     """``body`` under activation checkpointing on a training run (no cache)
     when ``cfg.remat`` asks for it and a gradient is being recorded (the
     reference's ``jax.checkpoint`` with ``nothing_saveable``); else
-    ``body`` itself, so the served path runs as it did."""
+    ``body`` itself, so the served path runs as it did.  The recompute
+    runs in the backward, on autograd's device thread for a CUDA tensor,
+    so the body carries the sharding context it ran under
+    (``ctx.bound``)."""
     if want_cache or not (cfg.remat and torch.is_grad_enabled()):
         return body
-    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+    return lambda *args: checkpoint(ctx.bound(body), *args, use_reentrant=False)
 
 
 def _tf_layer_seq(h, lp, cfg, dropless: bool):
@@ -371,7 +417,8 @@ def _shared_block_seq(h, emb0, sp, cfg):
     wide; returns (h, (k, v))."""
     a, kv = attn_seq(norm(torch.cat([h, emb0], dim=-1), sp["attn_norm"], cfg.norm), sp, cfg)
     h = h + a
-    m = mlp(norm(torch.cat([h, emb0], dim=-1), sp["mlp_norm"], cfg.norm), sp["mlp"], cfg.act)
+    m = mlp(norm(torch.cat([h, emb0], dim=-1), sp["mlp_norm"], cfg.norm), sp["mlp"], cfg.act,
+            cfg.d_ff)
     return h + m, kv
 
 
@@ -421,7 +468,7 @@ def ssm_decode(params, x, cfg, cache, pos: int):
             u = norm(torch.cat([h, emb0], dim=-1), sp["attn_norm"], cfg.norm)
             h = h + attn_decode(u, sp, cfg, cache["k"][a], cache["v"][a], pos)
             u = norm(torch.cat([h, emb0], dim=-1), sp["mlp_norm"], cfg.norm)
-            h = h + mlp(u, sp["mlp"], cfg.act, route=route)
+            h = h + mlp(u, sp["mlp"], cfg.act, cfg.d_ff, route=route)
         lp = layer_params(params["blocks"], i)
         y, mc = mamba2.mamba_decode_step(
             norm(h, lp["norm"], cfg.norm), lp,
@@ -441,29 +488,62 @@ def embed_inputs(params, inputs, cfg):
         return inputs["embeddings"].to(cdt)
     tok = inputs["tokens"]
     table = params["embed"]["table"]
+    rows = in_width(table)
+    inside = None
+    if rows < cfg.vocab_size:
+        # this rank's block of the vocab: its rows gathered, zeros for the
+        # other tokens, summed over model
+        tok, inside = _block_index(tok, rows)
     if isinstance(table, NestedTensor):
         # row gather straight from the packed words
         h = table.gather_rows(tok, cdt)
     else:
         h = table[tok].to(cdt)
-    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(h.dtype)
+    if inside is not None:
+        h = ctx.sum_model(torch.where(inside[..., None], h, torch.zeros_like(h)))
+    h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(h.dtype)
+    return shard_hint(h, ("batch", None, None))
 
 
 def lm_logits(params, h, cfg, route=None):
-    """Logits in f32 (``route``: as in ``layers.packed_linear``)."""
+    """Logits in f32 (``route``: as in ``layers.packed_linear``); sharded,
+    this rank's block of the vocab where the head is split over ``model``."""
     w = params["lm_head"]["w"]
+    if out_width(w) < cfg.vocab_size:
+        h = ctx.enter_model(h)
     if isinstance(w, NestedTensor):
-        return packed_linear(h, w, out_dtype=torch.float32, route=route)
-    return pdot(h, w.to(h.dtype), preferred=torch.float32)
+        logits = packed_linear(h, w, out_dtype=torch.float32, route=route)
+    else:
+        logits = pdot(h, w.to(h.dtype), preferred=torch.float32)
+    return shard_hint(logits, ("batch", None, "vocab"))
 
 
-def xent_loss(logits, labels) -> torch.Tensor:
+def xent_loss(logits, labels, vocab: int = 0) -> torch.Tensor:
     """Mean next-token cross entropy in f32: logsumexp minus the gold
-    logit, averaged over every position."""
+    logit, averaged over every position.  Logits narrower than ``vocab``
+    are this rank's block of a vocab split over ``model``: the logsumexp
+    from the max and the sum of exponentials over ``model``, the gold
+    logit from the rank that holds it."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    labels = labels[..., None].long()
+    if not vocab or logits.shape[-1] == vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels)[..., 0]
+        return (logz - gold).mean()
+    m = ctx.max_model(logits.amax(dim=-1))
+    logz = torch.log(ctx.sum_model(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    labels, inside = _block_index(labels, logits.shape[-1])
+    gold = torch.gather(logits, -1, labels)
+    gold = ctx.sum_model(torch.where(inside, gold, torch.zeros_like(gold))[..., 0])
     return (logz - gold).mean()
+
+
+def _block_index(idx, n: int):
+    """Indices into a dim split over ``model`` against this rank's n-wide
+    block: (the index within the block, 0 outside it; the inside mask)."""
+    idx = idx - ctx.model_index()[0] * n
+    inside = (idx >= 0) & (idx < n)
+    return torch.where(inside, idx, torch.zeros_like(idx)), inside
 
 
 def _forward_seq(params, inputs, cfg, want_cache: bool):
@@ -505,7 +585,8 @@ def make_model(cfg: ModelConfig, device="cuda") -> Model:
         """Next-token cross entropy of ``batch`` (``tokens`` or
         ``embeddings``, and ``labels`` (B,S)) + 0.01 * the MoE aux loss."""
         h, _, aux = _forward_seq(params, batch, cfg, want_cache=False)
-        return xent_loss(lm_logits(params, h, cfg), batch["labels"]) + 0.01 * aux
+        return (xent_loss(lm_logits(params, h, cfg), batch["labels"], cfg.vocab_size)
+                + 0.01 * aux)
 
     def prefill(params, inputs):
         h, cache, _ = _forward_seq(params, inputs, cfg, want_cache=True)

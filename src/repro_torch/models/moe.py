@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch;
-counterpart of ``repro/models/moe.py`` (its ``shard_map`` paths belong to
-the distributed stack, ROADMAP queue 1 item 16, and are not ported).
+counterpart of ``repro/models/moe.py``, its per-data-shard dispatch
+included.
 
 Routing is the reference's: the router product in f32, an f32 softmax,
 top-k with renormalised gates, the Switch aux loss, a stable sort of the
@@ -25,6 +25,20 @@ expert, so each add touches distinct rows, and a token's sum is a left
 fold from zero over its experts in ascending order: the reference's
 expert-major slot order, on the card and on the CPU alike (one scatter of
 all T*K rows would sum in atomic order on the card).
+
+Sharded (a context of ``distributed/ctx.py``), as the reference's
+``shard_map`` dispatch: where the ``batch`` rule names data axes, ``x``
+is this data rank's tokens, so each data rank routes and dispatches its
+own tokens with capacity ``capacity(T_local, ...)`` (in training, where
+capacity drops tokens, per-shard capacity drops them differently from a
+global dispatch: GShard's groups, the reference's semantics) and the aux
+loss is averaged over the data axes.  Where the batch is replicated
+(no data rule) every rank routes all tokens: the reference's global
+path.  Where the ``experts`` rule names ``model``, model rank r computes
+experts [r E / m, (r + 1) E / m) (from its shard of a split expert stack,
+or its block of a whole one), the expert rows are gathered over
+``model`` and every rank folds all of them in ascending expert order
+(gathered rows, then the fold; never a sum of partial combines).
 """
 from __future__ import annotations
 
@@ -35,6 +49,8 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from ..core.nesting import NestedTensor
+from ..distributed import ctx
+from ..distributed.ctx import shard_hint
 from ..kernels import dispatch
 from .layers import gelu, linear, pdot, silu
 
@@ -139,8 +155,10 @@ def warm_decode_rows(params: Dict, dtype: torch.dtype, device) -> None:
 
 class GroupLog(NamedTuple):
     """One ``moe_ffn`` call: the K1-K3 route it named (None: by M), the
-    rung stamped on its experts (None: a dense stack), its T tokens, its
-    (expert, rows) groups in launch order and its (T, K) expert choices."""
+    rung stamped on its experts (None: a dense stack), its T tokens, the
+    (expert, rows) groups this rank computed, in launch order (all of
+    them unless experts are split over ``model``) and its (T, K) expert
+    choices."""
     route: Optional[str]
     rung: Optional[int]
     tokens: int
@@ -211,14 +229,47 @@ def moe_ffn(x: torch.Tensor, params: Dict, *, num_experts: int, top_k: int,
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
     C = capacity(T, E, K, capacity_factor, cap_multiple, dropless=dropless)
     r = _dispatch(probs, gate_vals, expert_idx, E=E, C=C, want_aux=want_aux)
+    aux = None if r.aux is None else ctx.mean_batch(r.aux)
     experts = params["experts"]
+    leaf = experts["w_up"]["w"]
+    mine, ys = _expert_rows(xf, r.groups, experts, E, act, route)
     out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    for e, rows, gates in r.groups:
-        y = _expert_compute(xf[rows], experts, e, act, route)
+    for (e, rows, gates), y in zip(r.groups, ys):
         out[rows] = out[rows] + y * gates.to(y.dtype)[:, None]
     if _hooks.log is not None:
-        leaf = experts["w_up"]["w"]
         _hooks.log.append(GroupLog(
             route, leaf.rung if isinstance(leaf, NestedTensor) else None, T,
-            tuple((e, rows.numel()) for e, rows, _ in r.groups), expert_idx))
-    return out.reshape(B, S, d), r.aux
+            tuple((e, rows.numel()) for e, rows, _ in mine), expert_idx))
+    return shard_hint(out.reshape(B, S, d), ("batch", None, None)), aux
+
+
+def _expert_rows(xf, groups, experts, E: int, act: str, route):
+    """(the groups this rank computes, every group's expert output rows).
+    With experts split over ``model`` (the ``experts`` rule), rank r
+    computes its block of experts on ``xf`` entered into the model axis;
+    each rank's outputs, padded to the longest, are gathered over
+    ``model`` and cut back into groups."""
+    cur = ctx.current()
+    r, m = ctx.model_index()
+    if cur is None or m == 1 or "model" not in cur[0].axes(cur[1].get("experts")):
+        return groups, [_expert_compute(xf[rows], experts, e, act, route)
+                        for e, rows, _ in groups]
+    per = E // m
+    w = experts["w_up"]["w"]
+    held = (w.w_base if isinstance(w, NestedTensor) else w).shape[0]
+    first = 0 if held == E else r * per             # expert index of the leaf's row 0
+    xs = ctx.enter_model(xf)
+    owner = [e // per for e, _, _ in groups]
+    mine = [g for g, o in zip(groups, owner) if o == r]
+    ys = [_expert_compute(xs[rows], experts, e - first, act, route) for e, rows, _ in mine]
+    counts = [sum(g[1].numel() for g, o in zip(groups, owner) if o == q) for q in range(m)]
+    longest = max(counts)
+    local = torch.cat(ys) if ys else xf.new_zeros((0, xf.shape[1]))
+    local = torch.nn.functional.pad(local, (0, 0, 0, longest - local.shape[0]))
+    every = ctx.gather_model(local, 0).reshape(m, longest, -1)
+    out, taken = [], [0] * m
+    for (e, rows, _), q in zip(groups, owner):
+        n = rows.numel()
+        out.append(every[q, taken[q]:taken[q] + n])
+        taken[q] += n
+    return mine, out

@@ -17,7 +17,7 @@ state at once); it returns new parameter tensors.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,11 +87,14 @@ def clip_by_global_norm(grads, max_norm: float):
 def apply_update(params, grads, state: AdamWState, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0) -> Tuple[Any, AdamWState, Dict]:
+                 max_grad_norm: float = 1.0,
+                 grad_norm: Optional[torch.Tensor] = None) -> Tuple[Any, AdamWState, Dict]:
     """One AdamW step -> (new params, state, {"grad_norm", "lr"}).  Each
     leaf's gradient is clipped to f32 as ``clip_by_global_norm`` clips it,
-    one leaf at a time."""
-    gn = global_norm(grads)
+    one leaf at a time.  ``grad_norm``: the global norm, where ``grads``
+    are one rank's blocks of a sharded gradient (``distributed/steps.py``
+    sums it over the mesh); by default :func:`global_norm` of ``grads``."""
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gn, max_grad_norm)
     step = state.step + 1
     t = step.to(torch.float32)

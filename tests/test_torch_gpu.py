@@ -1289,3 +1289,45 @@ def test_train_step_gradients_repeat_bit_for_bit(cuda):
     first = grads()
     for _ in range(2):
         assert all(torch.equal(a, b) for a, b in zip(first, grads()))
+
+
+def test_sharded_nested_decode_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """The reduced qwen2-1.5b's (4, 8) rtn tree served by the sharded
+    prefill and decode steps on a (1, 2) mesh: a gloo world of two rank
+    processes on the one card (``tests/torch_dist.py``), at rungs 0 and
+    1.  Each rank launches K1 (rung 0) or K2 (rung 1) on its column blocks
+    (q, o, gate/up, down and the LM head are nested at this size: 11 a
+    forward), none plain; its logits are within 1e-4 of the one-card step
+    on the card and its greedy tokens equal."""
+    import torch_dist as td
+    from repro_torch.configs import get_config
+    from repro_torch.core.nesting import default_predicate
+    from repro_torch.core.recipe import QuantRecipe, quantize
+    from repro_torch.launch.mesh import shape_only
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("qwen2-1.5b").reduced()
+
+    def pred(path, leaf):
+        return "embed" not in path.lower() and default_predicate(path, leaf)
+
+    nested = quantize(init_params(cfg, seed=0, device="cpu"),
+                      QuantRecipe(bits=(4, 8), rounding="rtn", predicate=pred), device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (td.DEC_BATCH, td.DEC_PROMPT),
+                           generator=torch.Generator().manual_seed(3))
+    p = {"nested": nested, "prompt": prompt}
+    torch.save(p, tmp_path / "inputs.pt")
+    ranks = td.run_world("gpu2", 2, tmp_path, device="cuda", timeout=600)
+    kernel = {0: "packed_matmul", 1: "nested_matmul"}
+    per_run = 11 * (1 + td.DEC_NEW)
+    for rung in (0, 1):
+        want = td.serve_run(p, shape_only((1, 1), device="cuda"), cfg, "nested", "nested",
+                            "cuda", rung=rung)
+        w = want["logits"]
+        for r in ranks:
+            got = r[rung]
+            launched = {n: c for n, c in got["counts"].items() if c[0] or c[1]}
+            assert launched == {kernel[rung]: (per_run, 0)}, (rung, launched)
+            gap = float((got["logits"] - w).abs().max() / w.abs().max())
+            assert gap <= 1e-4, (rung, gap)
+            assert torch.equal(got["tokens"], want["tokens"])

@@ -1,0 +1,378 @@
+"""Rank programs of the port's sharded-step tests: gloo worlds of separate
+processes (no fake in-process devices), on the CPU or sharing one card.
+
+    python tests/torch_dist.py JOB RANK WORLD INIT_FILE WORKDIR [DEVICE]
+
+Each rank joins a gloo world through ``file://INIT_FILE``, reads the
+inputs its parent wrote with ``torch.save`` to ``WORKDIR/inputs.pt``, runs
+``JOBS[JOB]`` and writes what it returns to ``WORKDIR/JOB_RANK.pt``.
+:func:`run_world` starts the ranks of one world and collects them.  This
+module imports no JAX: the parent test holds the results against the
+JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 16, 4, 2
+TRAIN_STEPS = (50, 51, 52)         # warmup 100: lr = peak * step / 100
+TRAIN_LR = 1e-3
+DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_MAXLEN = 4, 8, 4, 16
+MOE_BATCH, MOE_SEQ = 4, 8
+
+
+def run_world(job: str, world: int, workdir: Path, device: str = "cpu",
+              timeout: float = 300.0):
+    """Start ``world`` ranks of ``job`` and wait for all; returns what each
+    rank returned, by rank.  A rank that fails fails the world (the others
+    are stopped)."""
+    return wait_world(start_world(job, world, workdir, device), timeout)
+
+
+def start_world(job: str, world: int, workdir: Path, device: str = "cpu"):
+    workdir = Path(workdir)
+    init = workdir / f"{job}.init"
+    if init.exists():
+        init.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(init),
+                               str(workdir), device], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    return job, workdir, procs
+
+
+def wait_world(started, timeout: float = 300.0):
+    job, workdir, procs = started
+    deadline = time.time() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"{job}: ranks {bad} failed\n" + "\n".join(
+            f"--- rank {r} ---\n{log[-3000:]}" for r, log in enumerate(logs)))
+    return [torch.load(workdir / f"{job}_{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+# ---------------------------------------------------------------------------
+# rank programs
+# ---------------------------------------------------------------------------
+def _mesh(shape, device):
+    from repro_torch.launch.mesh import make_test_mesh
+    return make_test_mesh(shape, ("data", "model"), backend="gloo", device_type=device)
+
+
+def _to(t, device):
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+
+    def leaf(_, x):
+        return x.to(device) if isinstance(x, (torch.Tensor, NestedTensor)) else x
+    return tree.map_with_path(leaf, t)
+
+
+def _copy(state):
+    from repro_torch import tree
+    return type(state)(state.step.clone(), *(
+        tree.map_with_path(lambda _, x: x.detach().cpu().clone(), getattr(state, f))
+        for f in ("m", "v", "master")))
+
+
+@contextlib.contextmanager
+def without_data_mean(mesh):
+    """The control of the train checks: inside, the mean over the data axes
+    (``comm.all_reduce`` with op "mean" on their group) returns this rank's
+    own tensor, so the train step leaves the gradients' data-parallel
+    average out (and reports this rank's own loss)."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.sharding import dp_axes
+
+    group, real = mesh.group(dp_axes(mesh)), comm.all_reduce
+
+    def local(x, g, op="sum"):
+        if op == "mean" and g is not None and g is group:
+            return x.clone()
+        return real(x, g, op)
+
+    comm.all_reduce = local
+    try:
+        yield
+    finally:
+        comm.all_reduce = real
+
+
+def train_run(p, mesh, control: bool = False):
+    """Three sharded train steps of the reduced qwen2 -> (losses, the whole
+    optimizer state after each step on rank 0); ``control``: without the
+    data-axis gradient average."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import gather_tree, local_shard, shard_tree
+    from repro_torch.optim import adamw
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    step, specs = steps.build_train_step(cfg, shape, mesh, peak_lr=TRAIN_LR)
+    full = _to(p["train_params"], mesh.device)
+    params = shard_tree(full, specs["params"], mesh)
+    opt = shard_tree(adamw.init_state(full), specs["opt"], mesh)
+    losses, states = [], []
+    for s, batch in zip(TRAIN_STEPS, p["train_batches"]):
+        batch = {k: local_shard(v.to(mesh.device), specs["batch"][k], mesh)
+                 for k, v in batch.items()}
+        with without_data_mean(mesh) if control else contextlib.nullcontext():
+            params, opt, metrics = step(params, opt, batch, s)
+        losses.append(float(metrics["loss"]))
+        whole = gather_tree(opt, specs["opt"], mesh)   # (unsplit leaves: the live ones)
+        states.append(_copy(whole) if mesh.coord(("data", "model")) == 0 else None)
+    return {"loss": losses, "opt": states}
+
+
+def remat_thread_run(p, mesh):
+    """``loss_fn``'s gradients on the reduced qwen2 under a (2, 2) context,
+    remat on: the backward inside the context, and from another thread
+    after it (as autograd runs a CUDA backward, and with it the remat
+    recompute, on its own device thread)."""
+    import dataclasses
+    import threading
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.ctx import logical_rules
+    from repro_torch.models import make_model
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), dtype="bfloat16")
+    assert cfg.remat
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    rules = shd.logical_rules(cfg, shape, mesh)
+    params = shd.shard_tree(p["train_params"], shd.param_pspecs(
+        cfg, steps.abstract_params(cfg), mesh), mesh)
+    bspec = shd.batch_pspecs(cfg, shape, mesh, True)
+    batch = {k: shd.local_shard(v, bspec[k], mesh) for k, v in p["train_batches"][0].items()}
+    model = make_model(cfg, device=mesh.device)
+    out = {}
+    for where in ("inside", "thread"):
+        leaves = [x.detach().requires_grad_(True) for x in tree.leaves(params)]
+        with logical_rules(mesh, rules):
+            loss = model.loss_fn(tree.unflatten(params, leaves), batch)
+            if where == "inside":
+                out[where] = torch.autograd.grad(loss, leaves)
+        if where == "thread":
+            box = {}
+            t = threading.Thread(target=lambda: box.update(g=torch.autograd.grad(loss, leaves)))
+            t.start()
+            t.join(120)
+            out[where] = box["g"]
+    return all(torch.equal(a, b) for a, b in zip(out["inside"], out["thread"]))
+
+
+def _same_specs(a, b) -> bool:
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+
+    def flat(t):
+        return [(k, (tuple(v.w_base), tuple(v.scale)) if isinstance(v, NestedTensor)
+                 else tuple(v)) for k, v in tree.flatten_with_path(t)]
+    return flat(a) == flat(b)
+
+
+def serve_run(p, mesh, cfg, params_key, quant, device, counters: bool = False,
+              rung=None):
+    """The sharded prefill of ``DEC_BATCH`` prompts, then ``DEC_NEW`` greedy
+    decode steps -> this data rank's logits per step, its tokens, and the
+    kernels' launch counts of the run (``counters``); ``rung`` stamps a
+    nested tree's serving rung first."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import local_shard, shard_tree
+    from repro_torch.kernels import dispatch
+
+    prefill, ps = steps.build_prefill_step(
+        cfg, ShapeConfig("p", "prefill", DEC_PROMPT, DEC_BATCH), mesh, quant)
+    decode, ds = steps.build_decode_step(
+        cfg, ShapeConfig("d", "decode", DEC_MAXLEN, DEC_BATCH), mesh, quant)
+    from repro_torch.core.nesting import set_tree_rung
+
+    full = _to(p[params_key], device)
+    if rung is not None:
+        full = set_tree_rung(full, rung)
+    params = shard_tree(full, ds["params"], mesh)
+    pre_params = params if _same_specs(ps["params"], ds["params"]) else \
+        shard_tree(full, ps["params"], mesh)
+    toks = local_shard(p["prompt"].to(device), ps["batch"]["tokens"], mesh)
+    if counters:
+        dispatch.reset_counters()
+    logits, pcache = prefill(pre_params, {"tokens": toks})
+    cache = shard_tree(ds["model"].make_cache(DEC_BATCH, DEC_MAXLEN), ds["cache"], mesh)
+    for key in ("k", "v"):
+        cache[key][:, :, :DEC_PROMPT] = pcache[key]
+    cache["pos"] = pcache["pos"]
+    out = [logits[:, -1].cpu()]
+    tok = logits[:, -1].argmax(-1)
+    toks_out = [tok.cpu()]
+    for _ in range(DEC_NEW):
+        logits, cache = decode(params, {"tokens": tok[:, None]}, cache)
+        out.append(logits[:, -1].cpu())
+        tok = logits[:, -1].argmax(-1)
+        toks_out.append(tok.cpu())
+    res = {"logits": torch.stack(out), "tokens": torch.stack(toks_out),
+           "data": mesh.coord("data")}
+    if counters:
+        res["counts"] = {n: (c.launches, c.plain_launches)
+                         for n, c in dispatch.COUNTERS.items()}
+    return res
+
+
+def moe_run(p, mesh):
+    """moe_ffn of the reduced dbrx's layer 0 on this data rank's tokens:
+    capacity-dropped with its aux loss (training) and dropless; the
+    groups this rank computed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.ctx import logical_rules
+    from repro_torch.models import moe
+    from repro_torch.models.model import layer_params
+
+    cfg = get_config("dbrx-132b").reduced()
+    shape = ShapeConfig("t", "train", MOE_SEQ, MOE_BATCH, microbatch=MOE_BATCH)
+    rules = shd.logical_rules(cfg, shape, mesh)
+    pspec = shd.param_pspecs(cfg, steps.abstract_params(cfg), mesh)
+    params = shd.shard_tree(p["moe_params"], pspec, mesh)
+    lp = layer_params(params["blocks"], 0)["moe"]
+    x = shd.local_shard(p["moe_x"], shd.P(rules["batch"], None, None), mesh)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor, act=cfg.act)
+    out = {"data": mesh.coord("data"), "model": mesh.coord("model"),
+           "held": lp["experts"]["w_up"]["w"].shape[0]}
+    with logical_rules(mesh, rules), moe.record_groups() as log:
+        out["train"], out["aux"] = moe.moe_ffn(x, lp, dropless=False, **kw)
+        out["serve"], _ = moe.moe_ffn(x, lp, dropless=True, want_aux=False, **kw)
+    out["groups"] = [g.groups for g in log]
+    return out
+
+
+def moe_serve_run(p, mesh):
+    """The reduced dbrx served sharded from its (4, 8) nested tree (experts
+    replicated over model by ``_nested_pspecs``, computed by block)."""
+    from repro_torch.configs import get_config
+    return serve_run(p, mesh, get_config("dbrx-132b").reduced(), "moe_nested", "nested",
+                     mesh.device)
+
+
+def compress_run(p, rank):
+    import torch.distributed as dist
+
+    from repro_torch.distributed.grad_compress import compress_decompress
+    g = p["compress_g"][rank]
+    return compress_decompress(g, torch.zeros_like(g), dist.group.WORLD)
+
+
+def ckpt_run(p, workdir, meshes):
+    """Save a tree sharded on (2, 2); restore it onto (1, 4), (4, 1) and
+    plainly."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import P, shard_tree
+
+    tree_ = p["ckpt_tree"]
+    specs = {"w": P("data", "model"), "b": P()}
+    mgr = CheckpointManager(str(Path(workdir) / "ckpt"))
+    mgr.save(1, shard_tree(tree_, specs, meshes[(2, 2)]), extra={"mesh": "2x2"},
+             mesh=meshes[(2, 2)], pspecs=specs)
+    tmpl = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in tree_.items()}
+    out = {}
+    for shape in ((1, 4), (4, 1)):
+        m = meshes[shape]
+        got, manifest = mgr.restore(tmpl, mesh=m, pspecs=specs)
+        out[shape] = {"tree": got, "coord": (m.coord("data"), m.coord("model")),
+                      "extra": manifest["extra"]}
+    out["plain"] = mgr.restore(tmpl, device="cpu")[0]
+    return out
+
+
+def job_cpu4(p, rank, workdir, device):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+
+    meshes = {s: _mesh(s, device) for s in ((2, 2), (1, 4), (4, 1))}
+    m22 = meshes[(2, 2)]
+    comm.reset_counts()
+    out = {"train_2x2": train_run(p, m22)}
+    out["train_comm"] = comm.counts()
+    out["train_2x2_control"] = train_run(p, m22, control=True)
+    out["train_1x4"] = train_run(p, meshes[(1, 4)])
+    out["remat_thread"] = remat_thread_run(p, m22)
+    cfg = get_config("qwen2-1.5b").reduced()
+    out["decode"] = serve_run(p, m22, cfg, "dense", None, device)
+    out["decode_nested"] = serve_run(p, m22, cfg, "nested", "nested", device)
+    out["moe"] = moe_run(p, m22)
+    out["moe_serve"] = moe_serve_run(p, m22)
+    out["compress"] = compress_run(p, rank)
+    out["ckpt"] = ckpt_run(p, workdir, meshes)
+    return out
+
+
+def job_cpu2(p, rank, workdir, device):
+    return {"train_2x1": train_run(p, _mesh((2, 1), device))}
+
+
+def job_gpu2(p, rank, workdir, device):
+    """The reduced qwen2's nested serve over model = 2 on one card, at
+    rungs 0 and 1."""
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b").reduced()
+    mesh = _mesh((1, 2), device)
+    return {rung: serve_run(p, mesh, cfg, "nested", "nested", device, counters=True,
+                            rung=rung) for rung in (0, 1)}
+
+
+JOBS = {"cpu4": job_cpu4, "cpu2": job_cpu2, "gpu2": job_gpu2}
+
+
+def main(argv) -> int:
+    job, rank, world, init, workdir = argv[:5]
+    device = argv[5] if len(argv) > 5 else "cpu"
+    rank, world = int(rank), int(world)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    torch.manual_seed(0)
+    init_world("gloo", init_method=f"file://{init}", rank=rank, world_size=world)
+    try:
+        p = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+        out = JOBS[job](p, rank, workdir, device)
+        torch.save(out, Path(workdir) / f"{job}_{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
