@@ -107,7 +107,11 @@ Phases (each raises on failure; the script then exits non-zero):
    the whole tree at (6, 4) is the sum over shapes times their uses)
    against their plain versions at the long-context path's shapes, timed
    like K1-K3; ``scaled_dot_product_attention`` is timed beside K5 as its
-   library yardstick (the port never calls it).
+   library yardstick (the port never calls it).  K5 on one rank's block of
+   query rows (phase 10's sequence-parallel attention over model = 8: 256
+   of 2048 rows at offsets 0, 256, ..., 1792 in bf16, 0 and 1792 in f32)
+   against its plain version at an offset, timed beside SDPA with the
+   explicit offset causal mask.
 5. Long-context serving on the nested KV cache: 2 requests x 2048 prompt
    tokens x 8 new tokens, ``kv=KVCacheConfig((4, 6, 8), 16, "rtn")`` under
    a ``LoadAdaptivePolicy``, five calls whose queue depths walk the KV
@@ -181,7 +185,7 @@ Phases (each raises on failure; the script then exits non-zero):
 8. Training on the card, then NestQuant of the trained weights (phase 8,
    ``phase_train``; full-width qwen2-1.5b, remat on, batch 2 x 2048 of the
    seeded ``SyntheticLM`` stream).  (a) One ``loss_fn`` and its gradients
-   at the first 4 layers with K5 (forward and remat recompute, writing its
+   at the first 2 layers with K5 (forward and remat recompute, writing its
    row statistics; the blockwise backward) against the same computation
    under ``reference_pass``: f32 loss within 1e-5, every leaf within 1e-4
    of its max |g|; bf16 under ``BF16_GRAD_TOL``, which the control (K5
@@ -209,12 +213,12 @@ Phases (each raises on failure; the script then exits non-zero):
    joined by gloo, all on the one card (so their times measure no
    scaling), each on its own blocks, against the world-1 steps (a (1, 1)
    mesh, no process group) on the same card.  (a) The train step of
-   qwen2-1.5b at full width with 4 of its 28 layers, 4 x 2048 in
+   qwen2-1.5b at full width with 2 of its 28 layers, 4 x 2048 in
    microbatches of 2: the loss, and each rank's blocks of the f32 state
    after the step against the world-1 state's under ``SHARDED_STATE_TOL``,
    which the control without the data-axis gradient average exceeds: m
    and v per leaf (largest |diff| over the leaf's largest |value|), master
-   in units of the learning rate where m is large (``rank_train``); 16
+   in units of the learning rate where m is large (``rank_train``); 8
    K5 launches per rank, none plain; the step wall, the all-reduce bytes
    beside ``predicted_train_comm`` and the peak memory per rank.  (b)
    qwen2-1.5b with all 28 layers nested (4, 8) rtn as
@@ -229,6 +233,31 @@ Phases (each raises on failure; the script then exits non-zero):
    the one-card ``moe_ffn`` on the same tokens, each rank's expert groups
    what its tokens' routing implies, and its K2 launches those groups'.
 
+10. Sequence-parallel attention, the sequence-split KV cache and the ssm
+   and hybrid families' sharded steps (phase 10, ``phase_seq_ssm_sharded``),
+   with phase 9's rank machinery (each world's ``plan.json``, the world-1
+   controls on a (1, 1) mesh in the main process).  Eight rank processes
+   on a (data 1, model 8) mesh: (a) the train step of qwen2-1.5b at full
+   width with 4 of its 28 layers, 2 x 2048 in one microbatch: its 12
+   heads do not divide 8, so each model rank attends its 256 query rows
+   through K5 at offset 256 r (forward and remat recompute: 8 launches per
+   rank, none plain) against the whole k/v, the plain blockwise backward
+   beside it; the loss and state under phase 9's limits, which the
+   control without the model-axis sum of the k/v gradient parts exceeds;
+   (b) qwen2-1.5b with all 28 layers nested (4, 8): a prefill of 2 x 2048
+   (K5 at the offsets, 28 per run), then 8 decode steps against a cache
+   of 2056 positions split over model (257 per rank): only the rank
+   holding a position writes it, and the blocks' softmax pieces are
+   combined across ranks; rungs 0 and 1, f32 (within 1e-4, tokens
+   identical) and bf16 (3e-2), the control without the combine above its
+   limit; 1773 K1/K2 launches per rank and run, none plain.  Then four
+   rank processes on (2, 2): (c) mamba2-780m's train step at full width
+   with 4 of its 48 layers, 2 x 2048, and its nested serve at all 48
+   layers (4 x 64 prompt tokens, 8 steps, rungs 0 and 1, f32); (d)
+   zamba2-2.7b's nested serve at all 54 layers the same way: each model
+   rank runs its block of the SSM heads and conv channels; K1/K2 launches
+   per rank as the path implies (97 and 163 a forward), none plain.
+
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
 kernels (launches, error, times, bound); the last line is
@@ -242,6 +271,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1880,6 +1910,54 @@ def check_flash(q, k, v, what, tag="kv-kernels"):
 STATS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
 
 
+def flash_offset_row(q, k, v, off, whole_rows):
+    """K5 on a block of query rows at ``off`` into the keys (a
+    sequence-parallel rank's rows) against its plain version (``TOL`` of
+    max |o|, ``ROW_TOL`` of every row), timed beside the plain version and
+    ``scaled_dot_product_attention`` with the explicit offset causal mask
+    (the library yardstick; the port never calls it).  Whether the rows
+    equal the whole-sequence launch's bit for bit is recorded.  The bound
+    counts what the block needs: the keys up to its last row, once, and
+    each row's causal share of QK^T and PV."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    dtype = q.dtype
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    what = (f"flash_attention rows {off}..{off + Sq - 1} of {Skv} "
+            f"{str(dtype).replace('torch.', '')}")
+    got = fa.flash_attention(q, k, v, q_offset=off)
+    with dispatch.reference_pass():
+        want = fa.flash_attention(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    row = _row_rel(got, want)
+    if not (math.isfinite(err) and err <= TOL[dtype] * peak and row <= ROW_TOL[dtype]):
+        raise AssertionError(f"{what}: max |kernel - plain| / max |o| = {err / peak:.3e} "
+                             f"(tol {TOL[dtype]}), worst row {row:.3e} (tol {ROW_TOL[dtype]})")
+    same = bool(torch.equal(got, whole_rows))
+    ms = time_graph_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off), 10)
+    with dispatch.reference_pass():
+        plain_ms = time_ms(lambda i: fa.flash_attention(q, k, v, q_offset=off), 3)
+    pos = torch.arange(Skv, device=q.device)
+    mask = pos[None, :] <= off + torch.arange(Sq, device=q.device)[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
+    keys = Sq * off + Sq * (Sq + 1) // 2                # keys each row sees, summed
+    flops = 4.0 * B * Hq * hd * keys                    # QK^T and PV
+    nbytes = (2 * q.numel() + 2 * B * (off + Sq) * Hkv * hd) * q.element_size()
+    log(f"[kv-kernels] {what}: max err / max|o| {err / peak:.3e}, worst row {row:.3e}; "
+        f"equal to the whole launch's rows: {same}")
+    return _row("flash_attention_offset", f"rows {off}..{off + Sq - 1} of {Skv}", Sq,
+                str(dtype).replace("torch.", ""), err, ms, plain_ms, nbytes, flops,
+                PEAK_FLOPS[dtype], lib_ms, max_abs_ref=peak, worst_row_rel=row,
+                equals_whole_rows=same, B=B, Sq=Sq, Skv=Skv, q_offset=off, Hq=Hq, Hkv=Hkv,
+                hd=hd)
+
+
 def check_flash_stats(q, k, v, what):
     """K5 with its row statistics (the training forward's launch) against
     the plain forward at one KV block (``attention._flash_fwd_inner``): o
@@ -1985,6 +2063,16 @@ def phase_kv_kernels(cfg, gen):
                              control_drop_tile={"err_over_max": ctl_err / peak,
                                                 "worst_row_rel": ctl_row},
                              with_stats=stats, B=B, S=S, Hq=Hq, Hkv=Hkv, hd=hd))
+            if S == PROMPT_LONG:
+                # phase 10's launches: each of 8 model ranks' block of 256
+                # query rows (bf16: every block; f32: the first and last)
+                n = S // SEQ_MESH[1]
+                whole = fa.flash_attention(q, k, v)
+                offs = range(0, S, n) if dtype == torch.bfloat16 else (0, S - n)
+                for off in offs:
+                    rows.append(flash_offset_row(q[:, off:off + n].contiguous(), k, v, off,
+                                                 whole[:, off:off + n]))
+                del whole
             del q, k, v
     d, L = cfg.d_model, cfg.num_layers
     shapes = [("q/o", d, cfg.num_heads * cfg.head_dim, 512, 2 * L),
@@ -3192,11 +3280,12 @@ def phase_ssm(gen):
 # phase 8: training on the card, then NestQuant of the trained weights
 # ---------------------------------------------------------------------------
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
-TRAIN_CHECK_LAYERS = 4             # the gradient check's depth (of 28)
+TRAIN_CHECK_LAYERS = 2             # the gradient check's depth (of 28)
 # peak learning rate 3e-4: at the CLI's default of 3e-3 the full-width
 # model's loss rose over 24 steps (12.18 -> 12.49, a gradient-norm spike
 # of 41 at step 14; PERF.md), which says nothing of the port
-TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 24, 8, 3e-4
+# 8 steps: the whole script's time limit also holds phase 10's ranks
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 8, 3e-4
 F32_LOSS_TOL, F32_GRAD_TOL = 1e-5, 1e-4
 # bf16 gradients against the plain bf16 pass, per leaf relative to the
 # leaf's max |g| (the worst leaf): about the geometric mean of the sound
@@ -3252,8 +3341,8 @@ class _K5OutsideFunction:
         from repro_torch.kernels.flash_attention import kernel, ops
 
         self.ops, self.before = ops, ops.blockwise_attention
-        ops.blockwise_attention = lambda q, k, v, causal, kv_block: kernel.flash_attention(
-            q.detach(), k.detach(), v.detach())
+        ops.blockwise_attention = lambda q, k, v, causal, kv_block, q_offset=0: (
+            kernel.flash_attention(q.detach(), k.detach(), v.detach(), q_offset=q_offset))
 
     def __exit__(self, *exc):
         self.ops.blockwise_attention = self.before
@@ -3655,7 +3744,7 @@ SHARDED_MOE_TOL = 1e-4
 
 def sharded_plan():
     """What phase 9 runs (read by every rank from ``plan.json``): (a) the
-    train step of qwen2-1.5b at full width with 4 of its 28 layers, global
+    train step of qwen2-1.5b at full width with 2 of its 28 layers, global
     batch 4 x 2048 in microbatches of 2, at schedule step 50 (learning rate
     half its peak); (b) qwen2-1.5b, all 28 layers, nested (4, 8) rtn as
     ``quantize_abstract`` lays it out: a prefill of 4 x 64 tokens and 8
@@ -3663,7 +3752,7 @@ def sharded_plan():
     published widths with 2 of its 40 layers, nested (4, 8), f32: a prefill
     of 4 x 8 tokens and 4 greedy decode steps."""
     return {"device": DEVICE, "mesh": list(SHARDED_MESH),
-            "train": {"arch": "qwen2-1.5b", "layers": 4, "batch": 4, "seq": 2048,
+            "train": {"arch": "qwen2-1.5b", "layers": 2, "batch": 4, "seq": 2048,
                       "micro": 2, "step": 50},
             "serve": {"arch": "qwen2-1.5b", "layers": None, "batch": 4, "prompt": 64,
                       "new": 8, "rungs": [0, 1], "dtypes": ["float32", "bfloat16"]},
@@ -3680,12 +3769,12 @@ def _plan_config(part, **changes):
     return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
-def _train_parts(plan):
+def _train_parts(plan, key="train"):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.train import to_device
 
-    t = plan["train"]
+    t = plan[key]
     cfg = _plan_config(t, **({"compute_dtype": t["compute"]} if t.get("compute") else {}))
     shape = ShapeConfig("sharded_train", "train", t["seq"], t["batch"], microbatch=t["micro"])
     data = SyntheticLM(DataConfig(cfg.vocab_size, t["seq"], t["batch"]), 0, 1)
@@ -3728,30 +3817,58 @@ def _serve_prompt(cfg, part, device):
                          generator=g).to(device)
 
 
-def sharded_serve(prefill, decode, ps, ds, params, prompt, forced, mesh):
-    """A prefill, then one decode step per forced token column (None: own
-    greedy tokens, ``decode_new`` steps) -> (logits per forward on this
-    data rank's rows, greedy tokens, wall seconds)."""
+def sharded_prefill(prefill, ps, ds, params, prompt, mesh):
+    """The prefill -> (its last logits on this data rank's rows, the decode
+    cache of ``ds["max_len"]`` positions holding the prompt)."""
+    from repro_torch.distributed import steps
     from repro_torch.distributed.sharding import local_shard, shard_tree
 
-    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
     logits, pcache = prefill(params, {"tokens": local_shard(prompt, ps["batch"]["tokens"],
                                                             mesh)})
-    B, S = prompt.shape
-    cache = shard_tree(ds["model"].make_cache(B, ds["max_len"]), ds["cache"], mesh)
-    for key in ("k", "v"):
-        cache[key][:, :, :S] = pcache[key]
-    cache["pos"] = pcache["pos"]
-    outs, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
-    for j in range(ds["new"]):
+    cache = shard_tree(ds["model"].make_cache(prompt.shape[0], ds["max_len"]), ds["cache"],
+                       mesh)
+    steps.fill_decode_cache(cache, pcache, mesh, ps["cache"], ds["cache"])
+    return logits[:, -1], cache
+
+
+def sharded_decode(decode, ds, params, cache, last, forced, steps=None):
+    """One decode step per forced token column (None: own greedy tokens;
+    ``steps``, default ``ds["new"]``, steps) after the prefill's ``last``
+    logits -> (logits per forward, greedy tokens); the cache is written in
+    place."""
+    outs, toks = [last], [last.argmax(-1)]
+    for j in range(ds["new"] if steps is None else steps):
         tok = toks[-1] if forced is None else forced[j]
         logits, cache = decode(params, {"tokens": tok[:, None]}, cache)
         outs.append(logits[:, -1])
         toks.append(logits[:, -1].argmax(-1))
+    return torch.stack(outs), torch.stack(toks)
+
+
+def sharded_serve(prefill, decode, ps, ds, params, prompt, forced, mesh, pre_params=None,
+                  times=None):
+    """A prefill (of ``pre_params`` where the prefill step lays the tree out
+    otherwise than the decode step), then the decode steps -> (logits per
+    forward on this data rank's rows, greedy tokens, wall seconds);
+    ``times`` (a dict) gets the prefill's and the decode steps' seconds,
+    and with its ``keep_cache`` set, a copy of the cache the decode steps
+    start from (``start_cache``)."""
+    sync = torch.cuda.synchronize if prompt.is_cuda else (lambda: None)
     sync()
-    return torch.stack(outs), torch.stack(toks), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    last, cache = sharded_prefill(prefill, ps, ds, params if pre_params is None else pre_params,
+                                  prompt, mesh)
+    sync()
+    t1 = time.perf_counter()
+    if times is not None and times.pop("keep_cache", False):
+        times["start_cache"] = {k: v.clone() if torch.is_tensor(v) else v
+                                for k, v in cache.items()}
+    logits, toks = sharded_decode(decode, ds, params, cache, last, forced)
+    sync()
+    t2 = time.perf_counter()
+    if times is not None:
+        times.update(prefill_s=t1 - t0, decode_s=t2 - t1)
+    return logits, toks, t2 - t0
 
 
 def _serve_steps(cfg, part, mesh, quant="nested"):
@@ -3764,13 +3881,11 @@ def _serve_steps(cfg, part, mesh, quant="nested"):
     return prefill, ps, decode, ds
 
 
-def sharded_world1(plan, work: Path):
-    """The world-1 controls on the card (a (1, 1) mesh, no process group):
-    (a) the train step from the same init and batch, its loss and whole f32
-    state written to ``work``; (b) each (dtype, rung) serve's logits and
-    greedy tokens.  Launches here only compare, and are not counted."""
+def world1_train(plan, key: str, path: Path):
+    """The world-1 control of a train part on the card (a (1, 1) mesh, no
+    process group): the step from the same init and batch, its loss and
+    whole f32 state written to ``path``."""
     from repro_torch import tree
-    from repro_torch.core.nesting import set_tree_rung
     from repro_torch.distributed import steps
     from repro_torch.launch.mesh import shape_only
     from repro_torch.models.model import init_params
@@ -3778,12 +3893,12 @@ def sharded_world1(plan, work: Path):
 
     dev = plan["device"]
     one = shape_only((1, 1), ("data", "model"), dev)
-    cfg, shape, batch = _train_parts(plan)
+    cfg, shape, batch = _train_parts(plan, key)
     step, specs = steps.build_train_step(cfg, shape, one)
     params = init_params(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, device=dev)
     opt = adamw.init_state(params)
     t0 = time.perf_counter()
-    params, opt, metrics = step(params, opt, batch, plan["train"]["step"])
+    params, opt, metrics = step(params, opt, batch, plan[key]["step"])
     loss = float(metrics["loss"])
     train_s = time.perf_counter() - t0
     state = {f: {k: v.cpu() for k, v in tree.flatten_with_path(getattr(opt, f))}
@@ -3792,11 +3907,23 @@ def sharded_world1(plan, work: Path):
                         for f in ("m", "v")}
     state["loss"], state["lr"] = loss, float(metrics["lr"])
     del params, opt, metrics
-    torch.save(state, work / "train_w1.pt")
+    torch.save(state, path)
     del state
     _empty_cache(dev)
+    return {"loss": loss, "train_s": train_s}
 
-    part = plan["serve"]
+
+def world1_serve(plan, key: str, path: Path):
+    """The world-1 control of a serve part: each (dtype, rung) serve's
+    logits and greedy tokens on the whole nested tree, written to
+    ``path`` with the prompt."""
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.launch.mesh import shape_only
+    from repro_torch.models.model import init_params
+
+    dev = plan["device"]
+    one = shape_only((1, 1), ("data", "model"), dev)
+    part = plan[key]
     scfg = _plan_config(part)
     serve = {}
     dense = init_params(scfg, seed=0, device=dev)
@@ -3813,10 +3940,19 @@ def sharded_world1(plan, work: Path):
             serve[f"{dt}/{rung}"] = {"logits": logits.float().cpu(), "tokens": toks.cpu(),
                                      "wall_s": wall}
     del nested
-    torch.save({"serve": serve, "prompt": prompt.cpu()}, work / "serve_w1.pt")
+    torch.save({"serve": serve, "prompt": prompt.cpu()}, path)
     _empty_cache(dev)
-    return {"loss": loss, "train_s": train_s,
-            "serve_wall_s": {k: v["wall_s"] for k, v in serve.items()}}
+    return {k: v["wall_s"] for k, v in serve.items()}
+
+
+def sharded_world1(plan, work: Path):
+    """The world-1 controls of phase 9 on the card: (a) the train step's
+    loss and state (``train_w1.pt``), (b) each (dtype, rung) serve's
+    logits and greedy tokens (``serve_w1.pt``).  Launches here only
+    compare, and are not counted."""
+    out = world1_train(plan, "train", work / "train_w1.pt")
+    out["serve_wall_s"] = world1_serve(plan, "serve", work / "serve_w1.pt")
+    return out
 
 
 def _empty_cache(device):
@@ -3914,7 +4050,8 @@ def state_gaps(opt, ospec, ref, mesh):
       largest |value|;
     * ``master``: per leaf, the largest |diff| in units of the step's
       learning rate, on the elements whose world-1 m is at least
-      ``SHARDED_STATE_TOL`` of its leaf's largest |m|.  Adam's first step
+      ``SHARDED_STATE_TOL`` of its leaf's largest |m|;
+    * a non-finite value on either side reads inf in both.  Adam's first step
       moves master by lr * sign(g) (weight decay aside): where a gradient
       is zero but for rounding master may go either way (2 lr apart), and
       master's own value (norm scales near 1) is too large to show a step
@@ -3935,6 +4072,10 @@ def state_gaps(opt, ospec, ref, mesh):
     for i, (key, _) in enumerate(flat["m"]):
         got = {f: flat[f][i][1] for f in flat}
         want = {f: local_shard(ref[f][key], specs[key], mesh).to(got[f].device) for f in flat}
+        if not all(bool(torch.isfinite(t[f]).all()) for t in (got, want) for f in flat):
+            worst("moments", math.inf, f"non-finite m, v or master{key}")
+            worst("master", math.inf, f"non-finite m, v or master{key}")
+            continue
         gaps = {f: float((got[f] - want[f]).abs().max()) / max(ref["leafmax"][f][key], 1e-30)
                 for f in ("m", "v")}
         mask = want["m"].abs() >= SHARDED_STATE_TOL * ref["leafmax"]["m"][key]
@@ -3947,11 +4088,12 @@ def state_gaps(opt, ospec, ref, mesh):
     return out
 
 
-def rank_train(plan, mesh, work: Path):
+def rank_train(plan, mesh, work: Path, key="train", ref_file="train_w1.pt",
+               control=without_data_mean):
     """(a) on this rank: the sharded train step (sound), then its control
-    without the data-axis gradient average (``without_data_mean``), each
-    from the same init, held block by block against the world-1 state
-    (``state_gaps``)."""
+    (by default without the data-axis gradient average,
+    ``without_data_mean``; None: none), each from the same init, held
+    block by block against the world-1 state (``state_gaps``)."""
     from repro_torch.distributed import comm, steps
     from repro_torch.distributed.sharding import local_shard, shard_tree
     from repro_torch.kernels import dispatch
@@ -3959,10 +4101,10 @@ def rank_train(plan, mesh, work: Path):
     from repro_torch.optim import adamw
 
     dev = plan["device"]
-    cfg, shape, batch = _train_parts(plan)
-    ref = torch.load(work / "train_w1.pt", mmap=True, weights_only=False)
+    cfg, shape, batch = _train_parts(plan, key)
+    ref = torch.load(work / ref_file, mmap=True, weights_only=False)
     out = {}
-    for run in ("sound", "control"):
+    for run in ("sound", "control") if control else ("sound",):
         step, specs = steps.build_train_step(cfg, shape, mesh)
         full = init_params(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, device=dev)
         params = shard_tree(full, specs["params"], mesh)
@@ -3975,13 +4117,14 @@ def rank_train(plan, mesh, work: Path):
         if dev == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with without_data_mean(mesh) if run == "control" else contextlib.nullcontext():
-            params, opt, metrics = step(params, opt, local, plan["train"]["step"])
+        with control(mesh) if run == "control" else contextlib.nullcontext():
+            params, opt, metrics = step(params, opt, local, plan[key]["step"])
         loss = float(metrics["loss"])
         wall = time.perf_counter() - t0
         k5 = dispatch.counter("flash_attention")
         res = {"loss": loss, "wall_s": wall, "comm": comm.counts(),
                "k5_launches": k5.launches, "k5_plain": k5.plain_launches,
+               "counts": _k_totals(),
                "peak_mem_bytes": _peak(dev),
                "predicted_comm": predicted_train_comm(cfg, shape, mesh, specs["params"])}
         gaps = state_gaps(opt, specs["opt"], ref, mesh)
@@ -4000,49 +4143,101 @@ def _k_totals():
                 "tc": c.tc_launches} for n, c in dispatch.COUNTERS.items()}
 
 
-def rank_serve(plan, mesh, work: Path):
-    """(b) on this rank: quantize this rank's blocks of qwen2-1.5b (a column
-    block nests to the whole weight's block), then per (dtype, rung) the
-    sharded prefill and decode steps, fed the world-1 control's tokens,
-    against the control's logits on this data rank's rows."""
-    from repro_torch.core.nesting import set_tree_rung
+def _rank_trees(cfg, part, mesh, dev):
+    """This rank's nested blocks, as the decode step lays the tree out and,
+    where the prefill step lays a leaf out otherwise (replicated q/k/v/o of
+    sequence-parallel attention), as the prefill step does (None where the
+    two agree): a column block nests to the whole weight's block."""
+    from repro_torch import tree
+    from repro_torch.core.nesting import NestedTensor
+    from repro_torch.core.recipe import QuantRecipe, quantize
     from repro_torch.distributed.sharding import shard_tree
-    from repro_torch.kernels import dispatch
     from repro_torch.models.model import init_params
 
-    dev = plan["device"]
-    part = plan["serve"]
-    cfg = _plan_config(part)
-    ref = torch.load(work / "serve_w1.pt", weights_only=False)
-    _, _, _, ds0 = _serve_steps(cfg, part, mesh)
+    _, ps0, _, ds0 = _serve_steps(cfg, part, mesh)
+    spec = lambda s: tuple(s.w_base) if isinstance(s, NestedTensor) else tuple(s)  # noqa: E731
+    differ = {k for (k, a), (_, b) in zip(tree.flatten_with_path(ds0["params"]),
+                                          tree.flatten_with_path(ps0["params"]))
+              if spec(a) != spec(b)}
     dense = init_params(cfg, seed=0, device=dev)
-    t0 = time.perf_counter()
-    local = shard_tree(dense, _dense_specs(ds0["params"]), mesh)
+    cut = shard_tree(dense, _dense_specs(ds0["params"]), mesh)
+    cut_pre = shard_tree(dense, _dense_specs(ps0["params"]), mesh) if differ else None
     del dense
-    nested = _nest_as_specs(local, ds0["params"], dev)
-    del local
-    quant_s = time.perf_counter() - t0
+    nested = _nest_as_specs(cut, ds0["params"], dev)
+    del cut
+    pre = None
+    if differ:
+        nest = {k for k, s in tree.flatten_with_path(ps0["params"])
+                if k in differ and isinstance(s, NestedTensor)}
+        recipe = QuantRecipe(bits=(4, 8), rounding="rtn", predicate=lambda k, _: k in nest)
+        other = quantize(cut_pre, recipe, device=dev)
+        pre = tree.unflatten(nested, [o if k in differ else n for (k, n), (_, o) in zip(
+            tree.flatten_with_path(nested), tree.flatten_with_path(other))])
+        del other, cut_pre
     _empty_cache(dev)
+    return nested, pre
+
+
+def rank_serve(plan, mesh, work: Path, key="serve", ref_file="serve_w1.pt", control=None):
+    """(b) on this rank: quantize this rank's blocks of the part's model (a
+    column block nests to the whole weight's block), then per (dtype, rung)
+    the sharded prefill and decode steps, fed the world-1 control's tokens,
+    against the control's logits on this data rank's rows; ``control``
+    (a context manager factory): one more run at the first (dtype, rung)
+    from the same cache under it (the control changes the decode steps
+    alone), whose logits must read above the limit."""
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import dispatch
+
+    dev = plan["device"]
+    part = plan[key]
+    cfg = _plan_config(part)
+    ref = torch.load(work / ref_file, weights_only=False)
+    t0 = time.perf_counter()
+    nested, pre = _rank_trees(cfg, part, mesh, dev)
+    quant_s = time.perf_counter() - t0
     half = part["batch"] // mesh.shape["data"]
     rows = slice(mesh.coord("data") * half, (mesh.coord("data") + 1) * half)
     prompt = ref["prompt"].to(dev)
     out = {"quantize_s": quant_s, "runs": {}}
+
+    def record(name, logits, toks, want, wall, times):
+        n = logits.shape[0]                          # forwards run
+        w = want["logits"][:n, rows]
+        out["runs"][name] = {
+            "gap": float((logits.float().cpu() - w).abs().max() / w.abs().max()),
+            "tokens_equal": bool(torch.equal(toks.cpu(), want["tokens"][:n, rows])),
+            "wall_s": wall, "counts": _k_totals(), "comm": comm.counts(),
+            "finite": bool(torch.isfinite(logits).all()), **times}
+
     for dt in part["dtypes"]:
         prefill, ps, decode, ds = _serve_steps(dataclasses.replace(cfg, compute_dtype=dt),
                                                part, mesh)
         for rung in part["rungs"]:
             want = ref["serve"][f"{dt}/{rung}"]
             forced = want["tokens"][:, rows].to(dev)
+            params = set_tree_rung(nested, rung)
+            keep = bool(control) and (dt, rung) == (part["dtypes"][0], part["rungs"][0])
             dispatch.reset_counters()
-            logits, toks, wall = sharded_serve(prefill, decode, ps, ds,
-                                               set_tree_rung(nested, rung), prompt, forced, mesh)
-            counts = _k_totals()
-            w = want["logits"][:, rows]
-            gap = float((logits.float().cpu() - w).abs().max() / w.abs().max())
-            out["runs"][f"{dt}/{rung}"] = {
-                "gap": gap, "tokens_equal": bool(torch.equal(toks.cpu(), want["tokens"][:, rows])),
-                "wall_s": wall, "counts": counts,
-                "finite": bool(torch.isfinite(logits).all())}
+            comm.reset_counts()
+            times = {"keep_cache": keep}
+            logits, toks, wall = sharded_serve(
+                prefill, decode, ps, ds, params, prompt, forced, mesh,
+                None if pre is None else set_tree_rung(pre, rung), times)
+            start = times.pop("start_cache", None)
+            record(f"{dt}/{rung}", logits, toks, want, wall, times)
+            if keep:
+                # the decode steps again from the same cache, under the control
+                dispatch.reset_counters()
+                comm.reset_counts()
+                t0 = time.perf_counter()
+                with control():
+                    logits, toks = sharded_decode(decode, ds, params, start, logits[0],
+                                                  forced, CONTROL_STEPS)
+                record(f"{dt}/{rung}/control", logits, toks, want,
+                       time.perf_counter() - t0, {})
+            del start
     out["peak_mem_bytes"] = _peak(dev)
     return out
 
@@ -4119,9 +4314,25 @@ def rank_moe(plan, mesh):
             "finite": bool(torch.isfinite(logits).all()), "peak_mem_bytes": _peak(dev)}
 
 
+def _blocking_sync() -> None:
+    """Make this process's waits on the card block instead of spin
+    (``CU_CTX_SCHED_BLOCKING_SYNC`` on the primary context, set through the
+    driver before the context exists): with one process per core, ranks
+    spinning in a stream sync starve the threads gloo's collectives run
+    on."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    dev = ctypes.c_int()
+    for err in (cuda.cuInit(0), cuda.cuDeviceGet(ctypes.byref(dev), 0),
+                cuda.cuDevicePrimaryCtxSetFlags(dev, 0x04)):
+        if err:
+            raise RuntimeError(f"setting blocking sync on the card: CUDA driver error {err}")
+
+
 def sharded_rank(rank: int, world: int, work: Path) -> int:
-    """One rank of phase 9: join the gloo world, run (a)-(c), write
-    ``rank<r>.json``."""
+    """One rank of phase 9 or 10 (the plan's ``job``): join the gloo world,
+    run its parts, write ``rank<r>.json``."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_test_mesh
@@ -4129,6 +4340,8 @@ def sharded_rank(rank: int, world: int, work: Path) -> int:
     global DEVICE
     plan = json.loads((work / "plan.json").read_text())
     DEVICE = plan["device"]
+    if torch.device(DEVICE).type == "cuda":
+        _blocking_sync()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_test_mesh(tuple(plan["mesh"]), ("data", "model"), backend="gloo",
@@ -4137,9 +4350,18 @@ def sharded_rank(rank: int, world: int, work: Path) -> int:
     try:
         t0 = time.perf_counter()
         out = {"rank": rank, "data": mesh.coord("data"), "model": mesh.coord("model")}
-        out["train"] = rank_train(plan, mesh, work)
-        out["serve"] = rank_serve(plan, mesh, work)
-        out["moe"] = rank_moe(plan, mesh)
+        job = plan.get("job", "sharded")
+        if job == "sharded":
+            out["train"] = rank_train(plan, mesh, work)
+            out["serve"] = rank_serve(plan, mesh, work)
+            out["moe"] = rank_moe(plan, mesh)
+        elif job == "seq":
+            out["train"] = rank_train(plan, mesh, work, control=without_kv_grad_sum)
+            out["serve"] = rank_serve(plan, mesh, work, control=without_combine)
+        else:
+            out["train"] = rank_train(plan, mesh, work, control=None)
+            for key in ("serve", "hybrid"):
+                out[key] = rank_serve(plan, mesh, work, key=key, ref_file=f"{key}_w1.pt")
         out["seconds"] = time.perf_counter() - t0
         (work / f"rank{rank}.json").write_text(json.dumps(out))
         dist.barrier()
@@ -4148,80 +4370,127 @@ def sharded_rank(rank: int, world: int, work: Path) -> int:
     return 0
 
 
-def run_ranks(work: Path, world: int):
-    """Start ``world`` rank processes of this script and wait for all; any
-    that fails (or outlives ``SHARDED_TIMEOUT_S``) fails the phase, and
-    every process started is stopped."""
+def start_ranks(work: Path, world: int):
+    """Start ``world`` rank processes of this script on ``work``'s plan."""
     procs = []
     try:
         for r in range(world):
             log_f = open(work / f"rank{r}.log", "w")
+            # one intra-op thread per rank: the ranks' idle thread pools
+            # would otherwise spin on the cores gloo's collectives run on
             procs.append((subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
                  "--world", str(world), "--workdir", str(work)],
-                stdout=log_f, stderr=subprocess.STDOUT), log_f))
+                stdout=log_f, stderr=subprocess.STDOUT,
+                env=dict(os.environ, OMP_NUM_THREADS="1")), log_f))
+    except BaseException:
+        _stop(procs)
+        raise
+    return work, procs
+
+
+def _stop(procs):
+    for p, f in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        f.close()
+
+
+def wait_ranks(started):
+    """Wait for the rank processes ``start_ranks`` started; any that fails
+    (or outlives ``SHARDED_TIMEOUT_S``) fails the phase, and every process
+    started is stopped.  Returns each rank's ``rank<r>.json``."""
+    work, procs = started
+    try:
         deadline = time.time() + SHARDED_TIMEOUT_S
         while any(p.poll() is None for p, _ in procs):
             if time.time() > deadline or any(p.poll() not in (None, 0) for p, _ in procs):
                 break
             time.sleep(0.5)
     finally:
-        for p, f in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-            f.close()
+        _stop(procs)
     bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
     if bad:
         tails = "\n".join(f"--- rank {r} ---\n" + (work / f"rank{r}.log").read_text()[-3000:]
                           for r in bad)
         raise AssertionError(f"sharded ranks {bad} failed:\n{tails}")
-    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(len(procs))]
+
+
+def run_ranks(work: Path, world: int):
+    """Start ``world`` rank processes of this script and wait for all
+    (:func:`start_ranks`, :func:`wait_ranks`)."""
+    return wait_ranks(start_ranks(work, world))
+
+
+def check_serve_runs(tag, serve, part, per_fwd, k5_per_run=0):
+    """Each sound (dtype, rung) serve of a rank against its limits and its
+    K1/K2 launches against what the path implies (``per_fwd`` a forward:
+    the prefill's on the tensor cores in bf16 but its LM head, which takes
+    the decode body as every decode step does), ``k5_per_run`` K5 launches
+    and nothing plain; each control run above its limit."""
+    kernel_of = {0: "packed_matmul", 1: "nested_matmul"}
+    for key, run in serve["runs"].items():
+        dt, rung, *ctl = key.split("/")
+        if ctl:
+            if run["gap"] <= SHARDED_SERVE_TOL[dt]:
+                raise AssertionError(f"{tag}: the serve control {key} reads "
+                                     f"{run['gap']:.3e}: within the limit")
+            continue
+        name = kernel_of[int(rung)]
+        c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0})
+        want = {"launches": per_fwd * (1 + part["new"]), "plain": 0,
+                "dec": 1 + per_fwd * part["new"],
+                "tc": (per_fwd - 1) if dt == "bfloat16" else 0}
+        got = {k: c[k] for k in want}
+        others = sum(v["launches"] + v["plain"] for n, v in run["counts"].items()
+                     if n != name and n in kernel_of.values())
+        if got != want or others:
+            raise AssertionError(f"{tag}: serve {key} K1-K3 {got} (others {others}), "
+                                 f"want {want} on {name}")
+        k5 = run["counts"].get("flash_attention", {"launches": 0, "plain": 0})
+        if (k5["launches"], k5["plain"]) != (k5_per_run, 0):
+            raise AssertionError(f"{tag}: serve {key} K5 {k5['launches']} launches "
+                                 f"({k5['plain']} plain), want {k5_per_run}")
+        if run["gap"] > SHARDED_SERVE_TOL[dt] or not run["finite"]:
+            raise AssertionError(f"{tag}: serve {key} logits gap {run['gap']:.3e}")
+        if dt == "float32" and not run["tokens_equal"]:
+            raise AssertionError(f"{tag}: serve {key} greedy tokens differ")
+
+
+def check_train(tag, train, part):
+    """A rank's train step against the world-1 step's (loss, f32 state;
+    a NaN reads above any limit) and its K5 launches against what the path
+    implies, none plain; its control, where it ran, above the state limit
+    in both readings."""
+    sound, control = train["sound"], train.get("control")
+    # per layer with attention: the forward and its remat recompute, per
+    # microbatch (each rank at its own query offset where the sequence splits)
+    layers = part["layers"] if _plan_config(part).num_heads else 0
+    want_k5 = layers * 2 * (part["batch"] // part["micro"])
+    if sound["k5_launches"] != want_k5 or sound["k5_plain"]:
+        raise AssertionError(f"{tag}: K5 {sound['k5_launches']} launches "
+                             f"({sound['k5_plain']} plain), want {want_k5}")
+    if not (sound["loss_gap"] <= SHARDED_LOSS_TOL and sound["moments_gap"] <= SHARDED_STATE_TOL
+            and sound["master_gap"] <= SHARDED_STATE_TOL):
+        raise AssertionError(
+            f"{tag}: train loss gap {sound['loss_gap']:.3e}, moments gap "
+            f"{sound['moments_gap']:.3e} at {sound['moments_gap_leaf']}, master gap "
+            f"{sound['master_gap']:.3e} at {sound['master_gap_leaf']}")
+    if control and min(control["moments_gap"], control["master_gap"]) <= SHARDED_STATE_TOL:
+        raise AssertionError(f"{tag}: the train control reads moments "
+                             f"{control['moments_gap']:.3e}, master "
+                             f"{control['master_gap']:.3e}: within the limit")
 
 
 def check_sharded(ranks, plan):
     """Every rank's results against their limits (raises on any)."""
-    kernel_of = {0: "packed_matmul", 1: "nested_matmul"}
-    t = plan["train"]
     for r in ranks:
         tag = f"rank {r['rank']} (data {r['data']}, model {r['model']})"
-        sound, control = r["train"]["sound"], r["train"]["control"]
-        # per layer: the forward and its remat recompute, per microbatch
-        want_k5 = t["layers"] * 2 * (t["batch"] // t["micro"])
-        if sound["k5_launches"] != want_k5 or sound["k5_plain"]:
-            raise AssertionError(f"{tag}: K5 {sound['k5_launches']} launches "
-                                 f"({sound['k5_plain']} plain), want {want_k5}")
-        if (sound["loss_gap"] > SHARDED_LOSS_TOL or sound["moments_gap"] > SHARDED_STATE_TOL
-                or sound["master_gap"] > SHARDED_STATE_TOL):
-            raise AssertionError(
-                f"{tag}: train loss gap {sound['loss_gap']:.3e}, moments gap "
-                f"{sound['moments_gap']:.3e} at {sound['moments_gap_leaf']}, master gap "
-                f"{sound['master_gap']:.3e} at {sound['master_gap_leaf']}")
-        if min(control["moments_gap"], control["master_gap"]) <= SHARDED_STATE_TOL:
-            raise AssertionError(f"{tag}: the control (no data average) reads moments "
-                                 f"{control['moments_gap']:.3e}, master "
-                                 f"{control['master_gap']:.3e}: within the limit")
+        check_train(tag, r["train"], plan["train"])
         part = plan["serve"]
-        half = part["batch"] // plan["mesh"][0]
-        for key, run in r["serve"]["runs"].items():
-            dt, rung = key.split("/")
-            name = kernel_of[int(rung)]
-            c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0})
-            L = _plan_config(part).num_layers
-            per_fwd = 7 * L + 1
-            want = {"launches": per_fwd * (1 + part["new"]), "plain": 0,
-                    "dec": 1 + per_fwd * part["new"],
-                    "tc": (per_fwd - 1) if dt == "bfloat16" else 0}
-            got = {k: c[k] for k in want}
-            others = sum(v["launches"] + v["plain"] for n, v in run["counts"].items()
-                         if n != name and n in kernel_of.values())
-            if got != want or others:
-                raise AssertionError(f"{tag}: serve {key} K1-K3 {got} (others {others}), "
-                                     f"want {want} on {name}")
-            if run["gap"] > SHARDED_SERVE_TOL[dt] or not run["finite"]:
-                raise AssertionError(f"{tag}: serve {key} logits gap {run['gap']:.3e}")
-            if dt == "float32" and not run["tokens_equal"]:
-                raise AssertionError(f"{tag}: serve {key} greedy tokens differ")
+        check_serve_runs(tag, r["serve"], part, 7 * _plan_config(part).num_layers + 1)
         mo = r["moe"]
         k2 = mo["counts"].get("nested_matmul", {"launches": 0, "plain": 0})
         plain = sum(v["plain"] for v in mo["counts"].values())
@@ -4283,19 +4552,208 @@ def phase_sharded():
     log(f"[sharded] phase 9 took {seconds:.1f}s (world-1 controls {w1['train_s']:.1f}s "
         f"train step; ranks {ranks_s:.1f}s) ({smi_line()})")
     check_sharded(ranks, plan)
+    launches, k5 = _launch_totals(ranks, lambda r: list(r["serve"]["runs"].values())
+                                  + [r["moe"]])
+    return {"plan": plan, "world1": w1, "ranks": ranks, "seconds": seconds,
+            "ranks_s": ranks_s, "launches": {n: tuple(v) for n, v in launches.items()},
+            "k5_launches": k5}
+
+
+def _launch_totals(ranks, runs_of):
+    """(K1-K3 [all, decode body] per kernel, K5) summed over the ranks' sound
+    train steps and the counted runs ``runs_of(rank)`` yields."""
     launches = {n: [0, 0] for n in KERNELS}
     k5 = 0
     for r in ranks:
         k5 += r["train"]["sound"]["k5_launches"]
-        for run in list(r["serve"]["runs"].values()) + [r["moe"]]:
+        for run in runs_of(r):
+            k5 += run["counts"].get("flash_attention", {}).get("launches", 0)
             for n in KERNELS:
                 c = run["counts"].get(n)
                 if c:
                     launches[n][0] += c["launches"]
                     launches[n][1] += c["dec"]
-    return {"plan": plan, "world1": w1, "ranks": ranks, "seconds": seconds,
-            "ranks_s": ranks_s, "launches": {n: tuple(v) for n, v in launches.items()},
-            "k5_launches": k5}
+    return launches, k5
+
+
+# ===========================================================================
+# Phase 10: sequence-parallel attention, the sequence-split KV cache and the
+# ssm/hybrid sharded steps; eight, then four gloo ranks sharing the card
+# ===========================================================================
+SEQ_MESH = (1, 8)      # qwen2-1.5b's 12 heads and 2 kv heads divide nothing of 8
+SSM_MESH = (2, 2)
+CONTROL_STEPS = 2      # decode steps of (b)'s control (it reads ~0.57 from its first)
+
+
+def seq_ssm_plans():
+    """What phase 10 runs, by world (each rank reads its world's
+    ``plan.json``).  ``seq`` on (data 1, model 8): (a) the train step of
+    qwen2-1.5b at full width with 4 of its 28 layers, 2 x 2048 in one
+    microbatch of 2, at schedule step 50: sequence-parallel attention, K5
+    at offsets 0, 256, ..., 1792; (b) qwen2-1.5b, all 28 layers, nested
+    (4, 8) rtn: a prefill of 2 x 2048 (sequence-parallel, K5 at the
+    offsets), then 8 decode steps against a cache of 2056 positions split
+    over model (257 per rank), rungs 0 and 1, f32 and bf16.  ``ssm`` on
+    (2, 2): (c) mamba2-780m's train step at full width with 4 of its 48
+    layers, 2 x 2048, and its nested (4, 8) serve at all 48 layers, 4 x 64
+    prompt tokens and 8 decode steps at rungs 0 and 1, f32; (d)
+    zamba2-2.7b's nested serve at all 54 layers the same way."""
+    train = {"layers": 4, "batch": 2, "seq": 2048, "micro": 2, "step": 50}
+    serve = {"layers": None, "batch": 4, "prompt": 64, "new": 8, "rungs": [0, 1],
+             "dtypes": ["float32"]}
+    return {"seq": {"job": "seq", "device": DEVICE, "mesh": list(SEQ_MESH),
+                    "train": dict(train, arch="qwen2-1.5b"),
+                    "serve": dict(serve, arch="qwen2-1.5b", batch=2, prompt=2048,
+                                  dtypes=["float32", "bfloat16"])},
+            "ssm": {"job": "ssm", "device": DEVICE, "mesh": list(SSM_MESH),
+                    "train": dict(train, arch="mamba2-780m"),
+                    "serve": dict(serve, arch="mamba2-780m"),
+                    "hybrid": dict(serve, arch="zamba2-2.7b")}}
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def without_kv_grad_sum(mesh=None):
+    """The control of (a): k and v of sequence-parallel attention keep each
+    rank's own gradient part (no sum over model)."""
+    from repro_torch.models import model
+    return _swapped(model, "_kv_grad_sum", lambda t: t)
+
+
+def without_combine(mesh=None):
+    """The control of (b): each rank's softmax over its own block of the
+    cache's positions (the other blocks' pieces are not gathered)."""
+    from repro_torch.models import attention
+    return _swapped(attention, "_gather_blocks", lambda x, group: x[None])
+
+
+def seq_ssm_world1(plan, work: Path):
+    """The world-1 controls of one phase-10 world on the card (a (1, 1)
+    mesh, no process group); launches here only compare."""
+    out = world1_train(plan, "train", work / "train_w1.pt")
+    out["serve_wall_s"] = {key: world1_serve(plan, key, work / f"{key}_w1.pt")
+                           for key in ("serve", "hybrid") if key in plan}
+    return out
+
+
+def check_seq_ssm(ranks, plan):
+    """Every rank's phase-10 results against their limits (raises on any)."""
+    for r in ranks:
+        tag = f"{plan['job']} rank {r['rank']} (data {r['data']}, model {r['model']})"
+        check_train(tag, r["train"], plan["train"])
+        for key in ("serve", "hybrid"):
+            if key not in plan:
+                continue
+            part = plan[key]
+            cfg = _plan_config(part)
+            transformer = cfg.family in ("dense", "moe")
+            per_fwd = 7 * cfg.num_layers + 1 if transformer else ssm_matmuls(cfg)
+            k5 = cfg.num_layers if transformer and part["prompt"] > 1024 else 0
+            check_serve_runs(f"{tag} {key}", r[key], part, per_fwd, k5)
+
+
+def _log_seq_ssm(ranks, plan, w1):
+    for r in ranks:
+        s = r["train"]["sound"]
+        c = r["train"].get("control")
+        log(f"[seq-ssm] {plan['job']} rank {r['rank']} (data {r['data']}, model "
+            f"{r['model']}): train {plan['train']['arch']} step {s['wall_s']:.3f}s, loss "
+            f"{s['loss']:.6f} (world-1 {w1['loss']:.6f}, gap {s['loss_gap']:.2e}), moments "
+            f"gap {s['moments_gap']:.2e} at {s['moments_gap_leaf']}, master gap "
+            f"{s['master_gap']:.2e} at {s['master_gap_leaf']}"
+            + (f" (control {c['moments_gap']:.2e}, {c['master_gap']:.2e})" if c else "")
+            + f", all-reduce {s['comm'].get('all_reduce', {}).get('payload_bytes', 0) / 1e6:.3f}"
+            f" MB, all-gather "
+            f"{s['comm'].get('all_gather', {}).get('payload_bytes', 0) / 1e6:.3f} MB, K5 "
+            f"{s['k5_launches']}, peak {s['peak_mem_bytes'] / 1e9:.2f} GB")
+        for key in ("serve", "hybrid"):
+            if key not in r:
+                continue
+            for name, run in r[key]["runs"].items():
+                comms = ", ".join(f"{op} {c['calls']} calls {c['payload_bytes'] / 1e6:.1f} MB"
+                                  for op, c in run["comm"].items())
+                split = (f" (prefill {run['prefill_s']:.3f}s, decode {run['decode_s']:.3f}s)"
+                         if "prefill_s" in run else "")
+                log(f"[seq-ssm] {plan['job']} rank {r['rank']}: {plan[key]['arch']} serve "
+                    f"{name} gap {run['gap']:.2e}, tokens equal {run['tokens_equal']}, "
+                    f"{run['wall_s']:.3f}s{split}, {comms}; kernels "
+                    + ", ".join(f"{n} {v['launches']} (dec {v['dec']}, tc {v['tc']}, plain "
+                                f"{v['plain']})" for n, v in run["counts"].items()
+                                if v["launches"] or v["plain"]))
+            log(f"[seq-ssm] {plan['job']} rank {r['rank']}: {plan[key]['arch']} nested "
+                f"blocks built in {r[key]['quantize_s']:.1f}s, peak "
+                f"{r[key]['peak_mem_bytes'] / 1e9:.2f} GB")
+        log(f"[seq-ssm] {plan['job']} rank {r['rank']}: {r['seconds']:.1f}s")
+
+
+def phase_seq_ssm_sharded():
+    """Phase 10: sequence-parallel attention and the sequence-split KV cache
+    on (1, 8), the ssm and hybrid families on (2, 2), each world of gloo
+    rank processes sharing the card against the world-1 steps on the same
+    card; see the module docstring."""
+    import shutil
+
+    t0 = time.perf_counter()
+    plans = seq_ssm_plans()
+    root = ROOT / "build" / "seq_ssm"
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"worlds": {}}
+    launches = {n: [0, 0] for n in KERNELS}
+    k5 = 0
+    try:
+        # the ssm world's ranks run while the main process computes the seq
+        # world's world-1 controls (the card holds both; times of ranks
+        # sharing it measure no scaling anyway)
+        works, w1s, ranks_of, times = {}, {}, {}, {}
+        for job, plan in plans.items():
+            works[job] = root / job
+            works[job].mkdir(parents=True)
+            (works[job] / "plan.json").write_text(json.dumps(plan))
+        t1 = time.perf_counter()
+        w1s["ssm"] = seq_ssm_world1(plans["ssm"], works["ssm"])
+        started = start_ranks(works["ssm"], SSM_MESH[0] * SSM_MESH[1])
+        t2 = time.perf_counter()
+        try:
+            w1s["seq"] = seq_ssm_world1(plans["seq"], works["seq"])
+        except BaseException:
+            _stop(started[1])
+            raise
+        t3 = time.perf_counter()
+        ranks_of["ssm"] = wait_ranks(started)
+        t4 = time.perf_counter()
+        ranks_of["seq"] = run_ranks(works["seq"], SEQ_MESH[0] * SEQ_MESH[1])
+        t5 = time.perf_counter()
+        times = {"ssm": (t2 - t1, t4 - t2), "seq": (t3 - t2, t5 - t4)}
+        for job, plan in plans.items():
+            ranks = ranks_of[job]
+            _log_seq_ssm(ranks, plan, w1s[job])
+            log(f"[seq-ssm] {job} world {plan['mesh']}: world-1 controls "
+                f"{times[job][0]:.1f}s, ranks {times[job][1]:.1f}s")
+            check_seq_ssm(ranks, plan)
+            got, got_k5 = _launch_totals(ranks, lambda r: [
+                run for key in ("serve", "hybrid") if key in r
+                for name, run in r[key]["runs"].items() if not name.endswith("/control")])
+            for n in KERNELS:
+                launches[n][0] += got[n][0]
+                launches[n][1] += got[n][1]
+            k5 += got_k5
+            out["worlds"][job] = {"plan": plan, "world1": w1s[job], "ranks": ranks,
+                                  "world1_s": times[job][0], "ranks_s": times[job][1]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {n: tuple(v) for n, v in launches.items()}
+    out["k5_launches"] = k5
+    log(f"[seq-ssm] phase 10 took {out['seconds']:.1f}s ({smi_line()})")
+    return out
 
 
 def prefill_summary(rows, name, tc_launches):
@@ -4408,6 +4866,16 @@ def kv_kernel_summary(rows, launches, moe_flash, ssm_flash, train):
             out[-1].update(moe_check=moe_flash, ssm_check=ssm_flash,
                            train_launches=train["k5_launches"],
                            with_stats=sel[0]["with_stats"])
+            offset = [r for r in rows if r["kernel"] == "flash_attention_offset"
+                      and r["dtype"] == "bfloat16"]
+            last = max(offset, key=lambda r: r["q_offset"])
+            out[-1]["offset"] = {
+                "per": f"one launch: B=2, rows {last['q_offset']}..{last['Skv'] - 1} of "
+                       f"{last['Skv']}, 12/2 heads of 128, bf16 (phase 10's last model rank)",
+                **{key: last[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "equals_whole_rows")},
+                "all_blocks_ms": sum(r["ms"] for r in offset),
+                "all_blocks_bound_ms": sum(r["bound_ms"] for r in offset)}
     return out
 
 
@@ -4419,7 +4887,7 @@ def main() -> int:
     ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--workdir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.rank is not None:            # one rank of phase 9 (run_ranks starts it)
+    if args.rank is not None:            # one rank of phase 9 or 10 (run_ranks starts it)
         return sharded_rank(args.rank, args.world, args.workdir)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
@@ -4480,6 +4948,8 @@ def main() -> int:
     log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
     sharded = phase_sharded()
+    torch.cuda.empty_cache()
+    seq_ssm = phase_seq_ssm_sharded()
     launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
                          + sum(m["launches"][n][i] for m in ssm_info.values())
                          + train_info["launches"][n][i]
@@ -4495,11 +4965,13 @@ def main() -> int:
                               train_info)
                + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
                                    ssm_info["zamba2-2.7b"]["flash_check"], train_info))
-    for k in kernels:          # phase 9's launches, summed over its four rank processes
+    for k in kernels:          # phases 9 and 10, summed over their rank processes
         if k["name"] in sharded["launches"]:
             k["sharded_launches"] = sharded["launches"][k["name"]]
+            k["seq_ssm_launches"] = seq_ssm["launches"][k["name"]]
         if k["name"] == "flash_attention":
             k["sharded_launches"] = sharded["k5_launches"]
+            k["seq_ssm_launches"] = seq_ssm["k5_launches"]
     steps = {f"M={M} {dt}": decode_steps(rows, M, dt) for M in MS if M <= 8
              for dt in ("bfloat16", "float32")}
     for key, by in steps.items():
@@ -4513,7 +4985,7 @@ def main() -> int:
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
-              "train": train_info, "sharded": sharded,
+              "train": train_info, "sharded": sharded, "seq_ssm": seq_ssm,
               "kernels": kernels, "decode_steps": steps,
               "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}

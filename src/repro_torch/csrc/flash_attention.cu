@@ -4,13 +4,22 @@
 //   nq_flash_attention  replaces repro/kernels/flash_attention/kernel.py:60
 //                       flash_attention
 //
-// What it computes: o[b, s, h, :] = softmax_j(q[b, s, h] . k[b, j, h / G]
-// * 1/sqrt(hd), j <= s) @ v[b, :, h / G] for q (B, S, Hq, hd) and k, v
-// (B, S, Hkv, hd), G = Hq / Hkv.  The softmax is online (running max m,
-// denominator l and accumulator acc, all f32), as the TPU kernel keeps
-// them; p is rounded to v's dtype before the PV product (kernel.py:48),
-// and o = acc / max(l, 1e-30) is cast to q's dtype.  f32 inputs use plain
-// IEEE f32 FMAs (no TF32 anywhere).
+// What it computes: o[b, i, h, :] = softmax_j(q[b, i, h] . k[b, j, h / G]
+// * 1/sqrt(hd), j <= q_off + i) @ v[b, :, h / G] for q (B, Sq, Hq, hd) and
+// k, v (B, Skv, Hkv, hd), G = Hq / Hkv, q_off + Sq <= Skv: query row i sits
+// at position q_off + i of the key sequence.  The whole causal prefill is
+// q_off = 0, Sq = Skv; a sequence-parallel rank's block of query rows is
+// q_off = its first row (key tiles past the block's last row are never
+// read, so the work is the block's share of the causal triangle).  Each
+// body is instantiated twice: for the whole sequence (q_off = 0 and
+// Skv = Sq fixed at compile time, so that launch compiles to the code it
+// had without an offset, and keeps its time) and for a block.
+//
+// The softmax is online (running max m, denominator l and accumulator
+// acc, all f32), as the TPU kernel keeps them; p is rounded to v's dtype
+// before the PV product (kernel.py:48), and o = acc / max(l, 1e-30) is
+// cast to q's dtype.  f32 inputs use plain IEEE f32 FMAs (no TF32
+// anywhere).
 //
 // What bounds it: 2 * B * Hq * S^2 * hd flops for the causal half (QK^T
 // and PV) over (3 + 1) * B * S * H * hd values read and written; at
@@ -73,15 +82,16 @@
 // bodies also write each row's final running max m (in the units of the
 // scaled scores, natural log: the kernel exponentiates with __expf) and
 // its denominator l (the f32 sum of the unrounded p) as f32, m at
-// stats[(b * Hq + h) * S + s] and l at stats[B * Hq * S + (b * Hq + h) * S
-// + s]: the (m, l) of the reference's _flash_fwd_inner, which the
-// blockwise backward recomputes p from.  Rows past S are not written.  One
+// stats[(b * Hq + h) * Sq + i] and l at stats[B * Hq * Sq + (b * Hq + h) *
+// Sq + i]: the (m, l) of the reference's _flash_fwd_inner, which the
+// blockwise backward recomputes p from.  Rows past Sq are not written.  One
 // lane of the lanes that hold a row writes it (a quad in the bf16 body, 16
 // column lanes in the f32 body), after the reduction that already gives
 // every lane of the row the same value.  The serving launch passes null.
 //
 // Limits (the Python wrapper checks them first): bf16 or f32, q/k/v of
-// one dtype, hd <= 128 and a multiple of 8, Hq a multiple of Hkv.
+// one dtype, hd <= 128 and a multiple of 8, Hq a multiple of Hkv,
+// 0 <= q_off and q_off + Sq <= Skv.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,17 +120,17 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  float* stats;  // null, or (2, B, Hq, S) f32: m then l
-  int B, S, Hq, Hkv, hd;
+  float* stats;  // null, or (2, B, Hq, Sq) f32: m then l
+  int B, Sq, Skv, q_off, Hq, Hkv, hd;
   float scale;
 };
 
 // row (b, h, s)'s (m, l) into the statistics, when asked for
 __device__ __forceinline__ void store_stats(const Args& a, int b, int h, int s, float m,
                                             float l) {
-  const size_t i = (static_cast<size_t>(b) * a.Hq + h) * a.S + s;
+  const size_t i = (static_cast<size_t>(b) * a.Hq + h) * a.Sq + s;
   a.stats[i] = m;
-  a.stats[static_cast<size_t>(a.B) * a.Hq * a.S + i] = l;
+  a.stats[static_cast<size_t>(a.B) * a.Hq * a.Sq + i] = l;
 }
 
 // ---------------------------------------------------------------------------
@@ -135,7 +145,9 @@ constexpr size_t tc_smem_bytes() {
   return static_cast<size_t>(kTcBQ + 4 * kBK) * (HDP + 8) * sizeof(__nv_bfloat16);
 }
 
-template <int HDP>
+// OFFSET false: the whole sequence (q_off = 0, Skv = Sq known at compile
+// time, so the launch is the one without the offset, at its time)
+template <int HDP, bool OFFSET>
 __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
   using nq_tc::ldmatrix_x4;
   using nq_tc::mma_bf16;
@@ -161,26 +173,28 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
+  const int q_off = OFFSET ? a.q_off : 0;
+  const int Skv = OFFSET ? a.Skv : a.Sq;
 
   // rows [r0, r0 + rows) of head hh of a (B, S, H, hd) tensor -> (rows,
   // LD); rows past S and columns past hd are zero-filled
   auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int r0, int rows, int hh,
-                       int H) {
+                       int H, int S) {
     for (int i = threadIdx.x; i < rows * CH; i += kTcThreads) {
       const int r = i / CH;
       const int c = (i - r * CH) * 8;
-      const bool ok = r0 + r < a.S && c < a.hd;
+      const bool ok = r0 + r < S && c < a.hd;
       const __nv_bfloat16* p =
-          ok ? src + ((static_cast<size_t>(b) * a.S + r0 + r) * H + hh) * a.hd + c : src;
+          ok ? src + ((static_cast<size_t>(b) * S + r0 + r) * H + hh) * a.hd + c : src;
       nq_tc::cp_async<16>(smem_u32(dst + r * LD + c), p, ok);
     }
   };
 
-  const int last_q = min(q0 + kTcBQ, a.S) - 1;
+  const int last_q = q_off + min(q0 + kTcBQ, a.Sq) - 1;  // as a key position
   const int n_tiles = last_q / kBK + 1;  // tiles with a key <= the last query
-  load_tile(qs, q, q0, kTcBQ, h, a.Hq);
-  load_tile(ks, k, 0, kBK, hk, a.Hkv);
-  load_tile(vs, v, 0, kBK, hk, a.Hkv);
+  load_tile(qs, q, q0, kTcBQ, h, a.Hq, a.Sq);
+  load_tile(ks, k, 0, kBK, hk, a.Hkv, Skv);
+  load_tile(vs, v, 0, kBK, hk, a.Hkv, Skv);
   nq_tc::cp_async_commit();
 
   uint32_t qf[KS][4];
@@ -190,17 +204,19 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};               // this lane's part of the row sums
   const int row0 = q0 + warp * 16 + g;   // this lane's rows: row0, row0 + 8
-  // this warp's last query row that exists: key tiles past it are wholly
-  // masked for the warp (their p is exactly 0) and are skipped
-  const int warp_last = q0 + warp * 16 < a.S ? min(q0 + warp * 16 + 15, a.S - 1) : -1;
+  // this warp's last query row that exists, as a key position: key tiles
+  // past it are wholly masked for the warp (their p is exactly 0) and are
+  // skipped
+  const int warp_last =
+      q0 + warp * 16 < a.Sq ? q_off + min(q0 + warp * 16 + 15, a.Sq - 1) : -1;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     nq_tc::cp_async_wait_all();
     __syncthreads();                     // tile kt landed; tile kt - 1 consumed
     if (kt + 1 < n_tiles) {              // prefetch tile kt + 1 into the other buffer
       const int nb = (kt + 1) & 1;
-      load_tile(ks + nb * kBK * LD, k, (kt + 1) * kBK, kBK, hk, a.Hkv);
-      load_tile(vs + nb * kBK * LD, v, (kt + 1) * kBK, kBK, hk, a.Hkv);
+      load_tile(ks + nb * kBK * LD, k, (kt + 1) * kBK, kBK, hk, a.Hkv, Skv);
+      load_tile(vs + nb * kBK * LD, v, (kt + 1) * kBK, kBK, hk, a.Hkv, Skv);
       nq_tc::cp_async_commit();
     }
     if (kt == 0) {
@@ -232,7 +248,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
     }
 
     // online softmax over this tile: scale, mask, row max / sum in f32
-    const bool masked = k0 + kBK - 1 > q0 + warp * 16 || k0 + kBK > a.S;
+    const bool masked = k0 + kBK - 1 > q_off + q0 + warp * 16 || k0 + kBK > Skv;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -241,8 +257,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
         float val = s[j][e] * a.scale;
         if (masked) {
           const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qpos = row0 + (e >> 1) * 8;
-          if (kpos > qpos || kpos >= a.S) val = kNegInf;
+          const int qpos = q_off + row0 + (e >> 1) * 8;
+          if (kpos > qpos || kpos >= Skv) val = kNegInf;
         }
         s[j][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
@@ -297,11 +313,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int qpos = row0 + r * 8;
-    if (qpos >= a.S) continue;
+    const int qpos = row0 + r * 8;         // this block's row
+    if (qpos >= a.Sq) continue;
     if (a.stats != nullptr && t4 == 0) store_stats(a, b, h, qpos, m[r], l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * a.S + qpos) * a.Hq + h) * a.hd;
+    __nv_bfloat16* orow = out + ((static_cast<size_t>(b) * a.Sq + qpos) * a.Hq + h) * a.hd;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = n * 8 + 2 * t4;
@@ -313,15 +329,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc(const Args a) {
   }
 }
 
-template <int HDP>
+template <int HDP, bool OFFSET>
 int launch_tc(const Args& a, cudaStream_t stream) {
   // opt in above 48 KB once, before any graph capture
   static cudaError_t opt_in =
-      cudaFuncSetAttribute(flash_fwd_tc<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(flash_fwd_tc<HDP, OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(tc_smem_bytes<HDP>()));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const dim3 grid((a.S + kTcBQ - 1) / kTcBQ, a.Hq, a.B);
-  flash_fwd_tc<HDP><<<grid, kTcThreads, tc_smem_bytes<HDP>(), stream>>>(a);
+  const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.Hq, a.B);
+  flash_fwd_tc<HDP, OFFSET><<<grid, kTcThreads, tc_smem_bytes<HDP>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -331,20 +347,20 @@ int launch_tc(const Args& a, cudaStream_t stream) {
 // rows [r0, r0 + 64) of one head of a (B, S, H, hd) tensor -> smem (64, hd + 1)
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0, int h,
-                                      int H, const Args& a) {
+                                      int H, int S, const Args& a) {
   const int hdp = a.hd + 1;
   for (int i = threadIdx.x; i < kBK * a.hd; i += kThreads) {
     const int r = i / a.hd;
     const int d = i - r * a.hd;
     float val = 0.f;
-    if (r0 + r < a.S) {
-      val = to_f32(src[((static_cast<size_t>(b) * a.S + r0 + r) * H + h) * a.hd + d]);
+    if (r0 + r < S) {
+      val = to_f32(src[((static_cast<size_t>(b) * S + r0 + r) * H + h) * a.hd + d]);
     }
     dst[r * hdp + d] = val;
   }
 }
 
-template <typename T>
+template <typename T, bool OFFSET>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   extern __shared__ float smem[];
   const int hdp = a.hd + 1;
@@ -362,8 +378,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
+  const int q_off = OFFSET ? a.q_off : 0;
+  const int Skv = OFFSET ? a.Skv : a.Sq;
 
-  stage(qs, q, b, q0, h, a.Hq, a);
+  stage(qs, q, b, q0, h, a.Hq, a.Sq, a);
 
   float m[4], l[4], acc[4][kOutCols];
 #pragma unroll
@@ -374,12 +392,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
     for (int j = 0; j < kOutCols; ++j) acc[i][j] = 0.f;
   }
 
-  const int last_q = min(q0 + kBQ, a.S) - 1;
+  const int last_q = q_off + min(q0 + kBQ, a.Sq) - 1;  // as a key position
   const int n_tiles = last_q / kBK + 1;  // tiles with a key <= the last query
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                 // the previous V tile is consumed
-    stage(kv, k, b, k0, hk, a.Hkv, a);
+    stage(kv, k, b, k0, hk, a.Hkv, Skv, a);
     __syncthreads();
 
     float s[4][4];
@@ -401,12 +419,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      const int qpos = q_off + q0 + ty * 4 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        s[i][j] = (kpos <= qpos && kpos < a.S) ? s[i][j] * a.scale : kNegInf;
+        s[i][j] = (kpos <= qpos && kpos < Skv) ? s[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -429,7 +447,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
     }
 
     __syncthreads();                 // scores read K; now V takes its place
-    stage(kv, v, b, k0, hk, a.Hkv, a);
+    stage(kv, v, b, k0, hk, a.Hkv, Skv, a);
     __syncthreads();
 
     for (int c = 0; c < kBK; ++c) {
@@ -451,32 +469,32 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
   T* o = static_cast<T*>(a.o);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= a.S) continue;
+    const int qpos = q0 + ty * 4 + i;      // this block's row
+    if (qpos >= a.Sq) continue;
     if (a.stats != nullptr && tx == 0) store_stats(a, b, h, qpos, m[i], l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
       const int col = tx + 16 * j;
       if (col < a.hd) {
-        store(o, ((static_cast<size_t>(b) * a.S + qpos) * a.Hq + h) * a.hd + col,
+        store(o, ((static_cast<size_t>(b) * a.Sq + qpos) * a.Hq + h) * a.hd + col,
               acc[i][j] * inv);
       }
     }
   }
 }
 
-template <typename T>
+template <typename T, bool OFFSET>
 int launch_t(const Args& a, cudaStream_t stream) {
   const size_t smem = (2 * static_cast<size_t>(kBQ) * (a.hd + 1) + kBQ * (kBK + 1)) *
                       sizeof(float);
   // opt in to the largest tile once (hd = 128), before any graph capture
   static cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>((2 * kBQ * (kMaxHd + 1) + kBQ * (kBK + 1)) * sizeof(float)));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_fwd<T><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
+  flash_fwd<T, OFFSET><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,20 +502,25 @@ int launch_t(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// q (B, S, Hq, hd), k/v (B, S, Hkv, hd), o like q; all contiguous, one
-// dtype (bf16 when is_bf16, else f32).  stats: null, or (2, B, Hq, S) f32
-// for each row's (m, l).
+// q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), o like q; all contiguous, one
+// dtype (bf16 when is_bf16, else f32); query row i at key position
+// q_off + i, q_off >= 0 and q_off + Sq <= Skv.  stats: null, or
+// (2, B, Hq, Sq) f32 for each row's (m, l).
 int nq_flash_attention(const void* q, const void* k, const void* v, void* o, float* stats,
-                       int is_bf16, int B, int S, int Hq, int Hkv, int hd,
-                       float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || hd < 8 ||
-      hd > kMaxHd || hd % 8 != 0 || Hq > 65535 || B > 65535) {
+                       int is_bf16, int B, int Sq, int Skv, int q_off, int Hq, int Hkv,
+                       int hd, float scale, void* stream) {
+  if (B < 1 || Sq < 1 || q_off < 0 || q_off + Sq > Skv || Hkv < 1 || Hq < Hkv ||
+      Hq % Hkv != 0 || hd < 8 || hd > kMaxHd || hd % 8 != 0 || Hq > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a = {q, k, v, o, stats, B, S, Hq, Hkv, hd, scale};
+  const Args a = {q, k, v, o, stats, B, Sq, Skv, q_off, Hq, Hkv, hd, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch_t<float>(a, s);
-  return hd <= 64 ? launch_tc<64>(a, s) : launch_tc<128>(a, s);
+  if (q_off == 0 && Sq == Skv) {  // the whole sequence
+    if (!is_bf16) return launch_t<float, false>(a, s);
+    return hd <= 64 ? launch_tc<64, false>(a, s) : launch_tc<128, false>(a, s);
+  }
+  if (!is_bf16) return launch_t<float, true>(a, s);
+  return hd <= 64 ? launch_tc<64, true>(a, s) : launch_tc<128, true>(a, s);
 }
 
 }  // extern "C"

@@ -73,11 +73,11 @@ def shard_hint(x: torch.Tensor, logical: Sequence[Optional[str]],
     cur = current()
     if cur is None or full is None:
         return x
-    mesh, rules = cur
+    mesh = cur[0]
     for dim, (name, n) in enumerate(zip(logical, full)):
         if n is None or x.shape[dim] == n:
             continue
-        if "model" not in mesh.axes(rules.get(name) if name else None):
+        if not split_over_model(name):
             x = comm.gather(x, mesh.group("model"), dim)
             if x.shape[dim] != n:
                 raise ValueError(f"gathered dim {dim} of {name!r} is {x.shape[dim]} wide, "
@@ -126,6 +126,12 @@ def max_model(x: torch.Tensor) -> torch.Tensor:
     return comm.all_reduce(x.detach(), _group("model"), "max")
 
 
+def split_over_model(name: Optional[str]) -> bool:
+    """Whether the rules split logical axis ``name`` over ``model``."""
+    cur = current()
+    return cur is not None and "model" in cur[0].axes(cur[1].get(name))
+
+
 def model_slice(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
     """This rank's ``n``-wide block of a replicated ``x`` along ``dim``."""
     r, _ = model_index()
@@ -147,3 +153,34 @@ def mean_batch(x: torch.Tensor) -> torch.Tensor:
     reaches this rank's ``x`` as is."""
     axes = batch_axes()
     return comm.mean_keep_grad(x, _group(axes)) if axes else x
+
+
+# ---------------------------------------------------------------------------
+# Sequence splits: the query rows of sequence-parallel attention, and the
+# KV cache's positions
+# ---------------------------------------------------------------------------
+def attn_seq_index() -> Tuple[int, int]:
+    """(this rank's block, the blocks) of the query sequence where the rules
+    split it (``attn_seq``: sequence-parallel attention); (0, 1) elsewhere."""
+    cur = current()
+    if cur is None:
+        return 0, 1
+    mesh, rules = cur
+    ax = rules.get("attn_seq")
+    return mesh.coord(ax), mesh.axis_size(ax)
+
+
+def cache_block(n: int):
+    """Where the step splits the KV cache's sequence dim (the context's
+    ``cache_seq`` entry, the cache spec's sequence axes): (the first
+    position of this rank's ``n``-long block, the process group of the
+    ranks holding the other blocks, whether ``model`` is among the axes);
+    None where the cache is whole."""
+    cur = current()
+    if cur is None:
+        return None
+    mesh, rules = cur
+    ax = rules.get("cache_seq")
+    if mesh.axis_size(ax) == 1:
+        return None
+    return mesh.coord(ax) * n, mesh.group(ax), "model" in mesh.axes(ax)

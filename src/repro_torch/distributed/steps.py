@@ -23,13 +23,25 @@ them explicitly (``comm.py``) and every tensor stays a plain local tensor:
   is gathered at the start of the step, and its gradient cut back;
 * data-parallel gradients are averaged over the data axes; the optimizer
   state lives on the parameters' shards, its global gradient norm summed
-  over the axes each leaf is split on.
+  over the axes each leaf is split on;
+* sequence-parallel attention (``attn_seq = "model"``: the heads do not
+  divide ``model``): each model rank attends its block of query rows,
+  at their offset, against the whole k/v, and the rows are gathered
+  (``models/model.py::_attn_seq_parallel``);
+* a KV cache split on its sequence dim (``cache_pspecs``' ``seq_ax``):
+  the prefill step returns each rank's block of the prompt's positions;
+  a decode step writes the new k/v on the rank whose block holds ``pos``
+  and combines the blocks' softmax pieces over the split axes
+  (``attention.decode_attention_block``); :func:`fill_decode_cache` moves
+  a prefill cache into a longer decode cache;
+* the ssm and hybrid families: each model rank runs its block of the SSM
+  heads and conv channels (``models/mamba2.py``).
 
-Executed here: the dense and MoE families on every mesh whose layout is
-head-TP (``logical_rules`` gives ``heads = "model"``) or ``model = 1``.
-Sequence-parallel attention (``attn_seq = "model"``), a sequence-sharded
-KV cache and the ssm/hybrid families' sharded steps raise
-``NotImplementedError`` at build time (ROADMAP queue 1 item 16).
+Executed here: every family on every layout the rules give, but a single
+dim split over data and model at once (:func:`_whole_dims` raises
+``NotImplementedError``: ROADMAP queue 1).  A sequence or cache length
+that its split does not divide raises ``ValueError`` at build time (the
+reference pads there).
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ from . import sharding as shd
 from .ctx import logical_rules as rules_ctx
 from .sharding import PartitionSpec as P
 
-_QUEUED = "queued in ROADMAP.md (queue 1 item 16)"
+_QUEUED = "queued in ROADMAP.md (queue 1)"
 
 
 # ---------------------------------------------------------------------------
@@ -149,22 +161,38 @@ def _whole_dims_tree(pspec, mesh):
     return tree.map_with_path(lambda key, spec: _whole_dims(key, spec, mesh), pspec)
 
 
-def _check_executable(cfg: ModelConfig, rules: Dict, mesh, cspec=None) -> None:
-    """The layouts whose sharded execution the port has; the rest raise."""
+def _check_executable(cfg: ModelConfig, shape: ShapeConfig, rules: Dict, mesh,
+                      cspec=None) -> None:
+    """Raise ``ValueError`` on a split the port does not pad: SSM heads or
+    conv channels that ``model`` does not divide, a sequence that does not
+    split into sequence-parallel query blocks, a KV cache length that its
+    sequence axes do not divide.  (A dim split over data and model at
+    once raises in :func:`_whole_dims`.)"""
     if mesh.size == 1:
         return
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"the sharded steps of the {cfg.family} family are "
-                                  f"{_QUEUED}")
-    if rules.get("attn_seq") and mesh.axis_size(rules["attn_seq"]) > 1:
-        raise NotImplementedError(
-            f"sequence-parallel attention ({cfg.num_heads} heads over model = "
-            f"{mesh.shape['model']}) is {_QUEUED}")
-    if cspec is not None:
+    m = mesh.shape["model"]
+    if cfg.family in ("ssm", "hybrid") and m > 1:
+        width = cfg.d_inner + 2 * cfg.ssm_state
+        if cfg.ssm_heads % m or width % m:
+            raise ValueError(f"{cfg.ssm_heads} SSM heads and {width} conv channels must "
+                             f"split over model = {m}")
+    blocks = mesh.axis_size(rules.get("attn_seq"))
+    if shape.kind != "decode" and blocks > 1:
+        n = -(-shape.seq_len // blocks)
+        if (blocks - 1) * n >= shape.seq_len:
+            raise ValueError(f"a sequence of {shape.seq_len} does not split into "
+                             f"{blocks} query blocks of {n}")
+    if cspec is not None and "k" in cspec:
         seq = cspec["k"][2]
-        if seq is not None and mesh.axis_size(seq) > 1:
-            raise NotImplementedError(f"a KV cache sharded on its sequence dim over {seq!r} "
-                                      f"is {_QUEUED}")
+        n = mesh.axis_size(seq)
+        if shape.seq_len % n:
+            raise ValueError(f"a KV cache of {shape.seq_len} positions does not split over "
+                             f"{seq!r} ({n} ranks)")
+
+
+def _cache_seq(cspec):
+    """The mesh axes a cache spec splits the k/v sequence dim over."""
+    return cspec["k"][2] if "k" in cspec else None
 
 
 def _whole_vocab(logits: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
@@ -203,7 +231,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     the mean over microbatches and data ranks."""
     train_cfg = dataclasses.replace(cfg, dtype="bfloat16")
     rules = shd.logical_rules(train_cfg, shape, mesh)
-    _check_executable(train_cfg, rules, mesh)
+    _check_executable(train_cfg, shape, rules, mesh)
     model = make_model(train_cfg, device=mesh.device)
     nm = shape.num_microbatches
     abstract = abstract_params(train_cfg)
@@ -271,12 +299,13 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
                        quant: Optional[str] = None):
     """Returns (step, specs).  ``step(params, inputs) -> (last logits
     (B_local, 1, V) f32, cache)`` on local shards, the cache laid out as
-    ``specs["cache"]``.  ``quant="nested"``: the params are a nested tree
-    laid out as ``build_decode_step``'s (the port's addition: the
-    reference's prefill takes dense weights)."""
+    ``specs["cache"]`` (k/v: this rank's block of the prompt's positions
+    where the spec splits them).  ``quant="nested"``: the params are a
+    nested tree laid out as ``build_decode_step``'s (the port's addition:
+    the reference's prefill takes dense weights)."""
     rules = shd.logical_rules(cfg, shape, mesh)
     cspec = shd.cache_pspecs(cfg, shape, mesh)
-    _check_executable(cfg, rules, mesh, cspec)
+    _check_executable(cfg, shape, rules, mesh, cspec)
     model = make_model(cfg, device=mesh.device)
     abstract, pspec = _serve_params(cfg, mesh, quant, attn_cols=False)
     bspec = shd.batch_pspecs(cfg, shape, mesh, with_labels=False)
@@ -286,6 +315,9 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     def prefill_step(params, inputs):
         with rules_ctx(mesh, rules):
             logits, cache = model.prefill(_make_whole(params, whole_dims, mesh), inputs)
+            seq = _cache_seq(cspec)
+            for key in ("k", "v") if mesh.axis_size(seq) > 1 else ():
+                cache[key] = shd.local_shard(cache[key], P(None, None, seq), mesh)
             return _whole_vocab(logits, cfg, mesh), cache
 
     return prefill_step, {"model": model, "params": pspec, "batch": bspec,
@@ -362,19 +394,46 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
     shards; the cache is updated in place."""
     rules = shd.logical_rules(cfg, shape, mesh)
     cspec = shd.cache_pspecs(cfg, shape, mesh)
-    _check_executable(cfg, rules, mesh, cspec)
+    _check_executable(cfg, shape, rules, mesh, cspec)
     model = make_model(cfg, device=mesh.device)
     abstract, pspec = _serve_params(cfg, mesh, quant, attn_cols=True)
     bspec = shd.batch_pspecs(cfg, shape, mesh, with_labels=False)
     bspec = {k: P(v[0], *([None] * (len(v) - 1))) for k, v in bspec.items()}
     whole_dims = _whole_dims_tree(pspec, mesh)
 
+    step_rules = dict(rules, cache_seq=_cache_seq(cspec))
+
     @torch.no_grad()
     def serve_step(params, inputs, cache):
-        with rules_ctx(mesh, rules):
+        with rules_ctx(mesh, step_rules):
             logits, cache = model.decode_step(_make_whole(params, whole_dims, mesh),
                                               inputs, cache)
             return _whole_vocab(logits, cfg, mesh), cache
 
     return serve_step, {"model": model, "params": pspec, "batch": bspec,
                         "cache": cspec, "rules": rules, "abstract_params": abstract}
+
+
+@torch.no_grad()
+def fill_decode_cache(cache, prefill_cache, mesh, prefill_cspec, cspec):
+    """``cache`` (this rank's blocks of a decode cache, laid out as
+    ``cspec``) holding the prefill's cache (laid out as ``prefill_cspec``,
+    a prompt no longer than the decode cache) at positions 0 on, and its
+    ``pos``: k/v gathered over the prefill's sequence axes and this rank's
+    block of positions copied in; the SSM state and conv buffer (laid out
+    alike in both) copied as they are."""
+    for key in ("k", "v"):
+        if key not in prefill_cache:
+            continue
+        whole = shd.gather_leaf(prefill_cache[key], P(None, None, prefill_cspec[key][2]), mesh)
+        blk = cache[key]
+        n = blk.shape[2]
+        start = mesh.coord(cspec[key][2]) * n
+        stop = min(whole.shape[2], start + n)
+        if stop > start:
+            blk[:, :, :stop - start] = whole[:, :, start:stop]
+    for key in ("state", "conv_buf"):
+        if key in prefill_cache:
+            cache[key].copy_(prefill_cache[key])
+    cache["pos"] = prefill_cache["pos"]
+    return cache

@@ -41,7 +41,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "nq_dec_rows": [_I],
     },
     "flash_attention.cu": {
-        "nq_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        "nq_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P],
     },
     "nested_qk.cu": {

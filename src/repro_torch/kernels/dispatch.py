@@ -226,21 +226,26 @@ MAX_HEAD_DIM = 128
 MAX_QK_DIM = 256
 
 
-def check_flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything K5 does not take: q (B,S,Hq,hd), k/v (B,S,Hkv,hd)
+def check_flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_offset: int = 0) -> None:
+    """Raise on anything K5 does not take: q (B,Sq,Hq,hd), k/v (B,Skv,Hkv,hd)
     contiguous, one dtype (bf16 or f32), one device; hd <= 128 and a
-    multiple of 8; Hq a multiple of Hkv."""
+    multiple of 8; Hq a multiple of Hkv; the query block at key positions
+    ``q_offset`` .. ``q_offset + Sq - 1`` inside k/v."""
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or f32 q/k/v of one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention needs q (B,S,Hq,hd) and k/v (B,S,Hkv,hd), "
+        raise ValueError(f"flash_attention needs q (B,Sq,Hq,hd) and k/v (B,Skv,Hkv,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    B, S, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or Hq % Hkv:
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, hd) or Hq % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
+    if q_offset < 0 or q_offset + Sq > Skv:
+        raise ValueError(f"flash_attention: {Sq} query rows at offset {q_offset} do not "
+                         f"fit in {Skv} keys")
     if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention takes a head dim that is a multiple of 8 "
                          f"and <= {MAX_HEAD_DIM}, got {hd}")

@@ -20,34 +20,36 @@ from . import kernel
 COUNTER = dispatch.counter("flash_attention")
 
 
-def flash_attention(q, k, v, kv_block: int = 512):
-    """Causal GQA attention: q (B,S,Hq,hd), k/v (B,S,Hkv,hd) -> (B,S,Hq,hd)
-    in q's dtype.  With grad enabled and an input that requires it, the
+def flash_attention(q, k, v, kv_block: int = 512, q_offset: int = 0):
+    """Causal GQA attention: q (B,Sq,Hq,hd), k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd)
+    in q's dtype, query row i at key position ``q_offset + i`` (a
+    sequence-parallel rank's block of rows; 0 with Sq = Skv for the whole
+    sequence).  With grad enabled and an input that requires it, the
     differentiable ``blockwise_attention`` (K5 with its row statistics on
     the card, the blockwise backward).  Otherwise a CUDA tensor launches
     K5 (or raises) and a CPU tensor runs the plain blockwise version with
-    ``kv_block`` keys per block (an S that is no multiple of it runs
+    ``kv_block`` keys per block (a Skv that is no multiple of it runs
     direct attention)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return blockwise_attention(q, k, v, True, kv_block)
+        return blockwise_attention(q, k, v, True, kv_block, q_offset)
     if dispatch.takes_kernel(q):
-        dispatch.check_flash_operands(q, k, v)
-        o = kernel.flash_attention(q, k, v)
+        dispatch.check_flash_operands(q, k, v, q_offset)
+        o = kernel.flash_attention(q, k, v, q_offset=q_offset)
         COUNTER.launches += 1
         return o
     COUNTER.plain_launches += 1
-    return blockwise_forward(q, k, v, True, kv_block)
+    return blockwise_forward(q, k, v, True, kv_block, q_offset)
 
 
-def flash_attention_stats(q, k, v):
+def flash_attention_stats(q, k, v, q_offset: int = 0):
     """K5 on the card with its row statistics: (o, m, l), m and l f32
-    (B, Hkv, G, S), the layout of the plain forward's.  The training
+    (B, Hkv, G, Sq), the layout of the plain forward's.  The training
     forward's launch; it is counted like the served one."""
-    dispatch.check_flash_operands(q, k, v)
-    B, S, Hq, _ = q.shape
+    dispatch.check_flash_operands(q, k, v, q_offset)
+    B, Sq, Hq, _ = q.shape
     Hkv = k.shape[2]
-    stats = torch.empty((2, B, Hq, S), dtype=torch.float32, device=q.device)
-    o = kernel.flash_attention(q, k, v, stats)
+    stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=q.device)
+    o = kernel.flash_attention(q, k, v, stats, q_offset)
     COUNTER.launches += 1
-    m, l = (t.view(B, Hkv, Hq // Hkv, S) for t in stats.unbind(0))
+    m, l = (t.view(B, Hkv, Hq // Hkv, Sq) for t in stats.unbind(0))
     return o, m, l

@@ -5,7 +5,8 @@ Chunked SSD: within each chunk the quadratic "attention form", across
 chunks a scan over the chunk states (a Python loop over chunks, where the
 reference runs ``lax.scan``).  Decode is the O(1) state update.  Plain
 tensor code, as in the reference: only ``in_proj`` and ``out_proj`` go
-through ``layers.linear``, hence K1-K3 when the leaf is nested.
+through ``layers.linear``, hence K1-K3 when the leaf is nested.  In a
+sharded step each rank runs its block of the heads (see "sharded" below).
 
 Shapes (one B/C group, as in the Mamba2 reference):
   x:  (b, s, H, P)   dt: (b, s, H)   A: (H,) < 0
@@ -17,9 +18,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..distributed import ctx
 from ..distributed.ctx import shard_hint
 from ..kernels import dispatch
-from .layers import linear, rms_norm, silu
+from .layers import col_linear, linear, out_width, rms_norm, row_linear, silu
 
 
 # ---------------------------------------------------------------------------
@@ -76,11 +78,14 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     a = dtr * A[None, None, None, :]                         # (b,nc,Q,H), negative
     cum = torch.cumsum(a, dim=2)                             # inclusive cumsum
     # intra-chunk decay L_ij = exp(cum_i - cum_j), j <= i.  Above the
-    # diagonal exp overflows to inf: ``where`` selects 0 there (a product
-    # with the mask would give inf * 0 = NaN)
+    # diagonal the exponent overflows: it is masked to -inf before exp (0
+    # exactly, as the reference's ``where`` after exp gives), so the
+    # backward meets no inf (a zero cotangent times exp(inf) is NaN: the
+    # reference's gradient at a full-width chunk)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,Q,Q,H) i,j
     mask = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), torch.zeros((), device=x.device))
+    L = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                              torch.full((), -torch.inf, device=x.device)))
     scores = torch.einsum("bcin,bcjn->bcij", Cr, Br)         # (b,nc,Q,Q)
     G = scores[..., None] * L * dtr[:, :, None, :, :]        # (b,nc,Q,Q,H)
     del diff, L
@@ -134,37 +139,114 @@ def _split_proj(zxbcdt, din: int, N: int, H: int):
     return z, xBC, dt
 
 
-def _gate_out(y, x, z, params, shape, dtype, route=None):
-    """y + D x, gated by silu(z), rms-normed, projected out."""
-    y = y + params["D"].float()[..., :, None] * x.float()
+# ---------------------------------------------------------------------------
+# sharded: this rank's block of the heads and conv channels
+# ---------------------------------------------------------------------------
+# Inside a sharded step whose model axis m > 1 each rank computes H / m of
+# the SSM heads (its block of the state) on its block of the conv
+# channels, as ``param_pspecs`` / ``cache_pspecs`` lay them out: in_proj
+# split on its output columns (a block that cuts across the z | x | B | C
+# | dt segments, so the projection is gathered whole), conv and conv_buf on
+# their channels (the depthwise conv is channel-local; its output is
+# gathered, since B and C are one group every rank needs whole), A_log and
+# D over heads, dt_bias and the norms replicated, out_proj on its input
+# rows (partial sums).  The gated norm's sum of squares over d_inner is
+# summed over model.  Every replicated tensor that feeds this rank's own
+# block is entered (``ctx.enter_model``), so its gradient is summed.
+def _mine(t, full: int):
+    """This rank's block (along the last dim) of ``t``, whose whole width is
+    ``full``: ``t`` itself where it already is the block, or off a sharded
+    step."""
+    r, m = ctx.model_index()
+    if m == 1 or t.shape[-1] != full:
+        return t
+    return ctx.model_slice(t, full // m)
+
+
+def _in_proj(u, params, cfg, route=None):
+    """The whole projection zxbcdt (a column block gathered over model)."""
+    w = params["in_proj"]["w"]
+    full = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+    if out_width(w) == full:
+        return linear(u, w, route=route)
+    return ctx.gather_model(col_linear(u, w, None, full, route), -1)
+
+
+def _pieces(zxbcdt, cfg):
+    """(z, raw xBC, dt) of this rank: its heads' z and dt and its block of
+    the conv channels (all of each off a sharded step)."""
+    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    r, m = ctx.model_index()
+    if m == 1:
+        return _split_proj(zxbcdt, din, N, H)
+    ze = ctx.enter_model(zxbcdt)
+    dl, cl, hl = din // m, (din + 2 * N) // m, H // m
+    return (ze[..., r * dl:(r + 1) * dl], ze[..., din + r * cl:din + (r + 1) * cl],
+            ze[..., 2 * din + 2 * N + r * hl:2 * din + 2 * N + (r + 1) * hl])
+
+
+def _conv_split(xBC, cfg):
+    """(this rank's x heads, B, C) from its block of the conv output: the
+    whole output gathered over model, then cut."""
+    din, N = cfg.d_inner, cfg.ssm_state
+    r, m = ctx.model_index()
+    xe = ctx.enter_model(ctx.gather_model(xBC, -1))
+    dl = din // m
+    return xe[..., r * dl:(r + 1) * dl], xe[..., din:din + N], xe[..., din + N:]
+
+
+def _ssm_scalars(dt, params, H: int):
+    """softplus(dt + dt_bias) and A = -exp(A_log) on this rank's heads."""
+    dt = softplus(dt.float() + _mine(params["dt_bias"], H).float())
+    return dt, -torch.exp(_mine(params["A_log"], H).float())
+
+
+def _norm_sum(ss):
+    """The gated norm's sum of squares over this rank's block of d_inner,
+    summed over model; its gradient (each rank's part) summed too."""
+    return ctx.enter_model(ctx.sum_model(ss))
+
+
+def _gated_norm(y, scale, full: int, eps: float = 1e-6):
+    """``rms_norm`` over the whole d_inner (``full``) of this rank's block
+    of it (:func:`_norm_sum`)."""
+    if y.shape[-1] == full:
+        return rms_norm(y, scale)
+    dt = y.dtype
+    yf = y.float()
+    ss = _norm_sum((yf * yf).sum(dim=-1, keepdim=True))
+    yf = yf * torch.rsqrt(ss / full + eps)
+    return (yf * _mine(scale, full).float()).to(dt)
+
+
+def _gate_out(y, x, z, params, shape, dtype, cfg, route=None):
+    """y + D x, gated by silu(z), rms-normed, projected out (a row block's
+    partial products summed over model)."""
+    H, din = cfg.ssm_heads, cfg.d_inner
+    y = y + _mine(params["D"], H).float()[..., :, None] * x.float()
     y = y.reshape(shape).to(dtype)
-    y = rms_norm(y * silu(z), params["ssm_norm"]["scale"])
-    return linear(y, params["out_proj"]["w"], route=route)
+    y = _gated_norm(y * silu(z), params["ssm_norm"]["scale"], din)
+    return row_linear(y, params["out_proj"]["w"], din, route=route)
 
 
 def mamba_block(u: torch.Tensor, params: Dict, cfg,
                 init_state=None) -> Tuple[torch.Tensor, Dict]:
-    """u: (B,S,d) -> (y (B,S,d), cache {state, conv_buf})."""
+    """u: (B,S,d) -> (y (B,S,d), cache {state, conv_buf}); sharded, the
+    cache holds this rank's heads and conv channels."""
     Bsz, S, _ = u.shape
-    din, N, P, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_heads
-    zxbcdt = linear(u, params["in_proj"]["w"])
-    z, xBC, dt = _split_proj(zxbcdt, din, N, H)
-    xBC = silu(causal_conv1d(xBC, params["conv"]["w"], params["conv"]["b"]))
-    x = xBC[..., :din].reshape(Bsz, S, H, P)
-    B_mat = xBC[..., din:din + N]
-    C_mat = xBC[..., din + N:]
-    dt = softplus(dt.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
+    P, H = cfg.ssm_headdim, cfg.ssm_heads
+    z, xBC_raw, dt = _pieces(_in_proj(u, params, cfg), cfg)
+    conv = params["conv"]
+    width = cfg.d_inner + 2 * cfg.ssm_state
+    xBC = silu(causal_conv1d(xBC_raw, _mine(conv["w"], width), _mine(conv["b"], width)))
+    x, B_mat, C_mat = _conv_split(xBC, cfg)
+    x = x.reshape(Bsz, S, -1, P)
+    dt, A = _ssm_scalars(dt, params, H)
     x = shard_hint(x, ("batch", None, "heads", None))
     y, state = ssd_chunked(x, dt, A, B_mat, C_mat, cfg.ssm_chunk, init_state=init_state)
-    out = _gate_out(y, x, z, params, (Bsz, S, din), u.dtype)
-    return out, {"state": state, "conv_buf": xBC_raw_tail(u, zxbcdt, din, N, cfg)}
-
-
-def xBC_raw_tail(u, zxbcdt, din, N, cfg):
-    """The last (conv_width - 1) pre-conv xBC inputs (the decode conv
-    buffer)."""
-    return zxbcdt[:, -(cfg.ssm_conv_width - 1):, din:2 * din + 2 * N]
+    out = _gate_out(y, x, z, params, (Bsz, S, z.shape[-1]), u.dtype, cfg)
+    # the decode conv buffer: the last (conv_width - 1) pre-conv inputs
+    return out, {"state": state, "conv_buf": xBC_raw[:, -(cfg.ssm_conv_width - 1):]}
 
 
 def mamba_decode_step(u_t: torch.Tensor, params: Dict, cache: Dict,
@@ -173,18 +255,16 @@ def mamba_decode_step(u_t: torch.Tensor, params: Dict, cache: Dict,
     given is not written.  ``in_proj`` and ``out_proj`` name the decode
     route (``dispatch.DECODE``)."""
     Bsz = u_t.shape[0]
-    din, N, P, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_heads
+    P, H = cfg.ssm_headdim, cfg.ssm_heads
     route = dispatch.DECODE
-    zxbcdt = linear(u_t[:, 0, :], params["in_proj"]["w"], route=route)
-    z, xBC_raw, dt = _split_proj(zxbcdt, din, N, H)
-    xBC, conv_buf = conv_step(xBC_raw, cache["conv_buf"], params["conv"]["w"],
-                              params["conv"]["b"])
-    xBC = silu(xBC)
-    x = xBC[..., :din].reshape(Bsz, H, P)
-    B_t = xBC[..., din:din + N]
-    C_t = xBC[..., din + N:]
-    dt = softplus(dt.float() + params["dt_bias"].float())
-    A = -torch.exp(params["A_log"].float())
+    z, xBC_raw, dt = _pieces(_in_proj(u_t[:, 0, :], params, cfg, route), cfg)
+    conv = params["conv"]
+    width = cfg.d_inner + 2 * cfg.ssm_state
+    xBC, conv_buf = conv_step(xBC_raw, cache["conv_buf"], _mine(conv["w"], width),
+                              _mine(conv["b"], width))
+    x, B_t, C_t = _conv_split(silu(xBC), cfg)
+    x = x.reshape(Bsz, -1, P)
+    dt, A = _ssm_scalars(dt, params, H)
     y, state = ssd_decode_step(x, dt, A, B_t, C_t, cache["state"])
-    out = _gate_out(y, x, z, params, (Bsz, din), u_t.dtype, route=route)
+    out = _gate_out(y, x, z, params, (Bsz, z.shape[-1]), u_t.dtype, cfg, route=route)
     return out[:, None, :], {"state": state, "conv_buf": conv_buf}

@@ -73,7 +73,7 @@ from ..distributed.ctx import shard_hint
 from ..kernels import dispatch
 from ..kernels.flash_attention import ops as flash_ops
 from . import mamba2
-from .attention import decode_attention, full_attention
+from .attention import decode_attention, decode_attention_block, full_attention
 from .layers import (apply_rope, col_linear, in_width, linear, mlp, norm, out_width,
                      packed_linear, pdot, row_linear)
 from .moe import moe_ffn
@@ -192,25 +192,30 @@ def layer_params(blocks, i: int):
 # ===========================================================================
 # Attention sub-block
 # ===========================================================================
-def _qkv(x, lp, cfg, route=None):
-    """q, k, v (B,S,heads,hd).  Sharded, each holds this rank's heads: a
-    projection split over ``model`` by columns gives them directly; a k/v
-    projection split where the rules keep kv heads whole is gathered, and
-    whole k/v then give this rank's q heads their kv heads
-    (:func:`_local_kv`)."""
+def _qkv(x, lp, cfg, route=None, whole_q: bool = False):
+    """q, k, v (B,S,heads,hd).  Sharded, q holds this rank's heads: a
+    projection split over ``model`` by columns gives them directly.  A
+    column block whose heads the rules keep whole over ``model`` (a block
+    may cut a head), and q's where ``whole_q`` asks for every head, is
+    gathered; the blocks to gather go in one all-gather.
+    :func:`_local_kv` gives this rank's q heads their kv heads."""
     hd = cfg.head_dim
-    kvd = cfg.num_kv_heads * hd
     xs = ctx.enter_model(x)
-
-    def proj(name, full):
-        return col_linear(x, lp[name]["w"], lp[name].get("b"), full, route, xs)
-
-    q = proj("q", cfg.num_heads * hd)
-    k = shard_hint(proj("k", kvd), ("batch", None, "kv_heads"), full=(None, None, kvd))
-    v = shard_hint(proj("v", kvd), ("batch", None, "kv_heads"), full=(None, None, kvd))
+    full = {"q": cfg.num_heads * hd, "k": cfg.num_kv_heads * hd, "v": cfg.num_kv_heads * hd}
+    held = {"q": not whole_q and ctx.split_over_model("heads"),
+            "k": ctx.split_over_model("kv_heads"), "v": ctx.split_over_model("kv_heads")}
+    out = {n: col_linear(x, lp[n]["w"], lp[n].get("b"), full[n], route, xs) for n in full}
+    cut = [n for n in out if out[n].shape[-1] < full[n] and not held[n]]
+    if cut:
+        widths = [out[n].shape[-1] for n in cut]
+        whole = ctx.gather_model(torch.cat([out[n] for n in cut], dim=-1), -1)
+        parts = whole.unflatten(-1, (-1, sum(widths))).split(widths, dim=-1)
+        for n, t in zip(cut, parts):
+            out[n] = t.flatten(-2)
+            if out[n].shape[-1] != full[n]:
+                raise ValueError(f"gathered {n} is {out[n].shape[-1]} wide, not {full[n]}")
     B, S = x.shape[:2]
-    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
-    return (q,) + _local_kv(k, v, q.shape[2], cfg)
+    return tuple(out[n].reshape(B, S, -1, hd) for n in ("q", "k", "v"))
 
 
 def _local_kv(k, v, hq: int, cfg):
@@ -232,42 +237,113 @@ def _local_kv(k, v, hq: int, cfg):
             ctx.enter_model(v).index_select(2, idx))
 
 
+def _causal_attention(q, k, v, S: int, kv_block: int, q_offset: int = 0):
+    """Causal attention of q's rows (at key positions ``q_offset`` on) over
+    k/v, routed by the whole sequence's length S: over 1024 tokens the
+    flash-attention op (K5 on a CUDA tensor, or raises; its plain blockwise
+    version on a CPU tensor or inside ``reference_pass``; with a gradient
+    recorded, the differentiable ``blockwise_attention``, K5 writing its
+    row statistics on the card), else direct attention."""
+    if S > 1024:
+        return flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         kv_block=kv_block, q_offset=q_offset)
+    return full_attention(q, k, v, causal=True, q_offset=q_offset)
+
+
 def attn_seq(x, lp, cfg, kv_block: int = 512):
-    """Full-sequence causal attention. Returns (out, (k, v)).  A prompt
-    over 1024 tokens goes to the flash-attention op: K5 on a CUDA tensor
-    (or raises), its plain blockwise version on a CPU tensor or inside
-    ``reference_pass``; with a gradient recorded, through the
-    differentiable ``blockwise_attention`` (K5 writing its row
-    statistics on the card)."""
+    """Full-sequence causal attention. Returns (out, (k, v)), k/v holding
+    the kv heads the cache keeps.  Where the rules split the query
+    sequence (``attn_seq``), :func:`_attn_seq_parallel`."""
+    block, blocks = ctx.attn_seq_index()
+    if blocks > 1:
+        return _attn_seq_parallel(x, lp, cfg, kv_block, block, blocks)
     B, S = x.shape[:2]
     q, k, v = _qkv(x, lp, cfg)
     pos = torch.arange(S, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     q = shard_hint(q, ("batch", "attn_seq", "heads", None))
-    if S > 1024:
-        o = flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      kv_block=kv_block)
-    else:
-        o = full_attention(q, k, v, causal=True)
+    o = _causal_attention(q, *_local_kv(k, v, q.shape[2], cfg), S, kv_block)
     o = shard_hint(o, ("batch", "attn_seq", "heads", None))
     o = o.reshape(B, S, -1)
     return row_linear(o, lp["o"]["w"], cfg.num_heads * cfg.head_dim), (k, v)
 
 
+def _entered(w):
+    """A replicated weight (or bias) feeding this rank's own rows: its
+    gradient summed over ``model``.  A nested leaf (no gradient) as is."""
+    return ctx.enter_model(w) if isinstance(w, torch.Tensor) else w
+
+
+def _kv_grad_sum(t):
+    """k or v of sequence-parallel attention, computed whole on every model
+    rank: the same value forward; its gradient, each rank's query block's
+    part, summed over ``model``."""
+    return ctx.enter_model(t)
+
+
+def _attn_seq_parallel(x, lp, cfg, kv_block: int, block: int, blocks: int):
+    """Sequence-parallel attention: the heads do not divide ``model``, so
+    the q/k/v/o weights are replicated over it and each model rank takes a
+    block of ceil(S / blocks) query rows (the last block may be shorter).
+    It projects q for its rows only and k/v for the whole sequence,
+    attends at the block's offset (K5 over 1024 tokens, routed by the
+    whole S as the reference's whole-sequence attention is), projects its
+    rows through o, and the rows are gathered over ``model`` (the
+    reference's ``("batch", None, None)`` hint on h).  Every replicated
+    weight's gradient, and k/v's, is this rank's rows' part: each is summed
+    over ``model`` (:func:`_entered`, :func:`_kv_grad_sum`)."""
+    B, S = x.shape[:2]
+    n = -(-S // blocks)
+    if (blocks - 1) * n >= S:
+        raise ValueError(f"a sequence of {S} does not split into {blocks} query blocks "
+                         f"of {n}")
+    start = block * n
+    rows = min(n, S - start)
+    hd = cfg.head_dim
+    q = linear(ctx.enter_model(x).narrow(1, start, rows), _entered(lp["q"]["w"]),
+               _entered(lp["q"].get("b")))
+    k, v = (_kv_grad_sum(linear(x, lp[name]["w"], lp[name].get("b"))) for name in ("k", "v"))
+    q = q.reshape(B, rows, cfg.num_heads, hd)
+    k, v = (t.reshape(B, S, cfg.num_kv_heads, hd) for t in (k, v))
+    q = apply_rope(q, start + torch.arange(rows, device=x.device), cfg.rope_theta)
+    k = apply_rope(k, torch.arange(S, device=x.device), cfg.rope_theta)
+    o = _causal_attention(q, k, v, S, kv_block, q_offset=start)
+    o = linear(o.reshape(B, rows, -1), _entered(lp["o"]["w"]))
+    if rows < n:
+        o = torch.nn.functional.pad(o, (0, 0, 0, n - rows))
+    return ctx.gather_model(o, 1).narrow(1, 0, S), (k, v)
+
+
 def attn_decode(x, lp, cfg, k_cache, v_cache, pos: int):
     """One-token attention against the cache, x: (B,1,d).  The new K/V
     are written into ``k_cache``/``v_cache`` (B,Smax,Hkv,hd) IN PLACE at
-    ``pos`` - where the reference returns updated copies."""
+    ``pos`` - where the reference returns updated copies.  A cache whose
+    sequence dim the step splits (``ctx.cache_block``) is this rank's
+    block of positions: only the rank that holds ``pos`` writes it, and
+    the softmax is combined over the blocks
+    (``attention.decode_attention_block``); where ``model`` is among the
+    split axes the ranks of a block hold every kv head, and q is gathered
+    to every head."""
     B = x.shape[0]
     route = dispatch.DECODE
-    q, k, v = _qkv(x, lp, cfg, route)
+    blk = ctx.cache_block(k_cache.shape[1])
+    q, k, v = _qkv(x, lp, cfg, route, whole_q=blk is not None and blk[2])
     p = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, p, cfg.rope_theta)
     k = apply_rope(k, p, cfg.rope_theta)
-    k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
-    v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
-    o = shard_hint(decode_attention(q, k_cache, v_cache, pos), ("batch", None, "heads", None))
+    if blk is None:
+        k_cache[:, pos:pos + 1] = k.to(k_cache.dtype)
+        v_cache[:, pos:pos + 1] = v.to(v_cache.dtype)
+        o = decode_attention(q, k_cache, v_cache, pos)
+    else:
+        start, group, _ = blk
+        at = pos - start
+        if 0 <= at < k_cache.shape[1]:
+            k_cache[:, at:at + 1] = k.to(k_cache.dtype)
+            v_cache[:, at:at + 1] = v.to(v_cache.dtype)
+        o = decode_attention_block(q, k_cache, v_cache, pos, start, group)
+    o = shard_hint(o, ("batch", None, "heads", None))
     o = o.reshape(B, 1, -1)
     return row_linear(o, lp["o"]["w"], cfg.num_heads * cfg.head_dim, route=route)
 
@@ -289,6 +365,7 @@ def attn_decode_chunk(x, lp, cfg, k_cache, v_cache, pos: int):
     B, S = x.shape[:2]
     route = dispatch.DECODE
     q, k, v = _qkv(x, lp, cfg, route)
+    k, v = _local_kv(k, v, q.shape[2], cfg)
     positions = torch.arange(pos, pos + S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

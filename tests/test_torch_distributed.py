@@ -26,8 +26,10 @@ CPU device, its ``_dispatch`` on each data shard's tokens.
   feedback converging.
 * Checkpoint: saved from (2, 2), restored onto (1, 4), (4, 1) and plainly
   (and by the JAX package's manager): identical values.
-* Sequence-parallel attention, a sequence-sharded KV cache and the
-  ssm/hybrid sharded steps raise ``NotImplementedError``.
+* A dim split over data and model at once raises ``NotImplementedError``,
+  a KV cache length its sequence split does not divide ``ValueError``
+  (sequence-parallel attention, the sequence-split cache and the ssm and
+  hybrid families run: test_torch_seq_parallel, test_torch_ssm_sharded).
 """
 import dataclasses
 
@@ -53,6 +55,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import steps
 from repro_torch.distributed.grad_compress import compress_decompress
+from repro_torch.distributed.sharding import P
 from repro_torch.launch.mesh import shape_only
 from torch_parity import j2n, jax_tree_to_torch, rehome, t2n
 
@@ -84,19 +87,21 @@ def _nest(params):
     return jax.jit(lambda p: jax_quantize(p, recipe))(params)
 
 
-def _reference_train(params):
-    """Losses and (m, v, master) after each of the three steps."""
-    cfg = jax_get_config("qwen2-1.5b").reduced()
-    shape = JaxShape("t", "train", td.TRAIN_SEQ, td.TRAIN_BATCH, microbatch=td.TRAIN_MICRO)
+def _reference_train(params, cfg=None, seq=td.TRAIN_SEQ, batch=td.TRAIN_BATCH,
+                     micro=td.TRAIN_MICRO, steps=td.TRAIN_STEPS):
+    """Losses and (m, v, master) after each of the steps (the reduced qwen2
+    unless ``cfg`` is given), on the data stream's batches at ``steps``."""
+    cfg = cfg or jax_get_config("qwen2-1.5b").reduced()
+    shape = JaxShape("t", "train", seq, batch, microbatch=micro)
     step, _ = jsteps.build_train_step(cfg, shape, _jax_mesh(), peak_lr=td.TRAIN_LR)
     # distinct buffers for every leaf: the step donates params and state
     params, opt = jax.tree.map(lambda a: jnp.array(a, copy=True),
                                (params, jadamw.init_state(params)))
-    data = JaxSyntheticLM(JaxDataConfig(cfg.vocab_size, td.TRAIN_SEQ, td.TRAIN_BATCH), 0, 1)
+    data = JaxSyntheticLM(JaxDataConfig(cfg.vocab_size, seq, batch), 0, 1)
     losses, states = [], []
-    for s in td.TRAIN_STEPS:
-        batch = {k: jnp.asarray(v) for k, v in data.batch(s).items()}
-        params, opt, metrics = step(params, opt, batch, jnp.asarray(s))
+    for s in steps:
+        batch_s = {k: jnp.asarray(v) for k, v in data.batch(s).items()}
+        params, opt, metrics = step(params, opt, batch_s, jnp.asarray(s))
         losses.append(float(metrics["loss"]))
         states.append({f: {jax.tree_util.keystr(p): j2n(x) for p, x in
                            jax.tree_util.tree_flatten_with_path(getattr(opt, f))[0]}
@@ -104,14 +109,16 @@ def _reference_train(params):
     return losses, states
 
 
-def _reference_serve(cfg, params, prompt, quant):
-    """The reference's prefill, then its decode step on a (1, 1) mesh:
-    logits (1 + DEC_NEW, B, V) and greedy tokens."""
+def _reference_serve(cfg, params, prompt, quant, maxlen=td.DEC_MAXLEN):
+    """The reference's prefill, then its decode step on a (1, 1) mesh
+    against a cache of ``maxlen`` positions: logits (1 + DEC_NEW, B, V)
+    and greedy tokens."""
     model = jax_make_model(cfg)
-    step, _ = jsteps.build_decode_step(cfg, JaxShape("d", "decode", td.DEC_MAXLEN,
-                                                     td.DEC_BATCH), _jax_mesh(), quant)
+    B, S = prompt.shape
+    step, _ = jsteps.build_decode_step(cfg, JaxShape("d", "decode", maxlen, B),
+                                       _jax_mesh(), quant)
     logits, cache = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(prompt)})
-    cache = rehome(cache, model.make_cache(td.DEC_BATCH, td.DEC_MAXLEN), td.DEC_PROMPT)
+    cache = rehome(cache, model.make_cache(B, maxlen), S)
     out = [j2n(logits[:, -1])]
     tok = jnp.argmax(logits[:, -1], -1)
     toks = [np.asarray(tok)]
@@ -361,18 +368,24 @@ def test_checkpoint_saved_on_2x2_restores_onto_other_meshes(worlds):
 
 def test_layouts_the_port_does_not_run_yet_raise():
     cfg = get_config("qwen2-1.5b").reduced()
-    train = ShapeConfig("t", "train", 16, 4, microbatch=2)
-    # 4 heads over model = 3: sequence-parallel attention
-    with pytest.raises(NotImplementedError, match="sequence-parallel attention"):
-        steps.build_train_step(cfg, train, shape_only((1, 3)))
-    # 2 kv heads over model = 4: the decode cache shards its sequence dim
-    with pytest.raises(NotImplementedError, match="sequence dim"):
-        steps.build_decode_step(cfg, ShapeConfig("d", "decode", 16, 4), shape_only((1, 4)))
+    # a single dim split over data and model at once is queued
+    with pytest.raises(NotImplementedError, match="data and model at once"):
+        steps._whole_dims("['blocks']['q']['w']", P(None, None, ("data", "model")),
+                          shape_only((2, 2)))
+    # 2 kv heads over model = 4: the decode cache splits its sequence dim,
+    # and 15 positions do not split over 4 ranks (the reference pads)
+    with pytest.raises(ValueError, match="KV cache of 15 positions"):
+        steps.build_decode_step(cfg, ShapeConfig("d", "decode", 15, 4), shape_only((1, 4)))
     # batch 1 over data = 2: the sequence dim takes data
-    with pytest.raises(NotImplementedError, match="sequence dim"):
-        steps.build_prefill_step(cfg, ShapeConfig("p", "prefill", 16, 1), shape_only((2, 1)))
+    with pytest.raises(ValueError, match="KV cache of 15 positions"):
+        steps.build_prefill_step(cfg, ShapeConfig("p", "prefill", 15, 1), shape_only((2, 1)))
+    # what the port runs now builds: sequence-parallel attention (4 heads
+    # over model = 3), the split caches, the ssm and hybrid families
+    train = ShapeConfig("t", "train", 16, 4, microbatch=2)
+    steps.build_train_step(cfg, train, shape_only((1, 3)))
+    steps.build_decode_step(cfg, ShapeConfig("d", "decode", 16, 4), shape_only((1, 4)))
+    steps.build_prefill_step(cfg, ShapeConfig("p", "prefill", 16, 1), shape_only((2, 1)))
     for arch in ("mamba2-780m", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="family"):
-            steps.build_train_step(get_config(arch).reduced(), train, shape_only((2, 2)))
+        steps.build_train_step(get_config(arch).reduced(), train, shape_only((1, 4)))
     # on a mesh of one rank every layout runs
     steps.build_decode_step(cfg, ShapeConfig("d", "decode", 16, 1), shape_only((1, 1)))

@@ -485,6 +485,47 @@ def test_flash_attention_tensor_core_body_bf16(cuda, S, hd, groups):
     assert rows.max().item() <= tol, rows.max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("Skv,start,rows", [(2048, 1792, 256), (2048, 683, 683),
+                                            (2048, 1366, 682), (1100, 300, 100),
+                                            (2048, 0, 2048)])
+def test_flash_attention_offset_block_matches_plain(cuda, Skv, start, rows, hd, dtype):
+    """K5 on a block of query rows at an offset into the keys (a
+    sequence-parallel rank's rows; blocks of 683, 682 and 100 rows are no
+    multiple of the query tile) against its plain version, by max |o| and
+    by every row's own norm, with and without its row statistics; the
+    block's rows against the whole sequence's launch, the statistics
+    against the plain forward's."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import _flash_fwd_inner
+
+    g = torch.Generator(device=cuda).manual_seed(Skv + start + hd)
+    B, Hq, Hkv = 2, 12, 2
+    q, k, v = (torch.randn(B, Skv, h, hd, generator=g, device=cuda).to(dtype)
+               for h in (Hq, Hkv, Hkv))
+    qb = q[:, start:start + rows].contiguous()
+    before = fa.COUNTER.launches
+    got = fa.flash_attention(qb, k, v, q_offset=start)
+    o, m, l = fa.flash_attention_stats(qb, k, v, q_offset=start)
+    assert fa.COUNTER.launches == before + 2
+    with dispatch.reference_pass():
+        want = fa.flash_attention(qb, k, v, q_offset=start)
+    whole = fa.flash_attention(q, k, v)[:, start:start + rows]
+    _, want_m, want_l = _flash_fwd_inner(qb, k, v, True, Skv, start)
+    torch.cuda.synchronize()
+    assert got.shape == qb.shape and torch.equal(o, got)
+    for ref in (want, whole):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= TOL[dtype] * ref.float().abs().max().item(), err
+        rel = (got.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-30)
+        assert rel.max().item() <= TOL[dtype], rel.max().item()
+    assert ((m - want_m).abs() / want_m.abs().clamp_min(1.0)).max().item() <= 1e-5
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-5
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention(qb, k, v, q_offset=Skv - rows + 1)
+
+
 @pytest.mark.parametrize("n,h", [(6, 4), (8, 6), (8, 4)])
 @pytest.mark.parametrize("K,N", SHAPES + [(1000, 100), (151936, 1536)])
 def test_nest_recompose_kernel_bit_exact(cuda, K, N, n, h):

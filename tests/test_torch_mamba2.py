@@ -11,7 +11,8 @@ are within 1e-5 of max |y| of.
   buffer against ``causal_conv1d``), ``softplus`` (JAX's, at every x);
 * ``ssd_chunked`` at S = 2048 over chunks of 256, at a ragged S (the
   dt = 0 right pad), with an initial state, and with decays whose
-  exponent overflows above the chunk diagonal (no NaN);
+  exponent overflows above the chunk diagonal (no NaN, forward and
+  backward);
 * ``ssd_decode_step``, ``_split_proj``, and ``mamba_block`` (output and
   returned state and conv buffer) and ``mamba_decode_step`` on one layer
   of the reduced mamba2-780m's parameters carried over through numpy."""
@@ -133,6 +134,32 @@ def test_ssd_chunked_overflowing_decay_above_the_diagonal_gives_no_nan():
     jy, jstate = jm.ssd_chunked(jx, jdt, jA, jB, jC, 32)
     _close_to_max(t2n(y), j2n(jy))
     _close_to_max(t2n(state), j2n(jstate))
+
+
+def test_ssd_chunked_gradient_is_finite_where_the_decay_overflows():
+    """The same overflowing decays, differentiated (a full-width model's
+    chunk of 256 at dt ~ 0.7 overflows too): the exponent is masked before
+    exp, so no inf meets a zero cotangent (which gives NaN); the gradients
+    equal the step-by-step recurrence's in float64 within 1e-4 of their
+    max."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(5, 1, 64, 2, 4, 8, dt_scale=8.0)
+    w = _normal(np.random.default_rng(9), *x.shape)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, dt, Bm, Cm)]
+    y, _ = mamba2.ssd_chunked(leaves[0], leaves[1], torch.from_numpy(A), leaves[2],
+                              leaves[3], 32)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves)
+    ref = [torch.from_numpy(a).double().requires_grad_(True) for a in (x, dt, Bm, Cm)]
+    tx, tdt, tB, tC = ref
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        upd = (tdt[:, t, :, None] * tx[:, t])[..., None] * tB[:, t, None, None, :]
+        h = h * torch.exp(tdt[:, t] * torch.from_numpy(A).double())[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", h, tC[:, t]))
+    want = torch.autograd.grad((torch.stack(ys, 1) * torch.from_numpy(w).double()).sum(), ref)
+    for g, wg in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g.double() - wg).abs().max()) <= 1e-4 * float(wg.abs().max())
 
 
 def test_ssd_decode_step_continues_the_chunked_scan():

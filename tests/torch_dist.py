@@ -30,6 +30,12 @@ TRAIN_STEPS = (50, 51, 52)         # warmup 100: lr = peak * step / 100
 TRAIN_LR = 1e-3
 DEC_BATCH, DEC_PROMPT, DEC_NEW, DEC_MAXLEN = 4, 8, 4, 16
 MOE_BATCH, MOE_SEQ = 4, 8
+# sequence-parallel attention and the sequence-split KV cache
+# (test_torch_seq_parallel): train at 48 (three steps) and 2048 (one step)
+# over model = 3; serve one prompt of 12 into a cache of 24 positions,
+# which splits over 2, 3 and 4 ranks
+SP_SEQ, SP_LONG = 48, 2048
+SP_BATCH, SP_PROMPT, SP_MAXLEN = 1, 12, 24
 
 
 def run_world(job: str, world: int, workdir: Path, device: str = "cpu",
@@ -201,20 +207,22 @@ def _same_specs(a, b) -> bool:
 
 
 def serve_run(p, mesh, cfg, params_key, quant, device, counters: bool = False,
-              rung=None):
-    """The sharded prefill of ``DEC_BATCH`` prompts, then ``DEC_NEW`` greedy
-    decode steps -> this data rank's logits per step, its tokens, and the
-    kernels' launch counts of the run (``counters``); ``rung`` stamps a
-    nested tree's serving rung first."""
+              rung=None, batch=DEC_BATCH, prompt=DEC_PROMPT, maxlen=DEC_MAXLEN,
+              prompt_key="prompt"):
+    """The sharded prefill of ``batch`` prompts (``p[prompt_key]``), then
+    ``DEC_NEW`` greedy decode steps against a cache of ``maxlen`` positions
+    -> this data rank's logits per step, its tokens, and the kernels'
+    launch counts of the run (``counters``); ``rung`` stamps a nested
+    tree's serving rung first."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import steps
     from repro_torch.distributed.sharding import local_shard, shard_tree
     from repro_torch.kernels import dispatch
 
     prefill, ps = steps.build_prefill_step(
-        cfg, ShapeConfig("p", "prefill", DEC_PROMPT, DEC_BATCH), mesh, quant)
+        cfg, ShapeConfig("p", "prefill", prompt, batch), mesh, quant)
     decode, ds = steps.build_decode_step(
-        cfg, ShapeConfig("d", "decode", DEC_MAXLEN, DEC_BATCH), mesh, quant)
+        cfg, ShapeConfig("d", "decode", maxlen, batch), mesh, quant)
     from repro_torch.core.nesting import set_tree_rung
 
     full = _to(p[params_key], device)
@@ -223,14 +231,12 @@ def serve_run(p, mesh, cfg, params_key, quant, device, counters: bool = False,
     params = shard_tree(full, ds["params"], mesh)
     pre_params = params if _same_specs(ps["params"], ds["params"]) else \
         shard_tree(full, ps["params"], mesh)
-    toks = local_shard(p["prompt"].to(device), ps["batch"]["tokens"], mesh)
+    toks = local_shard(p[prompt_key].to(device), ps["batch"]["tokens"], mesh)
     if counters:
         dispatch.reset_counters()
     logits, pcache = prefill(pre_params, {"tokens": toks})
-    cache = shard_tree(ds["model"].make_cache(DEC_BATCH, DEC_MAXLEN), ds["cache"], mesh)
-    for key in ("k", "v"):
-        cache[key][:, :, :DEC_PROMPT] = pcache[key]
-    cache["pos"] = pcache["pos"]
+    cache = shard_tree(ds["model"].make_cache(batch, maxlen), ds["cache"], mesh)
+    steps.fill_decode_cache(cache, pcache, mesh, ps["cache"], ds["cache"])
     out = [logits[:, -1].cpu()]
     tok = logits[:, -1].argmax(-1)
     toks_out = [tok.cpu()]
@@ -315,6 +321,195 @@ def ckpt_run(p, workdir, meshes):
     return out
 
 
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def without_kv_grad_sum():
+    """The control of the sequence-parallel train checks: k and v keep each
+    rank's own gradient part (no sum over model)."""
+    from repro_torch.models import model
+    return _swapped(model, "_kv_grad_sum", lambda t: t)
+
+
+def without_combine():
+    """The control of the sequence-split cache checks: each rank's softmax
+    over its own block of positions (the other blocks' pieces are not
+    gathered)."""
+    from repro_torch.models import attention
+    return _swapped(attention, "_gather_blocks", lambda x, group: x[None])
+
+
+def without_norm_sum():
+    """The control of the ssm checks: the gated norm's sum of squares over
+    this rank's block of d_inner alone (no sum over model)."""
+    from repro_torch.models import mamba2
+    return _swapped(mamba2, "_norm_sum", lambda ss: ss)
+
+
+def sharded_train(p, mesh, cfg, params_key, batches_key, shape, control=None):
+    """Sharded train steps of ``cfg`` from ``p[params_key]``, one per batch
+    of ``p[batches_key]`` at ``TRAIN_STEPS`` -> (losses, the whole optimizer
+    state after each step on rank 0), ``control`` (a context manager
+    factory) around each step."""
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import gather_tree, local_shard, shard_tree
+    from repro_torch.optim import adamw
+
+    step, specs = steps.build_train_step(cfg, shape, mesh, peak_lr=TRAIN_LR)
+    full = _to(p[params_key], mesh.device)
+    params = shard_tree(full, specs["params"], mesh)
+    opt = shard_tree(adamw.init_state(full), specs["opt"], mesh)
+    losses, states = [], []
+    for s, batch in zip(TRAIN_STEPS, p[batches_key]):
+        batch = {k: local_shard(v.to(mesh.device), specs["batch"][k], mesh)
+                 for k, v in batch.items()}
+        with control() if control else contextlib.nullcontext():
+            params, opt, metrics = step(params, opt, batch, s)
+        losses.append(float(metrics["loss"]))
+        whole = gather_tree(opt, specs["opt"], mesh)
+        states.append(_copy(whole) if mesh.coord(("data", "model")) == 0 else None)
+    return {"loss": losses, "opt": states}
+
+
+def _sp_serve(p, mesh, cfg, params_key, control=None):
+    kw = dict(batch=SP_BATCH, prompt=SP_PROMPT, maxlen=SP_MAXLEN, prompt_key="sp_prompt")
+    with control() if control else contextlib.nullcontext():
+        return serve_run(p, mesh, cfg, params_key, None, mesh.device, **kw)
+
+
+def sp_config(heads=4, kv_heads=2):
+    """The reduced qwen2 (4 heads, 2 kv heads of 16) or a variant."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2-1.5b").reduced(), num_heads=heads,
+                               num_kv_heads=kv_heads)
+
+
+def job_seq3(p, rank, workdir, device):
+    """4 heads over model = 3: sequence-parallel train (and its control
+    without the k/v gradient sum) at 48 and 2048, and the serve whose cache
+    splits over model."""
+    from repro_torch.configs.base import ShapeConfig
+    mesh = _mesh((1, 3), device)
+    cfg = sp_config()
+    short = ShapeConfig("t", "train", SP_SEQ, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    long = ShapeConfig("t", "train", SP_LONG, 1, microbatch=1)
+    return {"train": sharded_train(p, mesh, cfg, "train_params", "sp_batches", short),
+            "train_control": sharded_train(p, mesh, cfg, "train_params", "sp_batches", short,
+                                           without_kv_grad_sum),
+            "train_long": sharded_train(p, mesh, cfg, "train_params", "sp_long_batches", long),
+            "serve": _sp_serve(p, mesh, cfg, "dense"),
+            "serve_control": _sp_serve(p, mesh, cfg, "dense", without_combine)}
+
+
+def split_rows_run(mesh):
+    """``row_linear`` of a whole weight (dense and nested) fed this rank's
+    columns of ``SPLIT_ROWS`` rows, inside the context (each rank its block
+    of output columns, gathered) and outside it (the whole product): the
+    largest |difference| over the largest |value|, per weight kind."""
+    from repro_torch.core.nesting import nest_quantize
+    from repro_torch.distributed.ctx import logical_rules
+    from repro_torch.models.layers import SPLIT_ROWS, row_linear
+
+    g = torch.Generator().manual_seed(5)
+    w = torch.randn(64, 48, generator=g)
+    x = torch.randn(SPLIT_ROWS, 64, generator=g)
+    r, m = mesh.coord("model"), mesh.shape["model"]
+    out = {}
+    for kind, weight in (("dense", w), ("nested", nest_quantize(w, bits=(4, 8),
+                                                                rounding="rtn", block=32))):
+        want = row_linear(x, weight, 64)
+        with logical_rules(mesh, {}):
+            got = row_linear(x[:, r * 64 // m:(r + 1) * 64 // m], weight, 64)
+        out[kind] = float((got - want).abs().max() / want.abs().max())
+    return out
+
+
+def job_seq4(p, rank, workdir, device):
+    """The cache split over model on (1, 4) (4 heads: head-TP, 2 kv heads
+    kept whole) and over (data, model) on (2, 2) (6 heads, 3 kv heads)."""
+    m14, m22 = _mesh((1, 4), device), _mesh((2, 2), device)
+    return {"model": _sp_serve(p, m14, sp_config(), "dense"),
+            "data_model": _sp_serve(p, m22, sp_config(6, 3), "dense63"),
+            "data_model_control": _sp_serve(p, m22, sp_config(6, 3), "dense63",
+                                            without_combine),
+            "split_rows": split_rows_run(m14)}
+
+
+def job_seq2(p, rank, workdir, device):
+    """The cache split over data on (2, 1): one prompt on both data ranks."""
+    return {"data": _sp_serve(p, _mesh((2, 1), device), sp_config(), "dense")}
+
+
+def ssm_runs(p, mesh, arch, control: bool, device):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    out = {"train": sharded_train(p, mesh, cfg, f"{arch}/train_params", "ssm_batches", shape),
+           "serve": serve_run(p, mesh, cfg, f"{arch}/dense", None, device)}
+    if control:
+        out["train_control"] = sharded_train(p, mesh, cfg, f"{arch}/train_params",
+                                             "ssm_batches", shape, without_norm_sum)
+        with without_norm_sum():
+            out["serve_control"] = serve_run(p, mesh, cfg, f"{arch}/dense", None, device)
+    return out
+
+
+def ssm_ckpt_run(p, workdir, meshes, arch):
+    """The arch's dense tree saved sharded as the train step lays it out on
+    (2, 2); restored onto (1, 4) and plainly."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.distributed.sharding import shard_tree
+
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig("t", "train", TRAIN_SEQ, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    full = p[f"{arch}/train_params"]
+    specs = {s: steps.build_train_step(cfg, shape, meshes[s])[1]["params"]
+             for s in ((2, 2), (1, 4))}
+    mgr = CheckpointManager(str(Path(workdir) / f"ckpt_{arch}"))
+    mgr.save(1, shard_tree(full, specs[(2, 2)], meshes[(2, 2)]), mesh=meshes[(2, 2)],
+             pspecs=specs[(2, 2)])
+    tmpl = steps.abstract_params(dataclasses_bf16(cfg))
+    got, _ = mgr.restore(tmpl, mesh=meshes[(1, 4)], pspecs=specs[(1, 4)])
+    want = shard_tree(full, specs[(1, 4)], meshes[(1, 4)])
+    from repro_torch import tree
+    onto = all(torch.equal(a, b) for a, b in zip(tree.leaves(got), tree.leaves(want)))
+    plain = mgr.restore(tmpl, device="cpu")[0]
+    whole = all(torch.equal(a, b) for a, b in zip(tree.leaves(plain), tree.leaves(full)))
+    split = [tuple(a.shape) != tuple(b.shape)
+             for a, b in zip(tree.leaves(got), tree.leaves(full))]
+    return {"onto_1x4": onto, "plain": whole, "leaves": len(split), "split": sum(split)}
+
+
+def dataclasses_bf16(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, dtype="bfloat16")
+
+
+def job_ssm4(p, rank, workdir, device):
+    """mamba2 and zamba2 (reduced) train and serve on (2, 2) and (1, 4),
+    the controls on (2, 2), the checkpoint re-shard."""
+    meshes = {s: _mesh(s, device) for s in ((2, 2), (1, 4))}
+    out = {}
+    for arch in ("mamba2-780m", "zamba2-2.7b"):
+        for shape, m in meshes.items():
+            out[(arch, shape)] = ssm_runs(p, m, arch, shape == (2, 2), device)
+        out[(arch, "ckpt")] = ssm_ckpt_run(p, workdir, meshes, arch)
+    return out
+
+
 def job_cpu4(p, rank, workdir, device):
     from repro_torch.configs import get_config
     from repro_torch.distributed import comm
@@ -351,7 +546,8 @@ def job_gpu2(p, rank, workdir, device):
                             rung=rung) for rung in (0, 1)}
 
 
-JOBS = {"cpu4": job_cpu4, "cpu2": job_cpu2, "gpu2": job_gpu2}
+JOBS = {"cpu4": job_cpu4, "cpu2": job_cpu2, "gpu2": job_gpu2, "seq3": job_seq3,
+        "seq4": job_seq4, "seq2": job_seq2, "ssm4": job_ssm4}
 
 
 def main(argv) -> int:
