@@ -93,36 +93,15 @@ def col_linear(x, w, b=None, full: int = 0, route=None, xs=None) -> torch.Tensor
     return linear(ctx.enter_model(x) if xs is None else xs, w, b, route=route)
 
 
-# rows from which a whole weight fed model-split inputs (the nested
-# layout's o and down) is multiplied by column blocks: each rank computes
-# its block of the output and the blocks are gathered, one all-gather in
-# place of every rank repeating the whole product (a prefill's rows)
-SPLIT_ROWS = 1024
-
-
-def _column_block(w, r: int, n: int):
-    """Columns ``r * n`` .. ``(r + 1) * n`` of a (dense or nested) weight."""
-    if not isinstance(w, NestedTensor):
-        return w[..., r * n:(r + 1) * n]
-    cut = lambda t: None if t is None else t[..., r * n:(r + 1) * n].contiguous()  # noqa: E731
-    return w._replace(w_base=cut(w.w_base), deltas=tuple(cut(d) for d in w.deltas),
-                      scale=cut(w.scale), shape=w.shape[:-1] + (n,))
-
-
 def row_linear(x, w, full: int, route=None) -> torch.Tensor:
     """:func:`linear` (no bias) of a weight whose ``full`` input rows may be
     split over ``model``.  A row block takes this rank's columns of ``x``
     (cut from a whole ``x``) and its f32 partial products are summed over
     ``model``, then cast to x's dtype; a whole weight fed this rank's
-    columns gathers them first, and from ``SPLIT_ROWS`` rows on multiplies
-    them by this rank's block of its columns, gathered over ``model``."""
+    columns gathers them first."""
     k = in_width(w)
     if x.shape[-1] < k:
         x = ctx.gather_model(x, -1)
-        r, m = ctx.model_index()
-        N = out_width(w)
-        if k == full and x[..., 0].numel() >= SPLIT_ROWS and N % m == 0:
-            return ctx.gather_model(linear(x, _column_block(w, r, N // m), route=route), -1)
     elif x.shape[-1] > k:
         x = ctx.model_slice(x, k)
     if k == full:

@@ -23,8 +23,6 @@ CPU.
   logits within ``LOGIT_TOL`` of the reference's, greedy tokens
   identical; the control where each rank takes the softmax over its own
   block of positions reads above the limit.
-* A whole weight fed a model-split input over ``SPLIT_ROWS`` rows, by
-  column blocks gathered: the whole product.
 """
 import dataclasses
 
@@ -173,12 +171,3 @@ def test_sequence_split_cache_serve_matches_the_reference(worlds, world, run, re
         for r in worlds[control[0]]:
             gap = float(np.abs(t2n(r[control[1]]["logits"]) - want_logits).max() / scale)
             assert gap > LOGIT_TOL, gap
-
-
-def test_whole_weight_split_by_columns_equals_the_whole_product(worlds):
-    """From ``SPLIT_ROWS`` rows on, a whole weight (the nested layout's o and
-    down) fed this rank's input columns is multiplied by this rank's block
-    of output columns and the blocks are gathered: the whole product, dense
-    and nested, within 1e-6."""
-    for r in worlds["seq4"]:
-        assert max(r["split_rows"].values()) <= 1e-6, r["split_rows"]

@@ -410,29 +410,6 @@ def job_seq3(p, rank, workdir, device):
             "serve_control": _sp_serve(p, mesh, cfg, "dense", without_combine)}
 
 
-def split_rows_run(mesh):
-    """``row_linear`` of a whole weight (dense and nested) fed this rank's
-    columns of ``SPLIT_ROWS`` rows, inside the context (each rank its block
-    of output columns, gathered) and outside it (the whole product): the
-    largest |difference| over the largest |value|, per weight kind."""
-    from repro_torch.core.nesting import nest_quantize
-    from repro_torch.distributed.ctx import logical_rules
-    from repro_torch.models.layers import SPLIT_ROWS, row_linear
-
-    g = torch.Generator().manual_seed(5)
-    w = torch.randn(64, 48, generator=g)
-    x = torch.randn(SPLIT_ROWS, 64, generator=g)
-    r, m = mesh.coord("model"), mesh.shape["model"]
-    out = {}
-    for kind, weight in (("dense", w), ("nested", nest_quantize(w, bits=(4, 8),
-                                                                rounding="rtn", block=32))):
-        want = row_linear(x, weight, 64)
-        with logical_rules(mesh, {}):
-            got = row_linear(x[:, r * 64 // m:(r + 1) * 64 // m], weight, 64)
-        out[kind] = float((got - want).abs().max() / want.abs().max())
-    return out
-
-
 def job_seq4(p, rank, workdir, device):
     """The cache split over model on (1, 4) (4 heads: head-TP, 2 kv heads
     kept whole) and over (data, model) on (2, 2) (6 heads, 3 kv heads)."""
@@ -440,8 +417,7 @@ def job_seq4(p, rank, workdir, device):
     return {"model": _sp_serve(p, m14, sp_config(), "dense"),
             "data_model": _sp_serve(p, m22, sp_config(6, 3), "dense63"),
             "data_model_control": _sp_serve(p, m22, sp_config(6, 3), "dense63",
-                                            without_combine),
-            "split_rows": split_rows_run(m14)}
+                                            without_combine)}
 
 
 def job_seq2(p, rank, workdir, device):
