@@ -223,9 +223,9 @@ Phases (each raises on failure; the script then exits non-zero):
    beside ``predicted_train_comm`` and the peak memory per rank.  (b)
    qwen2-1.5b with all 28 layers nested (4, 8) rtn as
    ``steps.quantize_abstract`` lays it out, each rank nesting its own
-   blocks: a prefill of 4 x 64 tokens and 8 decode steps at rungs 0 and
-   1, f32 (logits within 1e-4, greedy tokens identical) and bf16 (within
-   3e-2), fed the world-1 run's tokens; each rank's K1/K2 launches (197 a
+   blocks: a prefill of 4 x 64 tokens and 8 decode steps, f32 at rung 0
+   (logits within 1e-4, greedy tokens identical) and bf16 at rung 1
+   (within 3e-2), fed the world-1 run's tokens; each rank's K1/K2 launches (197 a
    forward, the bodies by M) counted, none plain.  (c) dbrx-132b at its
    published widths with 2 layers, nested, f32: a prefill of 4 x 8 tokens
    and 4 decode steps; each data rank routes its own tokens, each model
@@ -262,6 +262,30 @@ Phases (each raises on failure; the script then exits non-zero):
    sum of squares not summed over model, reads above the loss, state and
    serve limits.
 
+11. The dry run (phase 11, ``phase_dryrun``, in the main process):
+   ``launch/step_analysis.py`` runs a step once as rank 0 of a fake world
+   over fake CUDA tensors (nothing launched; each kernel wrapper counts
+   the launches the card would make) and counts its FLOPs, bytes,
+   collectives, launches and peak memory.  The dry runs need the plans
+   alone and are traced while phase 9's rank processes run (``dry_runs``);
+   the checks follow phase 10.  (a) Every train step and every
+   (dtype, rung) serve (the prefill with the decode cache's fill, and one
+   decode step times the run's steps) that phases 9 and 10 ran, at their
+   configs, shapes and meshes: the calls and payload bytes of each
+   collective and the launches of each kernel on each body equal rank 0's
+   measured counts exactly, and phase 9 (a)'s all-reduce also
+   ``predicted_train_comm`` (phase 9 (c)'s MoE serve routes by the data,
+   which a dry run does not hold, and is left out).  (b) The world-1
+   train step of qwen2-1.5b at all 28 layers, 2 x 2048 in one
+   microbatch: dry-run, then run once on the card; the predicted peak
+   within ``DRY_PEAK_TOL`` of ``max_memory_allocated`` (above what was
+   allocated before the step's arguments), which the prediction without
+   the AdamW moment m exceeds; 56 dry K5 launches, as launched; the
+   ``useful_flops_ratio`` within the reference's (0.25, 1.5); the
+   roofline terms beside the step's wall and device busy time.  (c) Phase
+   9 (a)'s train step dry-run on fake CPU tensors gives exactly the counts
+   of the fake CUDA run.
+
 The per-shape table and every other measurement go to ``--report``
 (default ``build/chip_smoke.json``).  The line before the last prints the
 kernels (launches, error, times, bound); the last line is
@@ -287,9 +311,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published rates (NVIDIA data sheet, dense, at the 700 W limit) and
+# each kernel's (bytes, operations), one copy in the package
+from repro_torch.kernels.costs import (HBM_BYTES_PER_S, PEAK_FLOPS,  # noqa: E402
+                                       PEAK_INT8_OPS, flash_cost, matmul_cost,
+                                       qk_cost, recompose_cost)
+
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # K5 per output row (b, s, head): |kernel - plain| / |plain|, L2 over hd.
 # A late row's |o| is ~50x below max |o| (the first rows), so the max |o|
@@ -322,8 +349,6 @@ KV_KERNELS = {  # name -> (source, TPU kernel it replaces)
     "nest_recompose": ("src/repro_torch/csrc/nest_recompose.cu",
                        "src/repro/kernels/nest_recompose/kernel.py:28"),
 }
-# K4's codes are <= 8 bits, so the card's peak for its products is int8's
-PEAK_INT8_OPS = 1979e12
 # one page-in of the tree at (6, 4) on the one-thread-per-code K6 body it
 # replaces (PERF.md section 6, H100 80GB HBM3 at 700 W): printed beside
 # this run's total, never used as a measurement of this run
@@ -475,15 +500,6 @@ def checked_launch(name, nt, x, copies, out_dtype, what, route=None):
         raise AssertionError(f"{what} {body} body: max |kernel - plain| = {err} > {tol} * "
                              f"max(1, {peak})")
     return call, body, err, peak
-
-
-def matmul_cost(x, streams, N, out_dtype):
-    """(bytes, operations) of one K1-K3 launch: x, the streams it reads and
-    the scale read once, the (M, N) output written once; 2 M N K."""
-    M, K = x.shape
-    out_size = torch.empty((), dtype=out_dtype).element_size()
-    return (x.numel() * x.element_size() + sum(s.numel() * 4 for s in streams) + N * 4
-            + M * N * out_size, 2.0 * M * N * K)
 
 
 def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
@@ -1950,9 +1966,7 @@ def flash_offset_row(q, k, v, off, whole_rows):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 10)
-    keys = Sq * off + Sq * (Sq + 1) // 2                # keys each row sees, summed
-    flops = 4.0 * B * Hq * hd * keys                    # QK^T and PV
-    nbytes = (2 * q.numel() + 2 * B * (off + Sq) * Hkv * hd) * q.element_size()
+    nbytes, flops = flash_cost(q, k, off)
     log(f"[kv-kernels] {what}: max err / max|o| {err / peak:.3e}, worst row {row:.3e}; "
         f"equal to the whole launch's rows: {same}")
     return _row("flash_attention_offset", f"rows {off}..{off + Sq - 1} of {Skv}", Sq,
@@ -2021,7 +2035,7 @@ def phase_kv_kernels(cfg, gen):
                 with dispatch.reference_pass():
                     want = qk.ladder_qk_scores(qc, st, bits=res, page=KV_PAGE)
                 _check_exact("nested_qk", got, want, f"bits {bits} rung {rung} M={M}")
-                nbytes = qc.numel() * 4 + sum(t.numel() * 4 for t in st) + got.numel() * 4
+                nbytes, ops = qk_cost(qc, st, S)
                 copies = _cold_copies(st, nbytes)
                 ms = time_graph_ms(lambda i: qk.ladder_qk_scores(
                     qc, copies[i % len(copies)], bits=res, page=KV_PAGE), 20)
@@ -2036,7 +2050,6 @@ def phase_kv_kernels(cfg, gen):
                 _check_exact("nested_qk", got, want, f"bits {bits} rung {rung} M={M} control")
                 cc_ms = time_graph_ms(lambda i: qk.ladder_qk_scores(
                     qw, copies[i % len(copies)], bits=res, page=KV_PAGE), 20)
-                ops = 2.0 * BH * M * S * D
                 rows.append(_row("nested_qk", f"bits {bits} rung {rung}", M, "int32",
                                  0.0, ms, plain_ms, nbytes, ops, PEAK_INT8_OPS, None,
                                  cuda_core_ms=cc_ms, BH=BH, S=S, D=D, page=KV_PAGE, rung=rung,
@@ -2054,8 +2067,7 @@ def phase_kv_kernels(cfg, gen):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
             lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-            nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-            flops = 2.0 * B * Hq * S * S * hd          # QK^T and PV, causal half
+            nbytes, flops = flash_cost(q, k)
             stats = None
             if S <= PROMPT_LONG:          # the training forward's launch
                 stats = check_flash_stats(q, k, v, f"S={S}")
@@ -2094,7 +2106,7 @@ def phase_kv_kernels(cfg, gen):
             _check_exact("nest_recompose", got, want, f"{shape} n={n} h={h}")
             if not torch.equal(got.to(torch.int32), nt.codes_at(1)):
                 raise AssertionError(f"nest_recompose {shape} n={n} h={h}: not the top codes")
-            nbytes = (wh.numel() + wl.numel()) * 4 + K * N
+            nbytes, ops = recompose_cost(wh, wl, K)
             copies = _cold_copies((wh, wl), nbytes)
             ms = time_graph_ms(lambda i: nr.nest_recompose(
                 *copies[i % len(copies)], n=n, h=h, K=K, block_k=block), 20)
@@ -2102,7 +2114,7 @@ def phase_kv_kernels(cfg, gen):
                 plain_ms = time_ms(lambda i: nr.nest_recompose(wh, wl, n=n, h=h, K=K,
                                                                block_k=block), 3)
             rows.append(_row("nest_recompose", shape, 0, "int8", 0.0, ms, plain_ms, nbytes,
-                             float(K * N), PEAK_INT8_OPS, None, K=K, N=N, n=n, h=h,
+                             ops, PEAK_INT8_OPS, None, K=K, N=N, n=n, h=h,
                              block=block, uses_per_tree=uses))
             del nt, copies, got, want
         del w
@@ -3030,8 +3042,7 @@ def ssm_flash(cfg, gen, batch, prompt):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_graph_ms(lambda i: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-    flops = 2.0 * batch * Hq * prompt * prompt * hd
+    nbytes, flops = flash_cost(q, k)
     r = _row("flash_attention", f"hd={hd} S={prompt}", prompt, "bfloat16", err, ms, plain_ms,
              nbytes, flops, PEAK_FLOPS[torch.bfloat16], lib_ms, max_abs_ref=peak,
              worst_row_rel=row, control_drop_tile={"err_over_max": ctl_err / peak,
@@ -3753,14 +3764,15 @@ def sharded_plan():
     batch 4 x 2048 in microbatches of 2, at schedule step 50 (learning rate
     half its peak); (b) qwen2-1.5b, all 28 layers, nested (4, 8) rtn as
     ``quantize_abstract`` lays it out: a prefill of 4 x 64 tokens and 8
-    decode steps at rungs 0 and 1, f32 and bf16; (c) dbrx-132b at its
+    decode steps, f32 at rung 0 and bf16 at rung 1; (c) dbrx-132b at its
     published widths with 2 of its 40 layers, nested (4, 8), f32: a prefill
     of 4 x 8 tokens and 4 greedy decode steps."""
     return {"device": DEVICE, "mesh": list(SHARDED_MESH),
             "train": {"arch": "qwen2-1.5b", "layers": 2, "batch": 4, "seq": 2048,
                       "micro": 2, "step": 50},
             "serve": {"arch": "qwen2-1.5b", "layers": None, "batch": 4, "prompt": 64,
-                      "new": 8, "rungs": [0, 1], "dtypes": ["float32", "bfloat16"]},
+                      "new": 8, "rungs": {"float32": [0], "bfloat16": [1]},
+                      "dtypes": ["float32", "bfloat16"]},
             "moe": {"arch": MOE_ARCH, "layers": MOE_LAYERS, "batch": 4, "prompt": 8,
                     "new": 4, "dtype": "float32"}}
 
@@ -3781,14 +3793,22 @@ def _rungs(part, dtype):
     return rungs[dtype] if isinstance(rungs, dict) else rungs
 
 
-def _train_parts(plan, key="train"):
+def _train_shape(plan, key="train"):
+    """(config, shape) of a train part."""
     from repro_torch.configs.base import ShapeConfig
+
+    t = plan[key]
+    cfg = _plan_config(t, **({"compute_dtype": t["compute"]} if t.get("compute") else {}))
+    return cfg, ShapeConfig("sharded_train", "train", t["seq"], t["batch"],
+                            microbatch=t["micro"])
+
+
+def _train_parts(plan, key="train"):
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.train import to_device
 
     t = plan[key]
-    cfg = _plan_config(t, **({"compute_dtype": t["compute"]} if t.get("compute") else {}))
-    shape = ShapeConfig("sharded_train", "train", t["seq"], t["batch"], microbatch=t["micro"])
+    cfg, shape = _train_shape(plan, key)
     data = SyntheticLM(DataConfig(cfg.vocab_size, t["seq"], t["batch"]), 0, 1)
     return cfg, shape, to_device(data.batch(0), plan["device"])
 
@@ -4558,10 +4578,11 @@ def check_sharded(ranks, plan):
                                  f"{mo['worst']:.3e}")
 
 
-def phase_sharded():
+def phase_sharded(during=None):
     """Phase 9: the sharded train, nested serve and MoE serve on a (2, 2)
     mesh of four gloo rank processes sharing the card, against the world-1
-    steps on the same card; see the module docstring."""
+    steps on the same card; see the module docstring.  ``during`` (a
+    callable) runs in this process while the ranks do."""
     import shutil
 
     t0 = time.perf_counter()
@@ -4574,7 +4595,14 @@ def phase_sharded():
         (work / "plan.json").write_text(json.dumps(plan))
         w1 = sharded_world1(plan, work)
         t_ranks = time.perf_counter()
-        ranks = run_ranks(work, world)
+        started = start_ranks(work, world)
+        try:
+            if during is not None:
+                during()
+        except BaseException:
+            _stop(started[1])
+            raise
+        ranks = wait_ranks(started)
         ranks_s = time.perf_counter() - t_ranks
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4839,6 +4867,285 @@ def phase_seq_ssm_sharded():
     return out
 
 
+# ===========================================================================
+# Phase 11: the dry run (fake world, fake tensors) against phases 8-10
+# ===========================================================================
+# (b): |predicted peak - measured peak| / measured peak.  On the H100 the
+# sound prediction read 8.32e-5 (50.379 against 50.384 GB) and the control
+# (the prediction without the AdamW moment m, one f32 copy of the
+# parameters) 0.141 (PERF.md): the limit is about their geometric mean
+DRY_PEAK_TOL = 3e-3
+# (b): the reference's limits on a train cell's useful_flops_ratio
+DRY_USEFUL_RANGE = (0.25, 1.5)
+
+
+@contextlib.contextmanager
+def _dry_mesh(dims, device):
+    """Rank 0's mesh of ``dims`` (data, model) in a fake world."""
+    from repro_torch.launch.mesh import fake_world, make_fake_mesh
+
+    with fake_world(math.prod(dims)):
+        yield make_fake_mesh(tuple(dims), ("data", "model"), device)
+
+
+def dry_train(plan, key, device):
+    """(rank 0's ``StepCosts`` of a train part's step on the plan's mesh,
+    memory not tracked, and ``predicted_train_comm`` of it)."""
+    from repro_torch.distributed import steps
+    from repro_torch.launch import dryrun, step_analysis
+
+    cfg, shape = _train_shape(plan, key)
+    with _dry_mesh(plan["mesh"], device) as mesh:
+        step, specs = steps.build_train_step(cfg, shape, mesh)
+        args = dryrun.train_args(specs["model"].cfg, shape, mesh, specs, plan[key]["step"])
+        costs = step_analysis.analyze(step, args, mesh, device, memory=False)
+        return costs, predicted_train_comm(cfg, shape, mesh, specs["params"])
+
+
+def dry_serve(plan, key, dtype, rung, device):
+    """Rank 0's ``StepCosts`` of one (dtype, rung) serve of a part: the
+    prefill with the decode cache's fill (``sharded_prefill``), and one
+    decode step at the prompt's end (the run makes ``new`` of those);
+    memory not tracked."""
+    from repro_torch.core.nesting import set_tree_rung
+    from repro_torch.distributed import steps
+    from repro_torch.launch import dryrun, step_analysis
+
+    part = plan[key]
+    cfg = dataclasses.replace(_plan_config(part), compute_dtype=dtype)
+    pshape, dshape = _serve_shapes(part)
+    with _dry_mesh(plan["mesh"], device) as mesh:
+        prefill, ps, decode, ds = _serve_steps(cfg, part, mesh)
+        pre_params, inputs = dryrun.prefill_args(
+            cfg, pshape, mesh, ps, set_tree_rung(ps["abstract_params"], rung))
+        params, tok, cache = dryrun.decode_args(
+            cfg, dshape, mesh, ds, part["prompt"], set_tree_rung(ds["abstract_params"], rung))
+
+        def prefill_and_fill(p, i, c):
+            logits, pcache = prefill(p, i)
+            return logits, steps.fill_decode_cache(c, pcache, mesh, ps["cache"], ds["cache"])
+
+        pre = step_analysis.analyze(prefill_and_fill, (pre_params, inputs, cache), mesh, device,
+                                    memory=False)
+        dec = step_analysis.analyze(decode, (params, tok, cache), mesh, device, memory=False)
+    return pre, dec
+
+
+def _dry_totals(parts):
+    """(per collective [calls, payload], per kernel [launches, decode body,
+    tensor cores]) of ``parts``: (StepCosts, calls) pairs summed."""
+    comm, kern = {}, {}
+    for costs, n in parts:
+        for op, calls in costs.num_collectives.items():
+            c = comm.setdefault(op, [0, 0])
+            c[0] += n * calls
+            c[1] += n * costs.payload_bytes[op]
+        for name, k in costs.kernels.items():
+            c = kern.setdefault(name, [0, 0, 0])
+            for i, f in enumerate(("dry_launches", "decode", "tensor_core")):
+                c[i] += n * k[f]
+    return comm, kern
+
+
+def _measured_totals(comm_counts, k_totals):
+    """The same of a rank's measured ``comm.counts()`` and ``_k_totals()``."""
+    comm = {op: [c["calls"], c["payload_bytes"]] for op, c in comm_counts.items()
+            if c["calls"]}
+    kern = {n: [c["launches"], c["dec"], c["tc"]] for n, c in k_totals.items()
+            if c["launches"]}
+    return comm, kern
+
+
+def _check_dry(tag, dry, measured, rows):
+    rows.append({"what": tag, "dry": dry, "measured": measured, "equal": dry == measured})
+    log(f"[dryrun] {tag}: collectives {dry[0]}, kernels {dry[1]}; measured "
+        f"{'the same' if dry == measured else measured}")
+    if dry != measured:
+        raise AssertionError(f"{tag}: dry run {dry} differs from rank 0's measured {measured}")
+
+
+def _dry_worlds():
+    """(phase, plan, serve keys) of every world phases 9 and 10 run."""
+    return ([("9", sharded_plan(), ("serve",))]
+            + [(f"10 {job}", plan, ("serve", "hybrid"))
+               for job, plan in seq_ssm_plans().items()])
+
+
+def _full_step(device):
+    """(config, shape, (1, 1) mesh, step, specs) of (b): qwen2-1.5b at all 28
+    layers, 2 x 2048 in one microbatch, the world-1 ``build_train_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import shape_only
+
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeConfig("dry_train", "train", TRAIN_SEQ, TRAIN_BATCH, microbatch=TRAIN_BATCH)
+    one = shape_only((1, 1), ("data", "model"), device)
+    step, specs = steps.build_train_step(cfg, shape, one)
+    return cfg, shape, one, step, specs
+
+
+def dry_runs(device):
+    """Every dry run of phase 11, from the plans alone (no measurement
+    needed; ``main`` traces them while phase 9's rank processes run and
+    the main process would wait): each world's train step, each (dtype,
+    rung) serve, (b)'s step with memory tracked and phase 9's train step
+    again on fake CPU tensors."""
+    from repro_torch.launch import dryrun, step_analysis
+
+    t0 = time.perf_counter()
+    out = {"train": {}, "serve": {}}
+    for phase, plan, keys in _dry_worlds():
+        out["train"][phase] = dry_train(plan, "train", device)
+        for key in (k for k in keys if k in plan):
+            part = plan[key]
+            for dt in part["dtypes"]:
+                for rung in _rungs(part, dt):
+                    out["serve"][(phase, key, dt, rung)] = dry_serve(plan, key, dt, rung, device)
+    cfg, shape, one, step, specs = _full_step(device)
+    out["full"] = step_analysis.analyze(
+        step, dryrun.train_args(specs["model"].cfg, shape, one, specs, 50), one, device)
+    out["cpu"] = dry_train(sharded_plan(), "train", "cpu")[0]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] the dry runs traced in {out['seconds']:.1f}s")
+    return out
+
+
+def dry_against_ranks(dry, sharded, seq_ssm):
+    """(a): the dry runs of every train step and every (dtype, rung) serve
+    that phases 9 and 10 ran against rank 0's measured collectives
+    (calls, payload) and launches (per kernel and body); phase 9 (a)'s
+    all-reduce also against ``predicted_train_comm``.  Phase 9 (c)'s MoE
+    serve routes by the data, which a dry run does not hold (it gives
+    every expert an equal share), so it is left out."""
+    ranks_of = {"9": sharded["ranks"]}
+    ranks_of.update({f"10 {job}": w["ranks"] for job, w in seq_ssm["worlds"].items()})
+    rows = []
+    for phase, plan, keys in _dry_worlds():
+        r0 = next(r for r in ranks_of[phase] if r["rank"] == 0)
+        costs, pred = dry["train"][phase]
+        sound = r0["train"]["sound"]
+        _check_dry(f"phase {phase} train {plan['train']['arch']} on {plan['mesh']}",
+                   _dry_totals([(costs, 1)]),
+                   _measured_totals(sound["comm"], sound["counts"]), rows)
+        if phase == "9":
+            got = {"all_reduce": costs.payload_bytes.get("all_reduce", 0),
+                   "all_gather": costs.payload_bytes.get("all_gather", 0)}
+            rows.append({"what": "phase 9 train against predicted_train_comm", "dry": got,
+                         "predicted": pred, "equal": got == pred})
+            log(f"[dryrun] phase 9 train: dry all-reduce {got['all_reduce'] / 1e6:.3f} MB, "
+                f"predicted_train_comm {pred['all_reduce'] / 1e6:.3f} MB")
+            if got != pred:
+                raise AssertionError(f"phase 9 train: dry run {got} != predicted {pred}")
+        for (ph, key, dt, rung), (pre, dec) in dry["serve"].items():
+            if ph != phase:
+                continue
+            part = plan[key]
+            run = r0[key]["runs"][f"{dt}/{rung}"]
+            _check_dry(f"phase {phase} {key} {part['arch']} {dt} rung {rung} on "
+                       f"{plan['mesh']} (prefill + {part['new']} decode steps)",
+                       _dry_totals([(pre, 1), (dec, part["new"])]),
+                       _measured_totals(run["comm"], run["counts"]), rows)
+    return rows
+
+
+def full_step_check(costs, device):
+    """(b): the step of ``_full_step`` run once on the card against its dry
+    run ``costs``: the predicted peak against ``max_memory_allocated``
+    (above what was allocated before the arguments), the dry K5 launches
+    against 2 x 28 and the launched ones, ``useful_flops_ratio`` against
+    the reference's limits, the roofline beside the step's wall and
+    device busy time."""
+    from repro_torch import tree
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun, step_analysis
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+
+    cfg, shape, _, step, specs = _full_step(device)
+    terms = step_analysis.roofline_terms(costs)
+    useful = dryrun.model_flops(cfg, shape) / costs.flops
+    k5_dry = costs.kernels.get("flash_attention", {}).get("dry_launches", 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_params(specs["model"].cfg, seed=0, device=device)
+    opt = adamw.init_state(params)
+    m_bytes = sum(t.numel() * t.element_size() for t in tree.leaves(opt.m))
+    batch = train_batch(cfg, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_counters()
+    (params, opt, metrics), wall, ev = _events(lambda: step(params, opt, batch, 50))
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    k5 = dispatch.COUNTERS["flash_attention"]
+    busy = sum(t for _, t in ev)
+    loss = metrics["loss"].item()
+    del params, opt, metrics, batch
+    torch.cuda.empty_cache()
+    gap = abs(costs.peak_bytes - measured) / measured
+    control = abs(costs.peak_bytes - m_bytes - measured) / measured
+    out = {"predicted_peak_bytes": costs.peak_bytes, "measured_peak_bytes": measured,
+           "peak_gap": gap, "control_without_m_gap": control, "m_bytes": m_bytes,
+           "argument_bytes": costs.argument_bytes, "k5_dry_launches": k5_dry,
+           "k5_launches": k5.launches, "k5_plain": k5.plain_launches,
+           "flops": costs.flops, "bytes": costs.bytes, "useful_flops_ratio": useful,
+           "roofline": terms, "wall_s": wall, "device_busy_ms": busy, "loss": loss,
+           "trace_s": costs.trace_s}
+    log(f"[dryrun] (b) qwen2-1.5b train 2x2048, 28 layers, world 1: predicted peak "
+        f"{costs.peak_bytes / 1e9:.3f} GB, measured {measured / 1e9:.3f} GB (gap {gap:.2e}, "
+        f"limit {DRY_PEAK_TOL}; control without m {control:.2e}); K5 dry {k5_dry}, "
+        f"launched {k5.launches}; {costs.flops / 1e12:.2f} TFLOP counted, useful "
+        f"{useful:.3f}; roofline compute {terms['compute_s'] * 1e3:.1f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.1f} ms, collective {terms['collective_s'] * 1e3:.1f} ms "
+        f"({terms['dominant']}) beside wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms; "
+        f"traced in {costs.trace_s:.1f}s")
+    for kind in ("bytes", "flops"):
+        top = step_analysis.top_contributors(costs, kind, 5)
+        out[f"top_{kind}"] = top
+        log(f"[dryrun] (b) top {kind}: " + "; ".join(
+            f"{op} at {where or 'its kernel'} {v / 1e9:.1f} G" for v, op, where in top))
+    if not gap <= DRY_PEAK_TOL < control:
+        raise AssertionError(f"(b) peak: gap {gap:.3e}, control {control:.3e}, limit "
+                             f"{DRY_PEAK_TOL}")
+    want = 2 * cfg.num_layers
+    if k5_dry != want or k5.launches != want or k5.plain_launches:
+        raise AssertionError(f"(b) K5: dry {k5_dry}, launched {k5.launches} ({k5.plain_launches}"
+                             f" plain), want {want}")
+    lo, hi = DRY_USEFUL_RANGE
+    if not lo < useful < hi:
+        raise AssertionError(f"(b) useful_flops_ratio {useful:.3f} outside ({lo}, {hi})")
+    return out
+
+
+def _counts_of(costs):
+    return {"flops": costs.flops, "bytes": costs.bytes,
+            "kernels": costs.kernels, "num_collectives": costs.num_collectives,
+            "payload_bytes": costs.payload_bytes, "per_collective": costs.per_collective}
+
+
+def phase_dryrun(dry, sharded, seq_ssm):
+    """Phase 11: the dry runs (``dry_runs``) held against what phases 8-10
+    measured; see the module docstring."""
+    t0 = time.perf_counter()
+    rows = dry_against_ranks(dry, sharded, seq_ssm)
+    full = full_step_check(dry["full"], DEVICE)
+    cpu, cuda = dry["cpu"], dry["train"]["9"][0]
+    same = _counts_of(cpu) == _counts_of(cuda)
+    log(f"[dryrun] (c) phase 9 train dry-run on cpu: {'the same' if same else 'other'} counts "
+        f"as on cuda ({cpu.flops / 1e12:.3f} TFLOP, {cpu.bytes / 1e9:.3f} GB; host-card "
+        f"copies {cpu.transfer_bytes:.0f} B on cpu, {cuda.transfer_bytes:.0f} B on cuda)")
+    if not same:
+        raise AssertionError(f"(c) cpu counts {_counts_of(cpu)} != cuda {_counts_of(cuda)}")
+    seconds = time.perf_counter() - t0
+    log(f"[dryrun] phase 11 took {seconds:.1f}s after {dry['seconds']:.1f}s of dry runs "
+        f"during phase 9 ({smi_line()})")
+    return {"checks": rows, "full_step": full, "device_independent": same,
+            "dry_runs_s": dry["seconds"], "seconds": seconds}
+
+
 def prefill_summary(rows, name, tc_launches):
     """K1-K3's ``prefill`` entry: one long prefill's 196 launches at
     M = 4096 bf16 on the tensor-core body (every main-path shape but the
@@ -4887,7 +5194,8 @@ def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, train_info, 
         sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == dtype]
         tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)
         t_bytes = sum(r["bytes"] * r["uses_per_forward"] for r in sel) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(r["ops"] * r["uses_per_forward"] for r in sel) / 989e12 * 1e3
+        t_ops = (sum(r["ops"] * r["uses_per_forward"] for r in sel)
+                 / PEAK_FLOPS[torch.bfloat16] * 1e3)
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name][0], "decode_launches": launches[name][1],
@@ -5030,9 +5338,12 @@ def main() -> int:
     train_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
-    sharded = phase_sharded()
+    dry_costs = {}
+    sharded = phase_sharded(during=lambda: dry_costs.update(dry_runs(DEVICE)))
     torch.cuda.empty_cache()
     seq_ssm = phase_seq_ssm_sharded()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(dry_costs, sharded, seq_ssm)
     launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
                          + sum(m["launches"][n][i] for m in ssm_info.values())
                          + train_info["launches"][n][i]
@@ -5068,7 +5379,7 @@ def main() -> int:
               "long_serve": long_info, "served_kv": served_kv,
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
-              "train": train_info, "sharded": sharded, "seq_ssm": seq_ssm,
+              "train": train_info, "sharded": sharded, "seq_ssm": seq_ssm, "dryrun": dry,
               "kernels": kernels, "decode_steps": steps,
               "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}

@@ -29,7 +29,7 @@ a ring all-reduce, ``n - 1`` parts received for an all-gather).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -43,6 +43,9 @@ class Count:
 
 
 COUNTS: Dict[str, Count] = {}
+# called as ``TALLY(op, payload, wire)`` beside each count where set (the
+# dry run's per-call-site tally, ``launch/step_analysis.py``)
+TALLY: Optional[Callable[[str, int, float], None]] = None
 
 
 def reset_counts() -> None:
@@ -63,6 +66,8 @@ def _count(op: str, payload: int, wire: float) -> None:
     c.calls += 1
     c.payload += payload
     c.wire += wire
+    if TALLY is not None:
+        TALLY(op, payload, wire)
 
 
 def _nbytes(x: torch.Tensor) -> int:

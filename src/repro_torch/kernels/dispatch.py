@@ -14,6 +14,18 @@ hold the kernels against.  It is never read from the environment, never
 entered on an error, and shows in the counters: each wrapper counts its
 kernel launches in ``launches`` and its plain runs in ``plain_launches``.
 
+An abstract tensor (:func:`is_abstract`: a ``FakeTensor`` on either
+device, or a meta tensor) has shapes and dtypes but no storage, so no
+kernel can run on it and no real tensor can take its route: the dry run
+(``launch/dryrun.py``) passes such tensors through the wrappers.  On one,
+a wrapper runs its operand checks, picks the route the card would take
+(:func:`matmul_route` asked for ``"cuda"``, the decode route once per
+group of at most ``DEC_MAX_M`` rows), allocates its outputs and
+workspace with ``torch.empty`` and counts the launch it would make in
+``dry_launches`` with the kernel's work from ``costs.py``
+(:func:`count_abstract`).  There is no build and no ctypes call on that
+route, and ``launches`` and ``plain_launches`` do not move.
+
 The weight matmuls (K1-K3) have three kernel bodies.  Which one a CUDA
 tensor takes is :func:`matmul_route`, a function of M and the dtype alone,
 decided before the launch: M <= ``DEC_MAX_M`` (decode) takes the decode
@@ -32,10 +44,14 @@ verify pass (B * (k + 1) rows) give a position the same logits.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+from . import costs
 
 
 @dataclass
@@ -47,6 +63,13 @@ class LaunchCounter:
     plain_launches: int = 0
     tc_launches: int = 0       # of ``launches``: those on the tensor-core body
     dec_launches: int = 0      # of ``launches``: those on the decode body
+    # launches on abstract tensors, split by body like ``launches``, and
+    # their work (``costs.py``)
+    dry_launches: int = 0
+    dry_tc_launches: int = 0
+    dry_dec_launches: int = 0
+    dry_flops: float = 0.0
+    dry_bytes: float = 0.0
 
 
 COUNTERS: Dict[str, LaunchCounter] = {}
@@ -58,10 +81,9 @@ def counter(name: str) -> LaunchCounter:
 
 def reset_counters() -> None:
     for c in COUNTERS.values():
-        c.launches = 0
-        c.plain_launches = 0
-        c.tc_launches = 0
-        c.dec_launches = 0
+        for f in dataclasses.fields(c):
+            if f.name != "name":
+                setattr(c, f.name, f.default)
 
 
 class _Route:
@@ -80,6 +102,12 @@ def reference_pass():
         yield
     finally:
         _route.reference = before
+
+
+def is_abstract(x: torch.Tensor) -> bool:
+    """True for a tensor without storage: a ``FakeTensor`` (whatever device
+    it names) or a meta tensor.  Checked before :func:`takes_kernel`."""
+    return isinstance(x, FakeTensor) or x.is_meta
 
 
 def takes_kernel(x: torch.Tensor) -> bool:
@@ -143,6 +171,25 @@ def count_launch(counter: LaunchCounter, route: str) -> None:
     counter.dec_launches += int(route == DECODE)
 
 
+def count_abstract(counter: LaunchCounter, route: str, cost) -> None:
+    """One launch the card would make on an abstract tensor, and its work
+    ``cost`` = (bytes, operations)."""
+    counter.dry_launches += 1
+    counter.dry_tc_launches += int(route == TENSOR_CORE)
+    counter.dry_dec_launches += int(route == DECODE)
+    counter.dry_bytes += cost[0]
+    counter.dry_flops += cost[1]
+
+
+def abstract_route(x: torch.Tensor, route) -> str:
+    """:func:`kernel_route` of an abstract (M, K) activation as the card
+    would take it: a named route as given (checked alike), else
+    :func:`matmul_route` asked for ``"cuda"``."""
+    if route is None:
+        return matmul_route(x.shape[0], x.dtype, "cuda")
+    return kernel_route(x, route)
+
+
 # The decode body's instantiations: one per (streams, rows) with rows in
 # ``DEC_ROWS``; a launch of M rows runs the instantiation of ``dec_rows(M)``
 # (``dec_mb`` in csrc/nest_matmul.cu, which the library reports through
@@ -173,6 +220,27 @@ def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
         count_launch(counter, route)
         if route == DECODE:
             DEC_INSTANCES.add((streams, dec_rows(rows.shape[0])))
+    return out
+
+
+def launch_abstract(x: torch.Tensor, N: int, out_dtype, route: str,
+                    counter: LaunchCounter, streams, block: int) -> torch.Tensor:
+    """:func:`launch_matmul` on an abstract x: the (M, N) output and, per
+    launch, the CUDA-core body's (nk, rows, N) f32 partials as
+    ``build.stream_matmul_buffers`` allocates them (the decode body's
+    partials are sized by the library from the card's SM count, and are
+    left out), each launch counted with :func:`costs.matmul_cost`."""
+    M, K = x.shape
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    step = DEC_MAX_M if route == DECODE else M
+    nk = -(-K // block)
+    for g in range(0, M, step):
+        rows = x[g:g + step]
+        if route == CUDA_CORE and nk > 1:     # held for the launch, as on the card
+            partial = torch.empty((nk, rows.shape[0], N), dtype=torch.float32,
+                                  device=x.device)
+            del partial
+        count_abstract(counter, route, costs.matmul_cost(rows, streams, N, out_dtype))
     return out
 
 

@@ -16,8 +16,9 @@ from typing import Tuple
 
 import torch
 
+from ...core.packing import blocked_rows
 from ...core.quantizer import int_range
-from .. import dispatch
+from .. import costs, dispatch
 from . import kernel, ref
 
 COUNTER = dispatch.counter("nested_qk")
@@ -37,8 +38,14 @@ def quantize_q(q, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def ladder_qk_scores(q_codes, streams, *, bits, page: int) -> torch.Tensor:
     """Raw int32 scores (BH, M, npages * page) over packed nested K pages.
     A CUDA tensor launches K4 (or raises); a CPU tensor runs the plain
-    version."""
+    version; an abstract tensor counts the launch the card would make."""
     streams, bits = tuple(streams), ref.resident_bits(bits)
+    if dispatch.is_abstract(q_codes):
+        dispatch.check_qk_operands(q_codes, streams, bits, page)
+        BH, M, _ = q_codes.shape
+        S = streams[0].shape[1] // blocked_rows(page, bits[0]) * page
+        dispatch.count_abstract(COUNTER, "cuda", costs.qk_cost(q_codes, streams, S))
+        return torch.empty((BH, M, S), dtype=torch.int32, device=q_codes.device)
     if dispatch.takes_kernel(q_codes):
         dispatch.check_qk_operands(q_codes, streams, bits, page)
         out = kernel.nested_qk(q_codes, streams, bits=bits, page=page)

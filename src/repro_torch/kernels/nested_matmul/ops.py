@@ -1,5 +1,7 @@
 """Public wrappers of the dual-stream (K2) and ladder (K3) matmuls: device
-dispatch; counterpart of ``repro/kernels/nested_matmul/ops.py``."""
+dispatch; counterpart of ``repro/kernels/nested_matmul/ops.py``.  An
+abstract tensor (``dispatch.is_abstract``) takes neither: each wrapper
+counts the launches the card would make (``dispatch.launch_abstract``)."""
 from __future__ import annotations
 
 from .. import dispatch
@@ -19,7 +21,13 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
-    if dispatch.takes_kernel(x2):
+    if dispatch.is_abstract(x2):
+        route = dispatch.abstract_route(x2, route)
+        dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
+                                K=K, block=block_k, out_dtype=out_dtype)
+        y = dispatch.launch_abstract(x2, words_high.shape[1], out_dtype, route,
+                                     NESTED_COUNTER, (words_high, words_low), block_k)
+    elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
                                 K=K, block=block_k, out_dtype=out_dtype)
@@ -47,7 +55,13 @@ def ladder_matmul(x, streams, scale, *, bits, K: int,
     streams, bits = tuple(streams), tuple(bits)
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
-    if dispatch.takes_kernel(x2):
+    if dispatch.is_abstract(x2):
+        route = dispatch.abstract_route(x2, route)
+        dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
+                                out_dtype=out_dtype)
+        y = dispatch.launch_abstract(x2, streams[0].shape[1], out_dtype, route,
+                                     LADDER_COUNTER, streams, block_k)
+    elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
                                 out_dtype=out_dtype)

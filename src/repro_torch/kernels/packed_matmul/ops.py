@@ -40,11 +40,18 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
     kernel (or raises on operands it does not take) on the body
     ``dispatch.kernel_route`` picks - by M and dtype, or ``route`` where
     the chip check, a test or the decode phase (``DECODE``) names
-    one; a CPU tensor runs the plain version."""
+    one; a CPU tensor runs the plain version; an abstract tensor
+    (``dispatch.is_abstract``) counts the launches the card would make."""
     out_dtype = out_dtype or x.dtype
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
-    if dispatch.takes_kernel(x2):
+    if dispatch.is_abstract(x2):
+        route = dispatch.abstract_route(x2, route)
+        dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,
+                                out_dtype=out_dtype)
+        y = dispatch.launch_abstract(x2, words.shape[1], out_dtype, route, COUNTER,
+                                     (words,), block_k)
+    elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,
                                 out_dtype=out_dtype)

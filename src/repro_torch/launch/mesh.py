@@ -15,11 +15,15 @@ together, every axis alone, ...).  The backend is always the caller's:
 (axis names and sizes, no process group): the spec functions of
 ``distributed/sharding.py`` take either, so they run in one process, and
 a mesh whose every axis has size 1 runs the sharded steps without any
-process group at all (the one-card control).
+process group at all (the one-card control).  :func:`fake_world` and
+:func:`make_fake_mesh` give rank 0 of a production-sized world inside
+one process, for the dry run.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import sys
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -79,14 +83,19 @@ class MeshShape:
 class Mesh(MeshShape):
     """A mesh over the ranks of the default process group (``world size =
     prod(shape)``), built with ``init_device_mesh``; ``device`` is this
-    rank's device."""
+    rank's device: the card current in this process for ``device_type``
+    "cuda" unless ``device`` names it (a fake world's mesh names it: its
+    tensors need no card)."""
 
-    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], device_type: str):
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], device_type: str,
+                 device=None):
         from torch.distributed.device_mesh import init_device_mesh
 
         self.device_mesh = init_device_mesh(device_type, tuple(shape),
                                             mesh_dim_names=tuple(axis_names))
-        if device_type == "cuda":
+        if device is not None:
+            device = torch.device(device)
+        elif device_type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         else:
             device = torch.device(device_type)
@@ -155,10 +164,52 @@ def init_world(backend: str, *, init_method: Optional[str] = None,
     dist.init_process_group(backend=backend, **kw)
 
 
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """Inside this block this process is rank 0 of a world of
+    ``world_size`` ranks that exist nowhere else: torch's ``"fake"``
+    process-group backend, whose collectives return at once and move
+    nothing (the dry run's world, ``launch/dryrun.py``).  Refuses to start
+    inside a running process group; the group is destroyed on the way
+    out."""
+    import torch.distributed as dist
+    # torch's own fake backend: importing the module registers "fake"
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError(f"a process group of {dist.get_world_size()} ranks "
+                           f"({dist.get_backend()!r}) runs already; a fake world starts "
+                           "only outside one")
+    hook = sys.excepthook           # init_process_group wraps it with a rank prefix
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        sys.excepthook = hook
+
+
+def make_fake_mesh(shape, axes, device) -> Mesh:
+    """Rank 0's mesh of ``shape`` over a running :func:`fake_world` of
+    ``prod(shape)`` ranks, its tensors on ``device`` (which needs no card:
+    the dry run's tensors are fake)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("make_fake_mesh needs a running fake_world")
+    return Mesh(shape, axes, "cpu", device=device)
+
+
+def production_shape(multi_pod: bool):
+    """(shape, axis names) of the production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, backend: str,
                          device_type: str = "cuda", **world) -> Mesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_shape(multi_pod)
     init_world(backend, **world)
     return Mesh(shape, axes, device_type)
 

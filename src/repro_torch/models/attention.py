@@ -150,7 +150,8 @@ class BlockwiseAttention(torch.autograd.Function):
     """Flash-semantics attention with a blockwise backward: the counterpart
     of the reference's ``custom_vjp`` pair ``_flash_fwd`` / ``_flash_bwd``.
 
-    Forward: a CUDA tensor launches K5 with its row statistics (or raises);
+    Forward: a CUDA tensor launches K5 with its row statistics (or raises),
+    as an abstract tensor counts that launch (``dispatch.is_abstract``);
     a CPU tensor, or any tensor inside ``dispatch.reference_pass``, runs
     the plain blockwise forward.  Either way o and the f32 (m, l) are
     saved.  A Skv that is no multiple of ``kv_block`` takes direct
@@ -161,7 +162,7 @@ class BlockwiseAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, kv_block: int, q_offset: int = 0):
-        if dispatch.takes_kernel(q):
+        if dispatch.is_abstract(q) or dispatch.takes_kernel(q):
             if not causal:
                 raise ValueError("K5 is causal attention; a non-causal call on the card "
                                  "has no kernel")

@@ -105,7 +105,12 @@ def _dispatch(probs, gate_vals, expert_idx, *, E: int, C: int,
     tok = torch.arange(T, device=ef.device).repeat_interleave(K)
     order = torch.sort(ef, stable=True).indices
     st, sg = tok[order], gate_vals.reshape(T * K)[order]
-    counts = torch.bincount(ef, minlength=E).tolist()
+    if dispatch.is_abstract(ef):
+        # abstract tensors (the dry run) hold no expert choices: every
+        # expert takes an equal share of the T * K assignments
+        counts = [T * K // E + int(e < T * K % E) for e in range(E)]
+    else:
+        counts = torch.bincount(ef, minlength=E).tolist()
     # sorted by expert, each expert's assignments are one run in token
     # order; position-in-expert pos < C keeps the run's first C
     groups, start = [], 0

@@ -231,6 +231,30 @@ def test_train_collectives_are_counted(worlds):
     assert counts["all_reduce"]["calls"] > 0 and counts["all_reduce"]["wire_bytes"] > 0
 
 
+@pytest.mark.parametrize("run,dims,cfg", [
+    ("train_2x2", (2, 2), lambda: get_config("qwen2-1.5b").reduced()),
+    ("seq_1x4", (1, 4), lambda: td.sp_config(6, 3))])
+def test_dry_run_counts_the_gloo_worlds_collectives(worlds, run, dims, cfg):
+    """The dry run of one train step (rank 0 of a fake world of 4 ranks,
+    fake tensors, ``launch/step_analysis.py``) gives rank 0's measured
+    calls and payload bytes of every collective in the gloo world: head-TP
+    on (2, 2), sequence-parallel attention on (1, 4)."""
+    from repro_torch.launch import step_analysis
+    from repro_torch.launch.dryrun import train_args
+    from repro_torch.launch.mesh import fake_world, make_fake_mesh
+
+    shape = ShapeConfig("t", "train", td.TRAIN_SEQ, td.TRAIN_BATCH, microbatch=td.TRAIN_MICRO)
+    with fake_world(4):
+        mesh = make_fake_mesh(dims, ("data", "model"), "cpu")
+        step, specs = steps.build_train_step(cfg(), shape, mesh)
+        costs = step_analysis.analyze(step, train_args(specs["model"].cfg, shape, mesh, specs),
+                                      mesh, "cpu", memory=False)
+    measured = worlds["cpu4"][0]["step_comm"][run]
+    assert {op: (c["calls"], c["payload_bytes"]) for op, c in measured.items()} == \
+        {op: (n, costs.payload_bytes[op]) for op, n in costs.num_collectives.items()}
+    assert ("all_gather" in measured) == (run == "seq_1x4")     # the o rows gathered
+
+
 @pytest.mark.parametrize("run", ["decode", "decode_nested", "moe_serve"])
 def test_sharded_serve_matches_the_reference(worlds, run):
     want_logits, want_tokens = worlds["refs"][run]

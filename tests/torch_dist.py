@@ -486,6 +486,33 @@ def job_ssm4(p, rank, workdir, device):
     return out
 
 
+def step_comm(mesh, cfg, device, seq=TRAIN_SEQ):
+    """The collectives (``comm.counts()``) of one sharded train step of
+    ``cfg`` (``TRAIN_BATCH`` x ``seq`` in microbatches of ``TRAIN_MICRO``)
+    from a seeded init: what the dry run of the step must count."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed import comm, steps
+    from repro_torch.distributed.sharding import local_shard, shard_tree
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+
+    shape = ShapeConfig("t", "train", seq, TRAIN_BATCH, microbatch=TRAIN_MICRO)
+    step, specs = steps.build_train_step(cfg, shape, mesh)
+    full = init_params(dataclasses.replace(cfg, dtype="bfloat16"), seed=0, device=device)
+    params = shard_tree(full, specs["params"], mesh)
+    opt = adamw.init_state(params)
+    batch = to_device(SyntheticLM(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH), 0, 1).batch(0),
+                      device)
+    batch = {k: local_shard(v, specs["batch"][k], mesh) for k, v in batch.items()}
+    comm.reset_counts()
+    step(params, opt, batch, TRAIN_STEPS[0])
+    return comm.counts()
+
+
 def job_cpu4(p, rank, workdir, device):
     from repro_torch.configs import get_config
     from repro_torch.distributed import comm
@@ -505,6 +532,10 @@ def job_cpu4(p, rank, workdir, device):
     out["moe_serve"] = moe_serve_run(p, m22)
     out["compress"] = compress_run(p, rank)
     out["ckpt"] = ckpt_run(p, workdir, meshes)
+    # one step's collectives, for the dry run: head-TP on (2, 2), and
+    # sequence-parallel attention on (1, 4) (6 heads do not divide 4)
+    out["step_comm"] = {"train_2x2": step_comm(m22, cfg, device),
+                        "seq_1x4": step_comm(meshes[(1, 4)], sp_config(6, 3), device)}
     return out
 
 
