@@ -263,19 +263,24 @@ Phases (each raises on failure; the script then exits non-zero):
    serve limits.
 
 11. The dry run (phase 11, ``phase_dryrun``, in the main process):
-   ``launch/step_analysis.py`` runs a step once as rank 0 of a fake world
-   over fake CUDA tensors (nothing launched; each kernel wrapper counts
-   the launches the card would make) and counts its FLOPs, bytes,
-   collectives, launches and peak memory.  The dry runs need the plans
-   alone and are traced while phase 9's rank processes run (``dry_runs``);
-   the checks follow phase 10.  (a) Every train step and every
+   ``launch/step_analysis.py`` runs a step once as one rank (rank 0 unless
+   said) of a fake world over fake CUDA tensors (nothing launched; each
+   kernel wrapper counts the launches the card would make) and counts its
+   FLOPs, bytes, collectives, launches and peak memory.  The dry runs need
+   the plans alone and are traced while nvcc builds the kernels
+   (``dry_runs``); the checks follow phase 10.  (a) Every train step and every
    (dtype, rung) serve (the prefill with the decode cache's fill, and one
    decode step times the run's steps) that phases 9 and 10 ran, at their
    configs, shapes and meshes: the calls and payload bytes of each
    collective and the launches of each kernel on each body equal rank 0's
    measured counts exactly, and phase 9 (a)'s all-reduce also
    ``predicted_train_comm`` (phase 9 (c)'s MoE serve routes by the data,
-   which a dry run does not hold, and is left out).  (b) The world-1
+   which a dry run does not hold, and is left out).  Phase 10's (1, 8)
+   world, (a) and (b), is also dry-run as its last model rank
+   (``dry_runs_last``), whose query block sits at the largest offset and
+   which holds the decode steps' positions:
+   its counts equal rank 7's measured ones, and its K5 FLOPs equal
+   ``flash_cost`` at offset 7 x 256 for each launch.  (b) The world-1
    train step of qwen2-1.5b at all 28 layers, 2 x 2048 in one
    microbatch: dry-run, then run once on the card; the predicted peak
    within ``DRY_PEAK_TOL`` of ``max_memory_allocated`` (above what was
@@ -533,13 +538,22 @@ def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
     return rows
 
 
-def phase_kernels(cfg, gen):
+def phase_kernels(cfg, gen, during=None):
+    """Phase 1's rows; the kernels build first, and ``during`` (no
+    arguments) runs in this process while nvcc's processes do."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core.nesting import nest_quantize
     from repro_torch.kernels import build, dispatch
 
     t0 = time.time()
-    build.build_all()
-    log(f"[build] nvcc sm_90a in {time.time() - t0:.1f}s")
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(lambda: (build.build_all(), time.time() - t0)[1])
+        if during is not None:
+            during()
+        build_s = built.result()
+    log(f"[build] nvcc sm_90a in {build_s:.1f}s ({time.time() - t0:.1f}s with what ran "
+        f"meanwhile)")
     for source, text in build.build_logs.items():
         log(f"[build] ptxas report for {source}:\n{text.strip()}")
     rows = []
@@ -4578,11 +4592,10 @@ def check_sharded(ranks, plan):
                                  f"{mo['worst']:.3e}")
 
 
-def phase_sharded(during=None):
+def phase_sharded():
     """Phase 9: the sharded train, nested serve and MoE serve on a (2, 2)
     mesh of four gloo rank processes sharing the card, against the world-1
-    steps on the same card; see the module docstring.  ``during`` (a
-    callable) runs in this process while the ranks do."""
+    steps on the same card; see the module docstring."""
     import shutil
 
     t0 = time.perf_counter()
@@ -4595,14 +4608,7 @@ def phase_sharded(during=None):
         (work / "plan.json").write_text(json.dumps(plan))
         w1 = sharded_world1(plan, work)
         t_ranks = time.perf_counter()
-        started = start_ranks(work, world)
-        try:
-            if during is not None:
-                during()
-        except BaseException:
-            _stop(started[1])
-            raise
-        ranks = wait_ranks(started)
+        ranks = run_ranks(work, world)
         ranks_s = time.perf_counter() - t_ranks
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4880,31 +4886,31 @@ DRY_USEFUL_RANGE = (0.25, 1.5)
 
 
 @contextlib.contextmanager
-def _dry_mesh(dims, device):
-    """Rank 0's mesh of ``dims`` (data, model) in a fake world."""
+def _dry_mesh(dims, device, rank=0):
+    """Rank ``rank``'s mesh of ``dims`` (data, model) in a fake world."""
     from repro_torch.launch.mesh import fake_world, make_fake_mesh
 
-    with fake_world(math.prod(dims)):
+    with fake_world(math.prod(dims), rank=rank):
         yield make_fake_mesh(tuple(dims), ("data", "model"), device)
 
 
-def dry_train(plan, key, device):
-    """(rank 0's ``StepCosts`` of a train part's step on the plan's mesh,
-    memory not tracked, and ``predicted_train_comm`` of it)."""
+def dry_train(plan, key, device, rank=0):
+    """(rank ``rank``'s ``StepCosts`` of a train part's step on the plan's
+    mesh, memory not tracked, and ``predicted_train_comm`` of it)."""
     from repro_torch.distributed import steps
     from repro_torch.launch import dryrun, step_analysis
 
     cfg, shape = _train_shape(plan, key)
-    with _dry_mesh(plan["mesh"], device) as mesh:
+    with _dry_mesh(plan["mesh"], device, rank) as mesh:
         step, specs = steps.build_train_step(cfg, shape, mesh)
         args = dryrun.train_args(specs["model"].cfg, shape, mesh, specs, plan[key]["step"])
         costs = step_analysis.analyze(step, args, mesh, device, memory=False)
         return costs, predicted_train_comm(cfg, shape, mesh, specs["params"])
 
 
-def dry_serve(plan, key, dtype, rung, device):
-    """Rank 0's ``StepCosts`` of one (dtype, rung) serve of a part: the
-    prefill with the decode cache's fill (``sharded_prefill``), and one
+def dry_serve(plan, key, dtype, rung, device, rank=0):
+    """Rank ``rank``'s ``StepCosts`` of one (dtype, rung) serve of a part:
+    the prefill with the decode cache's fill (``sharded_prefill``), and one
     decode step at the prompt's end (the run makes ``new`` of those);
     memory not tracked."""
     from repro_torch.core.nesting import set_tree_rung
@@ -4914,7 +4920,7 @@ def dry_serve(plan, key, dtype, rung, device):
     part = plan[key]
     cfg = dataclasses.replace(_plan_config(part), compute_dtype=dtype)
     pshape, dshape = _serve_shapes(part)
-    with _dry_mesh(plan["mesh"], device) as mesh:
+    with _dry_mesh(plan["mesh"], device, rank) as mesh:
         prefill, ps, decode, ds = _serve_steps(cfg, part, mesh)
         pre_params, inputs = dryrun.prefill_args(
             cfg, pshape, mesh, ps, set_tree_rung(ps["abstract_params"], rung))
@@ -4956,12 +4962,33 @@ def _measured_totals(comm_counts, k_totals):
     return comm, kern
 
 
-def _check_dry(tag, dry, measured, rows):
-    rows.append({"what": tag, "dry": dry, "measured": measured, "equal": dry == measured})
+def _check_dry(tag, dry, measured, rows, rank=0):
+    rows.append({"what": tag, "rank": rank, "dry": dry, "measured": measured,
+                 "equal": dry == measured})
     log(f"[dryrun] {tag}: collectives {dry[0]}, kernels {dry[1]}; measured "
         f"{'the same' if dry == measured else measured}")
     if dry != measured:
-        raise AssertionError(f"{tag}: dry run {dry} differs from rank 0's measured {measured}")
+        raise AssertionError(f"{tag}: dry run {dry} differs from rank {rank}'s measured "
+                             f"{measured}")
+
+
+def _check_k5_offset(tag, costs, cfg, batch, seq, rank, blocks, rows):
+    """K5's dry FLOPs of rank ``rank`` of sequence-parallel attention (query
+    block ``rank`` of ``blocks``) against ``flash_cost`` at the block's
+    offset, for each of its launches."""
+    from repro_torch.kernels import costs as card
+
+    n = -(-seq // blocks)
+    q = torch.empty(batch, n, cfg.num_heads, cfg.head_dim, device="meta")
+    k = torch.empty(batch, seq, cfg.num_kv_heads, cfg.head_dim, device="meta")
+    k5 = costs.kernels["flash_attention"]
+    want = k5["dry_launches"] * card.flash_cost(q, k, q_offset=rank * n)[1]
+    rows.append({"what": f"{tag}: K5 FLOPs at offset {rank * n}", "rank": rank,
+                 "dry": k5["flops"], "flash_cost": want, "equal": k5["flops"] == want})
+    log(f"[dryrun] {tag}: K5 {k5['dry_launches']} launches, {k5['flops'] / 1e12:.4f} TFLOP "
+        f"dry, flash_cost at offset {rank * n} {want / 1e12:.4f} TFLOP")
+    if k5["flops"] != want:
+        raise AssertionError(f"{tag}: K5 dry FLOPs {k5['flops']} != flash_cost {want}")
 
 
 def _dry_worlds():
@@ -4988,10 +5015,10 @@ def _full_step(device):
 
 def dry_runs(device):
     """Every dry run of phase 11, from the plans alone (no measurement
-    needed; ``main`` traces them while phase 9's rank processes run and
-    the main process would wait): each world's train step, each (dtype,
-    rung) serve, (b)'s step with memory tracked and phase 9's train step
-    again on fake CPU tensors."""
+    needed; ``main`` traces them while nvcc builds the kernels and the main
+    process would wait): each world's train step, each (dtype, rung) serve,
+    phase 10's (1, 8) world as its last model rank, (b)'s step with memory
+    tracked and phase 9's train step again on fake CPU tensors."""
     from repro_torch.launch import dryrun, step_analysis
 
     t0 = time.perf_counter()
@@ -5003,12 +5030,30 @@ def dry_runs(device):
             for dt in part["dtypes"]:
                 for rung in _rungs(part, dt):
                     out["serve"][(phase, key, dt, rung)] = dry_serve(plan, key, dt, rung, device)
+    out["last"] = dry_runs_last(device)
     cfg, shape, one, step, specs = _full_step(device)
     out["full"] = step_analysis.analyze(
         step, dryrun.train_args(specs["model"].cfg, shape, one, specs, 50), one, device)
     out["cpu"] = dry_train(sharded_plan(), "train", "cpu")[0]
     out["seconds"] = time.perf_counter() - t0
     log(f"[dryrun] the dry runs traced in {out['seconds']:.1f}s")
+    return out
+
+
+def dry_runs_last(device):
+    """Phase 10's (1, 8) world dry-run as its last model rank (its query
+    block at the largest offset; in the serve, the rank that holds the
+    decode steps' positions): the train step and each (dtype, rung) serve."""
+    t0 = time.perf_counter()
+    plan = seq_ssm_plans()["seq"]
+    rank = plan["mesh"][1] - 1                  # data row 0's last model rank
+    out = {"rank": rank, "train": dry_train(plan, "train", device, rank)[0], "serve": {}}
+    part = plan["serve"]
+    for dt in part["dtypes"]:
+        for rung in _rungs(part, dt):
+            out["serve"][(dt, rung)] = dry_serve(plan, "serve", dt, rung, device, rank)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 10's last model rank traced in {out['seconds']:.1f}s")
     return out
 
 
@@ -5047,6 +5092,37 @@ def dry_against_ranks(dry, sharded, seq_ssm):
                        f"{plan['mesh']} (prefill + {part['new']} decode steps)",
                        _dry_totals([(pre, 1), (dec, part["new"])]),
                        _measured_totals(run["comm"], run["counts"]), rows)
+    rows += dry_last_against_rank(dry["last"], seq_ssm)
+    return rows
+
+
+def dry_last_against_rank(last, seq_ssm):
+    """(a) for phase 10's (1, 8) world as its last model rank: the dry runs
+    of ``dry_runs_last`` against that rank's measured collectives and
+    launches, and K5's dry FLOPs against ``flash_cost`` at the rank's
+    query offset (the train step's launches, forward and recompute, and
+    the prefill's)."""
+    plan = seq_ssm_plans()["seq"]
+    rank, blocks = last["rank"], plan["mesh"][1]
+    measured = next(r for r in seq_ssm["worlds"]["seq"]["ranks"] if r["rank"] == rank)
+    rows = []
+    cfg, shape = _train_shape(plan)
+    sound = measured["train"]["sound"]
+    tag = f"phase 10 seq train {plan['train']['arch']} on {plan['mesh']} as rank {rank}"
+    _check_dry(tag, _dry_totals([(last["train"], 1)]),
+               _measured_totals(sound["comm"], sound["counts"]), rows, rank)
+    _check_k5_offset(tag, last["train"], cfg, shape.microbatch, shape.seq_len, rank, blocks,
+                     rows)
+    part = plan["serve"]
+    for (dt, rung), (pre, dec) in last["serve"].items():
+        run = measured["serve"]["runs"][f"{dt}/{rung}"]
+        tag = (f"phase 10 seq serve {part['arch']} {dt} rung {rung} on {plan['mesh']} as "
+               f"rank {rank}")
+        _check_dry(f"{tag} (prefill + {part['new']} decode steps)",
+                   _dry_totals([(pre, 1), (dec, part["new"])]),
+                   _measured_totals(run["comm"], run["counts"]), rows, rank)
+        _check_k5_offset(f"{tag} prefill", pre, _plan_config(part), part["batch"],
+                         part["prompt"], rank, blocks, rows)
     return rows
 
 
@@ -5141,7 +5217,7 @@ def phase_dryrun(dry, sharded, seq_ssm):
         raise AssertionError(f"(c) cpu counts {_counts_of(cpu)} != cuda {_counts_of(cuda)}")
     seconds = time.perf_counter() - t0
     log(f"[dryrun] phase 11 took {seconds:.1f}s after {dry['seconds']:.1f}s of dry runs "
-        f"during phase 9 ({smi_line()})")
+        f"during the kernels' build ({smi_line()})")
     return {"checks": rows, "full_step": full, "device_independent": same,
             "dry_runs_s": dry["seconds"], "seconds": seconds}
 
@@ -5294,7 +5370,9 @@ def main() -> int:
     cfg = get_config("qwen2-1.5b")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     t_start = time.time()
-    rows = phase_kernels(cfg, gen)
+    # phase 11's dry runs need the plans alone: they trace while nvcc builds
+    dry_costs = {}
+    rows = phase_kernels(cfg, gen, during=lambda: dry_costs.update(dry_runs(DEVICE)))
     kv_rows = phase_kv_kernels(cfg, gen)
     engine, store, phases, launches = phase_serve(cfg)
     profile_info = phase_profile(engine, store, cfg, packed_linears_per_forward(store))
@@ -5338,8 +5416,7 @@ def main() -> int:
     train_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
-    dry_costs = {}
-    sharded = phase_sharded(during=lambda: dry_costs.update(dry_runs(DEVICE)))
+    sharded = phase_sharded()
     torch.cuda.empty_cache()
     seq_ssm = phase_seq_ssm_sharded()
     torch.cuda.empty_cache()

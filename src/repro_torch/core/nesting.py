@@ -17,7 +17,7 @@ import torch
 from .. import tree
 from . import packing
 from .decompose import (chain_decompose, chain_recompose, delta_bits,
-                        normalize_bits, recompose, split_high)
+                        ladder_gaps, normalize_bits, recompose, split_high)
 from .quantizer import dequantize, int_range
 from .squant import adaptive_round
 
@@ -76,6 +76,10 @@ class NestedTensor:
         rung = check_rung(rung, self.num_rungs)
         return self if rung == self.rung else self._replace(rung=rung)
 
+    def with_mode(self, mode: str) -> "NestedTensor":
+        """Two-level name: 'full' = top rung, 'part' = base rung."""
+        return self.with_rung(mode_to_rung(mode, self.num_rungs))
+
     @property
     def resident_levels(self) -> int:
         """Leading delta streams actually present."""
@@ -105,8 +109,31 @@ class NestedTensor:
         return self.bits[0]
 
     @property
+    def l(self) -> int:  # noqa: E743 - the paper's name for n - h
+        return self.n - self.h
+
+    @property
+    def gaps(self) -> Tuple[int, ...]:
+        return ladder_gaps(self.bits)
+
+    @property
     def K(self) -> int:
         return self.shape[-2]
+
+    def _two_level(self, name: str) -> None:
+        if len(self.deltas) != 1:
+            raise ValueError(f"{name} is ambiguous on a {self.num_rungs}-rung ladder")
+
+    @property
+    def w_high(self) -> torch.Tensor:
+        """Two-level name of the packed base stream."""
+        return self.w_base
+
+    @property
+    def w_low(self) -> torch.Tensor:
+        """Two-level name of a 2-rung tensor's one delta stream."""
+        self._two_level("w_low")
+        return self.deltas[0]
 
     @property
     def device(self) -> torch.device:
@@ -115,6 +142,11 @@ class NestedTensor:
     def rung_scale(self, rung: int) -> torch.Tensor:
         """Per-rung dequant scale s * 2^(n - bits[rung]) (Eq. 10 per rung)."""
         return self.scale * (2.0 ** (self.bits[-1] - self.bits[rung]))
+
+    @property
+    def part_scale(self) -> torch.Tensor:
+        """The part-bit (base rung) scale s * 2^l (Eq. 10)."""
+        return self.rung_scale(0)
 
     # -- views and placement --------------------------------------------------
     def layer(self, i: int) -> "NestedTensor":
@@ -180,14 +212,32 @@ class NestedTensor:
                                [self.codes_delta(i) for i in range(rung)],
                                self.bits, rung)
 
+    def codes_high(self) -> torch.Tensor:
+        return self.codes_base()
+
+    def codes_low(self) -> torch.Tensor:
+        self._two_level("codes_low")
+        return self.codes_delta(0)
+
+    def codes_full(self) -> torch.Tensor:
+        return self.codes_at(self.top)
+
     def rung_weight(self, rung: int, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantized rung-``rung`` weight: s * 2^(n-b_r) * codes_at(r)."""
         rung = check_rung(rung, self.num_rungs)
         return dequantize(self.codes_at(rung), self.rung_scale(rung), dtype)
 
+    def part_bit(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Dequantized base-rung weight: s * 2^l * base codes (Eq. 10)."""
+        return self.rung_weight(0, dtype)
+
     def full_bit(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantized top-rung weight (every delta stream resident)."""
         return self.rung_weight(self.top, dtype)
+
+    def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Dequantized weight at the stamped serving rung."""
+        return self.rung_weight(self.rung, dtype)
 
     def gather_rows(self, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         """Dequantized logical rows ``idx`` along the packed K axis, read
@@ -426,6 +476,13 @@ def set_tree_rung(nested_params, rung):
             return x.with_rung(min(check_rung(rung[path], depth), x.top))
         return x
     return tree.map_with_path(stamp, nested_params)
+
+
+def set_tree_mode(nested_params, mode: str):
+    """Two-level name of :func:`set_tree_rung`: 'full' stamps each leaf's
+    top rung, 'part' its base rung."""
+    return tree.map_with_path(
+        lambda _, x: x.with_mode(mode) if _is_nested(x) else x, nested_params)
 
 
 def _fp_nbytes(x) -> int:

@@ -1,7 +1,14 @@
-"""Packed-bit tensors: the blocked exact-bit layout the matmul kernels read
-(counterpart of ``repro/core/packing.py``; the words are bit-identical).
+"""Packed-bit tensors (counterpart of ``repro/core/packing.py``; the words
+are bit-identical).  Two layouts:
 
-Along the packing axis K is tiled into blocks of ``block`` elements.
+* :func:`pack` / :func:`unpack`: flat slot-major over the whole axis.
+  With R = ceil(K / (32 // k)) word rows, word r holds elements r, r + R,
+  r + 2R, ...; exact for k in {1, 2, 4, 8}, up to 32 % k bits of a word
+  unused otherwise.
+* :func:`pack_blocked` / :func:`unpack_blocked`: the blocked exact-bit
+  layout the matmul kernels read.
+
+In the blocked layout, K is tiled into blocks of ``block`` elements.
 Within a block the k-bit field is split into power-of-two-width
 components (7 = 4+2+1), widest first; each component of width w is
 packed slot-major: with R = ceil(block / (32 // w)) word rows, element p
@@ -37,6 +44,12 @@ def per_word(k: int) -> int:
 
 def packed_rows(K: int, k: int) -> int:
     return math.ceil(K / per_word(k))
+
+
+def packed_nbytes(shape: Tuple[int, ...], k: int, axis: int = 0) -> int:
+    """Bytes of the flat packed representation of an int tensor of ``shape``."""
+    rest = math.prod(shape) // shape[axis]
+    return packed_rows(shape[axis], k) * rest * 4
 
 
 def bit_components(k: int) -> Tuple[int, ...]:
@@ -95,11 +108,21 @@ def _pack_words(fields: torch.Tensor, k: int) -> torch.Tensor:
     return _to_i32(word)
 
 
-def _unpack_words(u: torch.Tensor, k: int, count: int) -> torch.Tensor:
+def _fields(u: torch.Tensor, k: int, count: int) -> torch.Tensor:
     """(R, ...) unsigned int64 words -> (count, ...) int64 fields."""
     mask = (1 << k) - 1
     parts = [(u >> (j * k)) & mask for j in range(per_word(k))]
     return torch.cat(parts, dim=0)[:count]
+
+
+def unpack_words(words: torch.Tensor, k: int, count: int,
+                 signed: bool = True) -> torch.Tensor:
+    """Slot-major shift/mask unpack along axis 0: (R, ...) int32 words ->
+    (count, ...) int32 codes, sign-extended when ``signed``; count <= R *
+    per_word(k).  (Unsigned fields of 32 bits wrap to int32, as the
+    reference's uint32 fields cast to int32 do.)"""
+    u = _fields(_as_u32(words), k, count)
+    return _sign_extend(u, k) if signed else _to_i32(u)
 
 
 def pack_block_words(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -120,7 +143,7 @@ def unpack_block_words(words: torch.Tensor, k: int, block: int) -> torch.Tensor:
     off, shift, u = 0, 0, None
     for w in bit_components(k):
         rows = packed_rows(block, w)
-        comp = _unpack_words(u_words[off:off + rows], w, block)
+        comp = _fields(u_words[off:off + rows], w, block)
         u = comp << shift if u is None else u | (comp << shift)
         off += rows
         shift += w
@@ -150,6 +173,22 @@ def gather_block_rows(words: torch.Tensor, k: int, block: int,
         off += R
         shift += w
     return _sign_extend(u, k)
+
+
+# ---------------------------------------------------------------------------
+# flat slot-major layout
+# ---------------------------------------------------------------------------
+def pack(x: torch.Tensor, k: int, axis: int = 0) -> torch.Tensor:
+    """Pack signed k-bit codes into int32 words along ``axis`` (slot-major)."""
+    u = torch.movedim(x, axis, 0).to(torch.int64) & ((1 << k) - 1)
+    return torch.movedim(_pack_words(u, k), 0, axis).contiguous()
+
+
+def unpack(words: torch.Tensor, k: int, K: int, axis: int = 0,
+           dtype=torch.int32) -> torch.Tensor:
+    """Inverse of :func:`pack`; returns sign-extended codes."""
+    x = unpack_words(torch.movedim(words, axis, 0), k, K)
+    return torch.movedim(x, 0, axis).to(dtype)
 
 
 # ---------------------------------------------------------------------------

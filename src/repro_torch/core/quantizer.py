@@ -38,6 +38,11 @@ def dequantize(w_int: torch.Tensor, scale: torch.Tensor,
     return (w_int.float() * scale).to(dtype)
 
 
+def perturbation(w: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Eq. 4: delta_w = w/s - w_int."""
+    return w.float() / scale - w_int.float()
+
+
 def sqnr_db(w: torch.Tensor, w_hat: torch.Tensor) -> torch.Tensor:
     """Signal-to-quantization-noise ratio in dB (a quality proxy), in f32
     on the tensors' device."""

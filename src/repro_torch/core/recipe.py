@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import json
 import re
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 from typing import Any, Callable, Optional, Tuple
 
 from .. import tree
@@ -126,6 +126,10 @@ class QuantRecipe:
         if "bits" in kw:
             kw["bits"] = tuple(kw["bits"])
         return cls(overrides=ovs, **kw)
+
+    def with_overrides(self, *overrides: LayerOverride) -> "QuantRecipe":
+        """Copy with ``overrides`` prepended (they win over the existing rules)."""
+        return replace(self, overrides=tuple(overrides) + self.overrides)
 
 
 def exact_override(path: str, **settings) -> LayerOverride:

@@ -68,6 +68,11 @@ def adaptive_round(v: torch.Tensor, n_bits: int,
     return q.reshape(orig_shape)
 
 
+def case_metric(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Constrained Absolute Sum of Error per row: |sum(v - q)| (a diagnostic)."""
+    return torch.abs((v.float() - q.float()).sum(dim=-1))
+
+
 def is_floor_ceil(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Elementwise: every code is floor(v) or ceil(v) of its target."""
     v = v.float()

@@ -1,1 +1,2 @@
 """K1: matmul straight from one block-packed word stream."""
+from .ops import packed_matmul, prepare

@@ -4,14 +4,38 @@ step of each would cost per card, without a card; counterpart of
 
 The reference lowers and compiles each cell with XLA on 512 fake host
 devices and reads memory, FLOPs, bytes and collectives off the compiled
-program.  The port runs each cell's step builder (``distributed/steps.py``)
-once as rank 0 of a fake world of 256 or 512 ranks
-(``launch/mesh.py::fake_world``) over fake tensors, and counts the call
-with ``launch/step_analysis.py``.  The record is rank 0's: every rank of
-a production mesh holds blocks of the same shapes (the rules split evenly
-or not at all), so rank 0's counts are each card's, but for the few
-bytes a decode step writes on the rank holding the new position (rank 0
-writes none there: the cache is full, the position its last).
+program: one SPMD program, the same on every device.  The port runs each
+cell's step builder (``distributed/steps.py``) as one rank of a fake world
+of 256 or 512 ranks (``launch/mesh.py::fake_world``) over fake tensors, and
+counts the call with ``launch/step_analysis.py``.  Every rank holds blocks
+of the same shapes (the rules split evenly or not at all), but not every
+rank does the same work, and the record is the heaviest card's, since the
+slowest card sets a step's time:
+
+* where attention is sequence-parallel (``logical_rules(...)["attn_seq"]``:
+  the heads do not divide ``model``), a model rank attends its query block
+  at offset ``rank * n`` under the causal mask, and K5's work, and the
+  blockwise backward's, grows with the offset.  A train or prefill cell is
+  dry-run as rank 0 and as the last model rank of data row 0; the record's
+  ``counts``, ``top``, ``roofline`` and ``memory`` are the last rank's, its
+  ``lightest`` block holds rank 0's counts, and ``counted_flops_global``
+  sums every rank of the mesh: from the two ends where the step is a
+  forward alone (its counts are affine in the offset), from a dry run of
+  every model offset in a train step (the backward skips the key blocks
+  past each query block, so its counts rise in steps);
+* a decode step on a cache whose sequence dim is split writes the new
+  position on the rank that holds it: for a full cache, the last rank
+  along the split axes, which is dry-run (every rank reads a full block);
+* every other cell (head-parallel attention, whole caches, the ssm
+  family) does equal work on every rank, and rank 0 is dry-run;
+* on fake tensors MoE routing gives every expert an equal share, the
+  remainder to the first experts: where the experts are split over
+  ``model`` and the shares do not divide evenly, the first model ranks
+  compute more rows, and every model rank of the row is dry-run.
+
+The record's ``rank`` names the rank whose counts it holds where that is
+not rank 0, and ``global_summed_from`` how the global FLOPs were summed
+where the ranks differ.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--device cpu]
@@ -33,16 +57,20 @@ import math
 import os
 import time
 import traceback
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from ..configs import ARCHS, SHAPES, get_config, supports_shape
 from ..distributed import steps as steps_lib
-from ..distributed.sharding import local_shard, shard_tree
+from ..distributed.sharding import (cache_pspecs, local_shard, logical_rules, shard_tree,
+                                    spec_axes)
+from ..models import moe
 from ..models.model import make_model
 from ..optim import adamw
 from . import step_analysis
-from .mesh import fake_world, make_fake_mesh, production_shape
+from .mesh import fake_world, make_fake_mesh, production_shape, shape_only
 
 DEFAULT_OUT = "build/dryrun"
 
@@ -153,6 +181,104 @@ def counts_record(costs) -> dict:
             "payload_bytes": costs.payload_bytes, "kernels": costs.kernels}
 
 
+def dry_rank(cfg, shape, dims, axes, device, rank: int = 0, memory: bool = True):
+    """``StepCosts`` of one cell's step dry-run as rank ``rank`` of a fake
+    world on the mesh ``dims`` / ``axes``."""
+    with fake_world(math.prod(dims), rank=rank):
+        mesh = make_fake_mesh(tuple(dims), tuple(axes), device)
+        step, args = cell_step(cfg, shape, mesh)
+        return step_analysis.analyze(step, args, mesh, device, memory=memory)
+
+
+def new_position_rank(cfg, shape, dims, axes) -> int:
+    """The rank that writes a decode step's new position into a full cache
+    whose sequence dim the step splits: the last block along the split
+    axes (the others at 0; ranks are row-major); 0 where the cache is
+    whole."""
+    spec = cache_pspecs(cfg, shape, shape_only(dims, axes)).get("k")
+    seq = spec_axes((spec[2],)) if spec is not None else ()
+    rank = 0
+    for n, a in zip(dims, axes):
+        rank = rank * n + (n - 1 if a in seq else 0)
+    return rank
+
+
+@dataclass
+class CellCosts:
+    """A cell's dry runs: the heaviest rank's costs (the record's), the
+    lightest's where the ranks dry-run differ, and the FLOPs of every rank
+    summed (``summed`` says how, for the record)."""
+    rank: int
+    costs: step_analysis.StepCosts
+    flops_global: float
+    summed: str
+    light_rank: Optional[int] = None
+    light: Optional[step_analysis.StepCosts] = None
+    trace_s: float = 0.0
+
+
+def _bound_s(costs) -> float:
+    terms = step_analysis.roofline_terms(costs)
+    return max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+
+
+def _uneven_experts(cfg, rules, M: int, log) -> bool:
+    """Whether a dry run's MoE dispatches (``moe.record_groups``'s log) leave
+    the model ranks different row counts: experts split over ``model``,
+    equal shares whose remainder falls unevenly (``moe.dry_owner_rows``)."""
+    if "model" not in spec_axes((rules.get("experts"),)):
+        return False
+    return any(len(set(moe.dry_owner_rows(g.tokens, cfg.top_k, cfg.num_experts, M,
+                                          g.capacity))) > 1 for g in log)
+
+
+def dry_cell(cfg, shape, dims, axes, device="cuda") -> CellCosts:
+    """Dry-run one cell on the mesh ``dims`` / ``axes`` as the ranks whose
+    work differs (module docstring); ``model`` is the last axis, so the
+    model ranks of one data row are consecutive.  Where the dry run's
+    equal expert shares leave the first model ranks more rows, every
+    model rank of the row is dry-run.  The heaviest rank is the one with
+    the longest roofline bound (then the most bytes, FLOPs, the lowest
+    rank)."""
+    t0 = time.time()
+    chips = math.prod(dims)
+    M = dict(zip(axes, dims))["model"]
+    rules = logical_rules(cfg, shape, shape_only(dims, axes))
+    seq = shape.kind != "decode" and rules["attn_seq"]
+    home = new_position_rank(cfg, shape, dims, axes) if shape.kind == "decode" else 0
+    row = range(home - home % M, home - home % M + M)
+
+    def run(rank, memory=True):
+        return dry_rank(cfg, shape, dims, axes, device, rank, memory=memory)
+
+    tracked = {home, row[-1]} if seq else {home}      # dry-run with memory
+    with moe.record_groups() as log:
+        runs = {r: run(r) for r in sorted(tracked)}
+    if _uneven_experts(cfg, rules, M, log) or (seq and shape.kind == "train"):
+        for r in row:
+            if r not in runs:
+                runs[r] = run(r, memory=False)
+        per_row = sum(runs[r].flops for r in row)
+        summed = "every model rank"
+    elif seq:
+        per_row = M * (runs[row[0]].flops + runs[row[-1]].flops) / 2
+        summed = "the first and last model ranks (affine in the offset)"
+    else:
+        per_row = M * runs[home].flops
+        summed = "every rank alike"
+
+    def weight(r):
+        return (_bound_s(runs[r]), runs[r].bytes, runs[r].flops, -r)
+    heavy = max(runs, key=weight)
+    light = min(runs, key=weight)
+    if heavy not in tracked:
+        runs[heavy] = run(heavy)
+    if weight(light) == weight(heavy):
+        light = None
+    return CellCosts(heavy, runs[heavy], per_row * (chips // M), summed, light,
+                     None if light is None else runs[light], time.time() - t0)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = DEFAULT_OUT,
              skip_existing: bool = False, device="cuda"):
     cfg = get_config(arch)
@@ -174,20 +300,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = DEFAULT
     check_device(device)
     dims, axes = production_shape(multi_pod)
     try:
-        with fake_world(math.prod(dims)):
-            mesh = make_fake_mesh(dims, axes, device)
-            t0 = time.time()
-            step, args = cell_step(cfg, shape, mesh)
-            costs = step_analysis.analyze(step, args, mesh, device)
-            trace_s = time.time() - t0
+        cell = dry_cell(cfg, shape, dims, axes, device)
+        costs = cell.costs
         terms = step_analysis.roofline_terms(costs)
-        chips = mesh.size
         mf = model_flops(cfg, shape)
-        flops_global = costs.flops * chips
         rec = {
             "arch": arch, "shape": shape_name, "mesh": mesh_tag,
-            "skipped": False, "chips": int(chips), "device": str(device),
-            "trace_s": round(trace_s, 1),
+            "skipped": False, "chips": math.prod(dims), "device": str(device),
+            "trace_s": round(cell.trace_s, 1),
             "memory": {
                 "argument_bytes": costs.argument_bytes,
                 "output_bytes": costs.output_bytes,
@@ -199,12 +319,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str = DEFAULT
                     for kind in ("bytes", "flops", "collective")},
             "roofline": terms,
             "model_flops_global": mf,
-            "counted_flops_global": flops_global,
-            "useful_flops_ratio": mf / flops_global if flops_global else None,
+            "counted_flops_global": cell.flops_global,
+            "useful_flops_ratio": mf / cell.flops_global if cell.flops_global else None,
         }
+        # a cell whose ranks do equal work keeps the record it always had
+        if cell.rank:
+            rec["rank"] = cell.rank
+        if cell.light is not None:
+            rec["lightest"] = {"rank": cell.light_rank, "counts": counts_record(cell.light)}
+            rec["global_summed_from"] = cell.summed
         _write(out_path, rec)
-        print(f"[ok] {arch} x {shape_name} x {mesh_tag}: "
-              f"trace={trace_s:.0f}s peak={costs.peak_bytes / 1e9:.2f}GB "
+        print(f"[ok] {arch} x {shape_name} x {mesh_tag} rank {cell.rank}: "
+              f"trace={cell.trace_s:.0f}s peak={costs.peak_bytes / 1e9:.2f}GB "
               f"dom={terms['dominant']} "
               f"c/m/coll={terms['compute_s']:.4f}/{terms['memory_s']:.4f}/"
               f"{terms['collective_s']:.4f}s "

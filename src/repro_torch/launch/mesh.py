@@ -16,8 +16,8 @@ together, every axis alone, ...).  The backend is always the caller's:
 ``distributed/sharding.py`` take either, so they run in one process, and
 a mesh whose every axis has size 1 runs the sharded steps without any
 process group at all (the one-card control).  :func:`fake_world` and
-:func:`make_fake_mesh` give rank 0 of a production-sized world inside
-one process, for the dry run.
+:func:`make_fake_mesh` give any one rank of a production-sized world
+inside one process, for the dry run.
 """
 from __future__ import annotations
 
@@ -165,23 +165,25 @@ def init_world(backend: str, *, init_method: Optional[str] = None,
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
-    """Inside this block this process is rank 0 of a world of
+def fake_world(world_size: int, rank: int = 0):
+    """Inside this block this process is rank ``rank`` of a world of
     ``world_size`` ranks that exist nowhere else: torch's ``"fake"``
     process-group backend, whose collectives return at once and move
-    nothing (the dry run's world, ``launch/dryrun.py``).  Refuses to start
-    inside a running process group; the group is destroyed on the way
-    out."""
+    nothing (the dry run's world, ``launch/dryrun.py``).  Refuses a rank
+    outside the world and a start inside a running process group; the
+    group is destroyed on the way out."""
     import torch.distributed as dist
     # torch's own fake backend: importing the module registers "fake"
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} is outside a world of {world_size} ranks")
     if dist.is_initialized():
         raise RuntimeError(f"a process group of {dist.get_world_size()} ranks "
                            f"({dist.get_backend()!r}) runs already; a fake world starts "
                            "only outside one")
     hook = sys.excepthook           # init_process_group wraps it with a rank prefix
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
     try:
         yield
     finally:
@@ -190,9 +192,10 @@ def fake_world(world_size: int):
 
 
 def make_fake_mesh(shape, axes, device) -> Mesh:
-    """Rank 0's mesh of ``shape`` over a running :func:`fake_world` of
+    """This rank's mesh of ``shape`` over a running :func:`fake_world` of
     ``prod(shape)`` ranks, its tensors on ``device`` (which needs no card:
-    the dry run's tensors are fake)."""
+    the dry run's tensors are fake).  The rank's coordinates are its place
+    in the row-major mesh (``init_device_mesh``'s), as in a real world."""
     import torch.distributed as dist
 
     if not dist.is_initialized() or dist.get_backend() != "fake":

@@ -1,4 +1,4 @@
-"""What one sharded step costs on rank 0, counted on fake tensors;
+"""What one sharded step costs on one rank, counted on fake tensors;
 counterpart of ``repro/launch/hlo_analysis.py``.
 
 The reference compiles each step with XLA and parses the partitioned,
@@ -6,7 +6,7 @@ optimized HLO (``compiled.as_text()``): that text is the program the TPU
 runs, so its dots, fusions and collectives are the step's work.  The
 port has no compiler between the step and the card: the step is eager
 PyTorch, and the ops it dispatches, one by one, are what the card runs.
-So this module parses nothing.  It runs the step once, on rank 0 of a
+So this module parses nothing.  It runs the step once, on one rank of a
 fake world (``launch/mesh.py::fake_world``: collectives return at once)
 over fake tensors (``FakeTensorMode``: shapes, dtypes and a device, no
 storage, nothing launched), and counts with torch's own tools:
@@ -38,10 +38,10 @@ storage, nothing launched), and counts with torch's own tools:
 
 Eager Python runs every layer and microbatch, so no count is multiplied
 by a loop's trip count, and a remat recompute is counted as it runs.
-Every count is rank 0's and per card; multiply by the ranks for a global
-total.  The tally behind :func:`top_contributors` keys each op by where
-the port's code called it (``file:function``, or the autograd node in a
-backward).
+Every count is that rank's and per card; ``launch/dryrun.py`` picks the
+ranks whose work differs and sums them for a global total.  The tally
+behind :func:`top_contributors` keys each op by where the port's code
+called it (``file:function``, or the autograd node in a backward).
 """
 from __future__ import annotations
 
@@ -226,7 +226,7 @@ def analyze(step, args, mesh, device, memory: bool = True) -> StepCosts:
     reference's ``ShapeDtypeStruct``s) and plain Python values; each
     tensor becomes an empty fake tensor on ``device`` ("cuda" or "cpu":
     neither needs a card, but a torch built without CUDA aborts the
-    process in a fake CUDA backward).  ``mesh`` is rank 0's mesh of a
+    process in a fake CUDA backward).  ``mesh`` is this rank's mesh of a
     ``fake_world``.  ``comm.COUNTS`` is reset first and holds this call's
     collectives after it; the launch counters' ``dry_*`` fields grow by
     this call's launches (the real counts do not move).  ``memory=False``
@@ -291,7 +291,7 @@ def analyze(step, args, mesh, device, memory: bool = True) -> StepCosts:
 
 
 def roofline_terms(costs: StepCosts) -> Dict[str, Any]:
-    """Seconds per step on one card, the three-term roofline of rank 0's
+    """Seconds per step on one card, the three-term roofline of one rank's
     counts at the H100's published rates (``kernels/costs.py``): FLOPs at
     the dense bf16 tensor-core peak (as the reference takes one peak),
     bytes at the HBM rate, wire bytes at NVLink 4's per-direction rate.

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,6 +88,25 @@ def route_tokens(xf: torch.Tensor, router_w: torch.Tensor, top_k: int):
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
 
 
+def equal_shares(assignments: int, num_experts: int) -> List[int]:
+    """Each expert's count of ``assignments`` where the routing is abstract
+    (the dry run's fake tensors hold no expert choices): equal shares, the
+    remainder to the first experts."""
+    base, rem = divmod(assignments, num_experts)
+    return [base + int(e < rem) for e in range(num_experts)]
+
+
+def dry_owner_rows(tokens: int, top_k: int, num_experts: int, m: int,
+                   cap: int) -> Tuple[int, ...]:
+    """The expert rows each of ``m`` model ranks computes, the experts split
+    over ``model`` in blocks of E/m, for an abstract dispatch of ``tokens``
+    tokens (:func:`equal_shares`, each expert kept to ``cap`` rows): the
+    first ranks compute more where the remainder falls unevenly."""
+    per = num_experts // m
+    kept = [min(n, cap) for n in equal_shares(tokens * top_k, num_experts)]
+    return tuple(sum(kept[q * per:(q + 1) * per]) for q in range(m))
+
+
 def _dispatch(probs, gate_vals, expert_idx, *, E: int, C: int,
               want_aux: bool = True) -> Routing:
     """Capacity dispatch of routed tokens (the reference's ``_dispatch``
@@ -106,9 +125,7 @@ def _dispatch(probs, gate_vals, expert_idx, *, E: int, C: int,
     order = torch.sort(ef, stable=True).indices
     st, sg = tok[order], gate_vals.reshape(T * K)[order]
     if dispatch.is_abstract(ef):
-        # abstract tensors (the dry run) hold no expert choices: every
-        # expert takes an equal share of the T * K assignments
-        counts = [T * K // E + int(e < T * K % E) for e in range(E)]
+        counts = equal_shares(T * K, E)
     else:
         counts = torch.bincount(ef, minlength=E).tolist()
     # sorted by expert, each expert's assignments are one run in token
@@ -162,13 +179,14 @@ class GroupLog(NamedTuple):
     """One ``moe_ffn`` call: the K1-K3 route it named (None: by M), the
     rung stamped on its experts (None: a dense stack), its T tokens, the
     (expert, rows) groups this rank computed, in launch order (all of
-    them unless experts are split over ``model``) and its (T, K) expert
-    choices."""
+    them unless experts are split over ``model``), its (T, K) expert
+    choices and its per-expert capacity C."""
     route: Optional[str]
     rung: Optional[int]
     tokens: int
     groups: Tuple[Tuple[int, int], ...]
     expert_idx: torch.Tensor
+    capacity: int
 
 
 class _Hooks:
@@ -244,7 +262,7 @@ def moe_ffn(x: torch.Tensor, params: Dict, *, num_experts: int, top_k: int,
     if _hooks.log is not None:
         _hooks.log.append(GroupLog(
             route, leaf.rung if isinstance(leaf, NestedTensor) else None, T,
-            tuple((e, rows.numel()) for e, rows, _ in mine), expert_idx))
+            tuple((e, rows.numel()) for e, rows, _ in mine), expert_idx, C))
     return shard_hint(out.reshape(B, S, d), ("batch", None, None)), aux
 
 

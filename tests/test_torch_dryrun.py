@@ -10,7 +10,13 @@ CPU-only torch aborts the process in a fake CUDA backward).
 * a reduced train step dry-run on a one-device mesh against the JAX
   package's compiled step: argument bytes (the difference stated) and
   FLOPs (equal);
-* the roofline, the tally, the CLI's records and the fake world's life.
+* the roofline, the tally, the CLI's records and the fake world's life;
+* the ranks whose work differs: on a (1, 8) world where attention is
+  sequence-split, each rank's K5 work is ``flash_cost`` at its offset, the
+  record is the last rank's with rank 0's under ``lightest`` and the global
+  FLOPs the eight ranks' sum; a head-parallel cell keeps rank 0's record;
+  a split-cache decode dry-runs the rank holding the new position; uneven
+  expert shares dry-run every model rank.
 
 The dry run's collectives against the measured gloo worlds are in
 test_torch_distributed (the worlds run there).
@@ -44,6 +50,7 @@ from repro_torch.kernels.nested_matmul import ops as nops
 from repro_torch.kernels.packed_matmul import ops as pops
 from repro_torch.launch import dryrun, step_analysis
 from repro_torch.launch.mesh import fake_world, make_fake_mesh, shape_only
+from repro_torch.models import moe
 from repro_torch.serving.kv_cache import _quantize_kv
 
 
@@ -305,3 +312,126 @@ def test_fake_world_refuses_a_running_group_and_ends_with_its_block():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError):
         make_fake_mesh((2, 2), ("data", "model"), "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the heaviest rank where attention is sequence-split, on a (1, 8) world
+# ---------------------------------------------------------------------------
+SEQ8 = ((1, 8), ("data", "model"))
+SEQ8_SHAPES = {"prefill": ShapeConfig("p2k", "prefill", 2048, 2),
+               "train": ShapeConfig("t2k", "train", 2048, 2, microbatch=2)}
+
+
+@pytest.fixture(scope="module")
+def seq8_ranks():
+    """Each of the eight ranks' dry run of the reduced qwen2-1.5b (4 heads:
+    sequence-parallel attention at model = 8; 2048 tokens in query blocks
+    of 256), per kind."""
+    cfg = get_config("qwen2-1.5b-smoke")
+    return cfg, {kind: [dryrun.dry_rank(cfg, shape, *SEQ8, "cpu", r, memory=False)
+                        for r in range(8)]
+                 for kind, shape in SEQ8_SHAPES.items()}
+
+
+def _counts(c):
+    return json.loads(json.dumps(dryrun.counts_record(c)))
+
+
+@pytest.mark.parametrize("kind", sorted(SEQ8_SHAPES))
+def test_each_ranks_k5_work_is_flash_cost_at_its_offset(seq8_ranks, kind):
+    cfg, ranks = seq8_ranks
+    B, S = SEQ8_SHAPES[kind].global_batch, SEQ8_SHAPES[kind].seq_len
+    q = torch.empty(B, S // 8, cfg.num_heads, cfg.head_dim, device="meta")
+    k = torch.empty(B, S, cfg.num_kv_heads, cfg.head_dim, device="meta")
+    # a prefill launches K5 once a layer; a train step with its row
+    # statistics, in the forward and again in the remat recompute
+    launches = cfg.num_layers * (2 if kind == "train" else 1)
+    for r, c in enumerate(ranks[kind]):
+        nbytes, flops = costs.flash_cost(q, k, q_offset=256 * r, stats=kind == "train")
+        k5 = c.kernels["flash_attention"]
+        assert (k5["dry_launches"], k5["flops"], k5["bytes"]) == \
+            (launches, launches * flops, launches * nbytes)
+    # the forward alone is affine in the offset; the train step's blockwise
+    # backward rises in steps (a rank visits the 512-key blocks up to its
+    # block's end), which is why the dry run sums every offset there
+    for field in ("flops", "bytes"):
+        steps_ = [getattr(b, field) - getattr(a, field)
+                  for a, b in zip(ranks[kind], ranks[kind][1:])]
+        assert (len(set(steps_)) == 1) == (kind == "prefill"), (field, steps_)
+
+
+@pytest.mark.parametrize("kind", sorted(SEQ8_SHAPES))
+def test_sequence_parallel_record_is_the_last_ranks(seq8_ranks, kind, tmp_path, monkeypatch):
+    cfg, ranks = seq8_ranks
+    monkeypatch.setattr(dryrun, "production_shape", lambda multi_pod: SEQ8)
+    monkeypatch.setitem(dryrun.SHAPES, SEQ8_SHAPES[kind].name, SEQ8_SHAPES[kind])
+    assert dryrun.run_cell("qwen2-1.5b-smoke", SEQ8_SHAPES[kind].name, False, str(tmp_path),
+                           device="cpu")
+    rec = json.loads((tmp_path / f"qwen2-1.5b-smoke__{SEQ8_SHAPES[kind].name}__pod16x16.json")
+                     .read_text())
+    assert rec["rank"] == 7 and rec["counts"] == _counts(ranks[kind][7])
+    assert rec["lightest"] == {"rank": 0, "counts": _counts(ranks[kind][0])}
+    assert rec["counts"]["flops_per_device"] > rec["lightest"]["counts"]["flops_per_device"]
+    assert rec["counted_flops_global"] == sum(c.flops for c in ranks[kind])
+    assert rec["useful_flops_ratio"] == rec["model_flops_global"] / rec["counted_flops_global"]
+    assert rec["global_summed_from"] == (
+        "every model rank" if kind == "train" else
+        "the first and last model ranks (affine in the offset)")
+
+
+def test_head_parallel_cell_dry_runs_rank_0_alone(tmp_path, monkeypatch):
+    """4 heads at model = 4 split by head: every rank does rank 0's work, and
+    the record is rank 0's dry run as it was, with no rank of its own."""
+    cfg, dims = get_config("qwen2-1.5b-smoke"), ((1, 4), ("data", "model"))
+    shape = SEQ8_SHAPES["prefill"]
+    r0 = dryrun.dry_rank(cfg, shape, *dims, "cpu", 0)
+    cell = dryrun.dry_cell(cfg, shape, *dims, "cpu")
+    assert (cell.rank, cell.light, cell.flops_global) == (0, None, 4 * r0.flops)
+    monkeypatch.setattr(dryrun, "production_shape", lambda multi_pod: dims)
+    monkeypatch.setitem(dryrun.SHAPES, shape.name, shape)
+    assert dryrun.run_cell("qwen2-1.5b-smoke", shape.name, False, str(tmp_path), device="cpu")
+    rec = json.loads((tmp_path / f"qwen2-1.5b-smoke__{shape.name}__pod16x16.json").read_text())
+    assert rec["counts"] == _counts(r0) and rec["memory"]["peak_bytes"] == r0.peak_bytes
+    assert not {"rank", "lightest", "global_summed_from"} & set(rec)
+
+
+def test_split_cache_decode_dry_runs_the_rank_holding_the_new_position():
+    prod = dryrun.production_shape(False)
+    assert dryrun.new_position_rank(get_config("qwen2-1.5b"), SHAPES["decode_32k"],
+                                    *prod) == 15            # split over model
+    assert dryrun.new_position_rank(get_config("zamba2-2.7b"), SHAPES["long_500k"],
+                                    *prod) == 15 * 16       # batch 1: split over data
+    assert dryrun.new_position_rank(get_config("musicgen-large"), SHAPES["decode_32k"],
+                                    *prod) == 0             # kv heads split: whole cache
+    assert dryrun.new_position_rank(get_config("mamba2-780m"), SHAPES["decode_32k"],
+                                    *prod) == 0             # no KV cache
+    cfg, shape = get_config("qwen2-1.5b-smoke"), ShapeConfig("d", "decode", 2048, 2)
+    first, last = (dryrun.dry_rank(cfg, shape, *SEQ8, "cpu", r, memory=False) for r in (0, 7))
+    cell = dryrun.dry_cell(cfg, shape, *SEQ8, "cpu")
+    # the last rank writes the new k/v; every rank reads a full block
+    assert cell.rank == 7 and _counts(cell.costs) == _counts(last)
+    assert last.flops == first.flops and last.bytes > first.bytes
+
+
+@pytest.mark.parametrize("rank", [-1, 4])
+def test_fake_world_refuses_a_rank_outside_it(rank):
+    with pytest.raises(ValueError):
+        with fake_world(4, rank=rank):
+            pass
+
+
+def test_uneven_expert_shares_dry_run_every_model_rank():
+    """The reduced llama4 (4 experts, top-1) on (1, 4) decodes 2 tokens:
+    equal shares give experts 0 and 1 a row each, so model ranks 0 and 1
+    compute an expert and ranks 2 and 3 none; the global count sums all four."""
+    cfg, dims = get_config("llama4-scout-17b-a16e-smoke"), ((1, 4), ("data", "model"))
+    shape = ShapeConfig("d", "decode", 64, 2)
+    per = [dryrun.dry_rank(cfg, shape, *dims, "cpu", r, memory=False) for r in range(4)]
+    assert per[0].flops == per[1].flops > per[2].flops == per[3].flops
+    assert moe.dry_owner_rows(2, 1, 4, 4, 8) == (1, 1, 0, 0)
+    assert moe.dry_owner_rows(4, 1, 4, 4, 8) == (1, 1, 1, 1)
+    cell = dryrun.dry_cell(cfg, shape, *dims, "cpu")
+    assert cell.summed == "every model rank"
+    assert cell.flops_global == sum(c.flops for c in per)
+    assert cell.rank == 0 and _counts(cell.costs) == _counts(per[0])
+    assert cell.light_rank == 2 and _counts(cell.light) == _counts(per[2])

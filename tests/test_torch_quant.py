@@ -16,7 +16,8 @@ jn = importlib.import_module("repro.core.nesting")
 jr = importlib.import_module("repro.core.recipe")
 js = importlib.import_module("repro.core.squant")
 jsw = importlib.import_module("repro.core.switching")
-from repro_torch.core import decompose as td
+# the packages export a function named decompose, which hides the module
+td = importlib.import_module("repro_torch.core.decompose")
 from repro_torch.core import nesting as tn
 from repro_torch.core import recipe as tr
 from repro_torch.core import squant as ts
