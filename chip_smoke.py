@@ -15,19 +15,26 @@ Phases (each raises on failure; the script then exits non-zero):
    ``torch.matmul`` of the same shape (a yardstick only; the port never
    calls it).  Every row at M <= 8 must launch on the decode body (its
    counter says so) and is timed beside the same call on the CUDA-core
-   body (``route="cuda_core"``, the "before").  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
+   body (``route="cuda_core"``, the "before").  The bf16 rows at M = 32
+   (the short prefill), and bf16 rows at M = 16, 48 and 63 for every shape
+   but the LM head, must launch on the short-prefill body
+   (``csrc/nest_matmul_mid.cu``; its counter says so) and are timed beside
+   the same call on the CUDA-core body (the "before"), the decode route in
+   8-row groups and the tensor-core body: the measurement behind
+   ``dispatch.matmul_route``'s short-prefill range.  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
    ragged against the 256-row tile) and 4096 (2 x 2048) for q/o, k/v,
    gate/up and down, each launched on the tensor-core body the route
    picks (its counter must say so), held to 2e-2 of max(1, max |y|)
    against the plain version and timed beside the same call on the
-   CUDA-core body (``route="cuda_core"``, the "before") and the dense
-   bf16 yardstick.
+   CUDA-core body (``route="cuda_core"``, the "before"; at M = 64 also
+   the decode route and the short-prefill body) and the dense bf16
+   yardstick.
 2. Serve full-width qwen2-1.5b (random weights from a seeded generator,
    nested on the (8, 6, 4) ladder) through ``ServeEngine.generate``: four
    calls of 4 requests x 8 prompt tokens x 8 new tokens under budgets
    that land on rungs 2, 0, 1, 2.  The launch counters must show every
    ``packed_linear`` (28 * 7 + 1 per forward) on the kernel of its rung
-   and no plain version: the 32-row prefill's 196 on the CUDA-core body,
+   and no plain version: the 32-row prefill's 196 on the short-prefill body,
    its LM head (M = 4) and every decode step on the decode body.
 3. Run the same requests through the plain versions (the scoped
    ``reference_pass``) with ``compute_dtype="float32"`` as the reference:
@@ -57,7 +64,7 @@ Phases (each raises on failure; the script then exits non-zero):
    each bf16 verify call timed beside the k + 1 decode calls it replaces,
    and a decode step's K1-K3 at batch 16 and 64 timed on the decode route
    (which the decode phase names at every batch) beside the body M alone
-   picks (CUDA cores at 16, tensor cores at 64).
+   picks (the short-prefill body at 16, tensor cores at 64).
    Serve: 4 requests x 8 prompt tokens x 16 new tokens at rung 2 in bf16
    and f32, ``SpecConfig(k=4, draft=0)`` and ``SpecConfig(k=2, draft=1)``
    emit the plain ``generate``'s tokens, every draft step on its rung's
@@ -176,7 +183,7 @@ Phases (each raises on failure; the script then exits non-zero):
    ``SSM_LONG_TOL`` which its one-stream-short control exceeds, then
    profiled; K1-K3 on the model's own weights at every (M, body) the main
    path launches (decode at M = 4 and 2, the short prefill's M = 32 on the
-   CUDA cores, the long prompt's M on the tensor cores; in_proj's N 6448
+   short-prefill body, the long prompt's M on the tensor cores; in_proj's N 6448
    and 10448 and the vocab 50280 are no multiple of 128) against their
    plain versions, timed; a decode step per rung at batch 4 (wall, device
    busy, K1-K3 against their byte bound, the SSM state update against
@@ -201,8 +208,10 @@ Phases (each raises on failure; the script then exits non-zero):
    each within ``SCORE_TOL`` of the same tree's plain pass, which the tree
    one stream short exceeds; the dense loss beside them.  (d) The train
    CLI as subprocesses (2 layers, 1 x 2048, 6 steps, a checkpoint every
-   4): straight through and killed before step 5 (exit 42) side by side,
-   then resumed; the step-6 checkpoints equal bit for bit, restored with
+   4), started after phase 9 and running beside phase 10: straight
+   through (checkpointing step 6 alone) and killed before step 5 (exit
+   42) side by side, then resumed from step 4;
+   after phase 10 the step-6 checkpoints equal bit for bit, restored with
    ``CheckpointManager`` (timed) and compared on the card, one saved again
    (timed), every directory under ``build/`` removed.  Phase 4 also holds
    K5 with its row statistics against the plain forward at S 1100 and 2048
@@ -221,11 +230,11 @@ Phases (each raises on failure; the script then exits non-zero):
    in units of the learning rate where m is large (``rank_train``); 8
    K5 launches per rank, none plain; the step wall, the all-reduce bytes
    beside ``predicted_train_comm`` and the peak memory per rank.  (b)
-   qwen2-1.5b with all 28 layers nested (4, 8) rtn as
+   qwen2-1.5b with 4 of its 28 layers nested (4, 8) rtn as
    ``steps.quantize_abstract`` lays it out, each rank nesting its own
    blocks: a prefill of 4 x 64 tokens and 8 decode steps, f32 at rung 0
    (logits within 1e-4, greedy tokens identical) and bf16 at rung 1
-   (within 3e-2), fed the world-1 run's tokens; each rank's K1/K2 launches (197 a
+   (within 3e-2), fed the world-1 run's tokens; each rank's K1/K2 launches (29 a
    forward, the bodies by M) counted, none plain.  (c) dbrx-132b at its
    published widths with 2 layers, nested, f32: a prefill of 4 x 8 tokens
    and 4 decode steps; each data rank routes its own tokens, each model
@@ -245,22 +254,22 @@ Phases (each raises on failure; the script then exits non-zero):
    beside it; the loss under ``SEQ_SSM_LOSS_TOL``, which the loss control
    (each rank's rows attended at offset 0) exceeds, and the state under
    phase 9's limit, which the control without the model-axis sum of the
-   k/v gradient parts exceeds; (b) qwen2-1.5b with all 28 layers nested
-   (4, 8): a prefill of 2 x 2048 (K5 at the offsets, 28 per run), then 4
+   k/v gradient parts exceeds; (b) qwen2-1.5b with 4 of its 28 layers nested
+   (4, 8): a prefill of 2 x 2048 (K5 at the offsets, 4 per run), then 4
    decode steps against a cache of 2056 positions split over model (257
    per rank): only the rank holding a position writes it, and the blocks'
    softmax pieces are combined across ranks; f32 at rung 0 (within 1e-4,
    tokens identical), bf16 at rung 1 (3e-2), the control without
-   the combine above its limit; 985 K1/K2 launches per rank and run,
+   the combine above its limit; 145 K1/K2 launches per rank and run,
    none plain.  Then four rank processes on (2, 2): (c) mamba2-780m's
    train step at full width with 4 of its 48 layers, 2 x 2048, and its
-   nested serve at all 48 layers (4 x 64 prompt tokens, 8 steps, rungs 0
-   and 1, f32); (d) zamba2-2.7b's nested serve at all 54 layers the same
-   way: each model rank runs its block of the SSM heads and conv
-   channels; K1/K2 launches per rank as the path implies (97 and 163 a
-   forward), none plain.  The control of (c) and (d), the gated norm's
-   sum of squares not summed over model, reads above the loss, state and
-   serve limits.
+   nested serve at 8 of its 48 layers (4 x 64 prompt tokens, 8 steps,
+   rungs 0 and 1, f32); (d) zamba2-2.7b's nested serve at 12 of its 54
+   layers (the shared block applied twice) the same way: each model rank
+   runs its block of the SSM heads and conv channels; K1/K2 launches per
+   rank as the path implies (17 and 37 a forward), none plain.  The
+   control of (c) and (d), the gated norm's sum of squares not summed
+   over model, reads above the loss, state and serve limits.
 
 11. The dry run (phase 11, ``phase_dryrun``, in the main process):
    ``launch/step_analysis.py`` runs a step once as one rank (rank 0 unless
@@ -334,6 +343,9 @@ ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BF16_E2E_TOL = 3e-2
 BITS = (8, 6, 4)
 MS = (1, 2, 4, 8, 32)    # decode at batch 1-8 (2: the long path's), the short prefill
+# more short-prefill rows (bf16, every shape but the LM head): the route's
+# measurement of the short-prefill body beside the other three at M 9-63
+MID_MS = (16, 48, 63)
 # prefill rows (bf16): the route's threshold, the ragged 2 x 1100 prefill
 # and the long-context path's 2 x 2048
 PREFILL_MS = (64, 2 * 1100, 2 * 2048)
@@ -374,8 +386,22 @@ SCHED_DWELL, SCHED_REQUESTS = 4, 48
 KV_SCHED_REQUESTS, KV_PROMPT = 16, 512
 
 
+# seconds of each phase of this run (main) and of the kernels' build
+PHASE_S = {}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed_phase(tag, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds kept in ``PHASE_S[tag]`` and
+    printed."""
+    t0 = time.time()
+    out = fn(*args, **kw)
+    PHASE_S[tag] = time.time() - t0
+    log(f"[time] phase {tag} took {PHASE_S[tag]:.1f}s")
+    return out
 
 
 def smi_line() -> str:
@@ -488,12 +514,13 @@ def checked_launch(name, nt, x, copies, out_dtype, what, route=None):
         raise AssertionError(f"{what}: M={x.shape[0]} {x.dtype} takes the {body} body, "
                              f"not the {route} one")
     counter = dispatch.counter(name)
-    seen = lambda: (counter.launches, counter.dec_launches, counter.tc_launches)  # noqa: E731
+    seen = lambda: (counter.launches, counter.dec_launches, counter.tc_launches,  # noqa: E731
+                    counter.mid_launches)
     call = kernel_call(name, nt, x, copies, out_dtype)
     before = seen()
     got = call(0)
     if seen() != (before[0] + 1, before[1] + (body == dispatch.DECODE),
-                  before[2] + (body == dispatch.TENSOR_CORE)):
+                  before[2] + (body == dispatch.TENSOR_CORE), before[3] + (body == dispatch.MID)):
         raise AssertionError(f"{what}: not launched on the {body} body ({before} -> {counter})")
     with dispatch.reference_pass():
         ref = call(0)
@@ -507,11 +534,31 @@ def checked_launch(name, nt, x, copies, out_dtype, what, route=None):
     return call, body, err, peak
 
 
+def other_bodies_ms(name, nt, x, copies, out_dtype, route):
+    """The same call on each K1-K3 body but ``route`` that takes its M and
+    dtype (CUDA-graph replay): the CUDA-core body (the "before" of every
+    row), and for bf16 at M 9-64 the decode route in 8-row groups, the
+    tensor-core body and the short-prefill body (10 calls x 3 replays:
+    their gaps are several-fold).  Keyed ``<body>_ms``."""
+    from repro_torch.kernels import dispatch
+
+    M = x.shape[0]
+    bodies = [dispatch.CUDA_CORE]
+    if x.dtype == torch.bfloat16 and dispatch.DEC_MAX_M < M <= dispatch.MID_MAX_M:
+        bodies += [dispatch.DECODE, dispatch.TENSOR_CORE, dispatch.MID]
+    iters, reps = ((20, 5) if M <= dispatch.DEC_MAX_M else
+                   (10, 3) if M <= dispatch.MID_MAX_M else (2, 2))
+    return {f"{b}_ms": time_graph_ms(kernel_call(name, nt, x, copies, out_dtype, route=b),
+                                     iters, reps=reps)
+            for b in bodies if b != route}
+
+
 def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
     """bf16 rows at ``PREFILL_MS``: each kernel on the tensor-core body
     (:func:`checked_launch`), timed by CUDA-graph replay beside the same
-    call on the CUDA-core body (the "before") and the dense bf16
-    yardstick; bound by operations at these M."""
+    call on the CUDA-core body (the "before"; at M = 64 also the decode
+    route and the short-prefill body) and the dense bf16 yardstick; bound
+    by operations at these M."""
     from repro_torch.kernels import dispatch
 
     rows = []
@@ -522,20 +569,77 @@ def prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen):
                                                     f"{name} {shape} M={M}",
                                                     dispatch.TENSOR_CORE)
             ms = time_graph_ms(call, 5, reps=3)
-            cc_ms = time_graph_ms(kernel_call(name, nt, x, copies, torch.bfloat16,
-                                              route=dispatch.CUDA_CORE), 2, reps=2)
+            others = other_bodies_ms(name, nt, x, copies, torch.bfloat16, route)
+            cc_ms = others["cuda_core_ms"]
             with dispatch.reference_pass():
                 plain_ms = time_ms(call, 1)
             dense_ms = time_graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]), 5, reps=3)
             rows.append(_row(name, shape, M, "bfloat16", err, ms, plain_ms,
                              *matmul_cost(x, streams[:rung + 1], N, torch.bfloat16),
                              PEAK_FLOPS[torch.bfloat16], None, K=K, N=N, route=route,
-                             uses_per_forward=uses, max_abs_ref=peak, cuda_core_ms=cc_ms,
-                             dense_bf16_matmul_ms=dense_ms))
+                             uses_per_forward=uses, max_abs_ref=peak,
+                             dense_bf16_matmul_ms=dense_ms, **others))
             log(f"[prefill] {name:13s} {shape:8s} M={M:4d} bf16 err={err:.2e} tensor-core "
-                f"ms={ms:.4f} cuda-core ms={cc_ms:.4f} ({cc_ms / ms:.1f}x) plain={plain_ms:.3f} "
-                f"dense_bf16={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
+                f"ms={ms:.4f} cuda-core ms={cc_ms:.4f} ({cc_ms / ms:.1f}x)"
+                + "".join(f" {k[:-3]}={v:.4f}" for k, v in others.items() if k != "cuda_core_ms")
+                + f" plain={plain_ms:.3f} dense_bf16={dense_ms:.4f} "
+                f"bound={rows[-1]['bound_ms']:.4f}")
     return rows
+
+
+def mid_rows(shape, K, N, uses, nt, streams, copies, gen):
+    """bf16 rows at ``MID_MS`` (the M = 32 row is phase 1's own): each
+    kernel on the short-prefill body the route picks (:func:`checked_launch`,
+    which holds it against its plain version), timed by CUDA-graph replay
+    beside the same call on the CUDA-core body, the decode route in 8-row
+    groups and the tensor-core body (the plain version is timed at M = 32
+    only); bound by the words' bytes."""
+    from repro_torch.kernels import dispatch
+
+    rows = []
+    for M in MID_MS:
+        x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        for name, (rung, _, _) in KERNELS.items():
+            call, route, err, peak = checked_launch(name, nt, x, copies, torch.bfloat16,
+                                                    f"{name} {shape} M={M}", dispatch.MID)
+            ms = time_graph_ms(call, 20)
+            others = other_bodies_ms(name, nt, x, copies, torch.bfloat16, route)
+            rows.append(_row(name, shape, M, "bfloat16", err, ms, None,
+                             *matmul_cost(x, streams[:rung + 1], N, torch.bfloat16),
+                             PEAK_FLOPS[torch.bfloat16], None, K=K, N=N, route=route,
+                             uses_per_forward=uses, max_abs_ref=peak, **others))
+            log(f"[mid] {name:13s} {shape:8s} M={M:2d} bf16 err={err:.2e} mid ms={ms:.4f} "
+                + " ".join(f"{k[:-3]}={v:.4f}" for k, v in others.items())
+                + f" bound={rows[-1]['bound_ms']:.4f}")
+    return rows
+
+
+def mid_layers(rows):
+    """Per rung and M in 16, 32, 48, 63 (and 64), one qwen2-1.5b layer's
+    seven matmuls (q, k, v, o, gate, up, down: every shape but the LM head
+    once per its uses in a layer) on each K1-K3 body, bf16, from phase 1's
+    rows: the route's measurement for the short prefill."""
+    out = {}
+    per_layer = {"q/o": 2, "k/v": 2, "gate/up": 2, "down": 1}
+    for M in sorted({r["M"] for r in rows if r.get("mid_ms") or r.get("route") == "mid"}):
+        for rung, name in enumerate(KERNELS):
+            sel = [r for r in rows if r["kernel"] == name and r["M"] == M
+                   and r["dtype"] == "bfloat16" and r["shape"] in per_layer]
+            if len(sel) != len(per_layer):
+                continue
+            by = {}
+            for r in sel:
+                times = {r["route"]: r["ms"], **{k[:-3]: v for k, v in r.items()
+                                                  if k.endswith("_ms") and k[:-3] in (
+                                                      "cuda_core", "decode", "tensor_core",
+                                                      "mid") and v is not None}}
+                for body, ms in times.items():
+                    by[body] = by.get(body, 0.0) + ms * per_layer[r["shape"]]
+            out[f"M={M} rung {rung}"] = by
+            log(f"[mid-layer] M={M:2d} rung {rung}: a layer's seven matmuls " + " ".join(
+                f"{b}={v:.4f}" for b, v in sorted(by.items(), key=lambda kv: kv[1]))
+                + f" ms; fastest {min(by, key=by.get)}")
+    return out
 
 
 def phase_kernels(cfg, gen, during=None):
@@ -554,6 +658,7 @@ def phase_kernels(cfg, gen, during=None):
         build_s = built.result()
     log(f"[build] nvcc sm_90a in {build_s:.1f}s ({time.time() - t0:.1f}s with what ran "
         f"meanwhile)")
+    PHASE_S["build"] = build_s
     for source, text in build.build_logs.items():
         log(f"[build] ptxas report for {source}:\n{text.strip()}")
     rows = []
@@ -575,26 +680,25 @@ def phase_kernels(cfg, gen, during=None):
                 for name, (rung, _, _) in KERNELS.items():
                     call, route, err, peak = checked_launch(
                         name, nt, x, copies, out_dtype, f"{name} {shape} M={M} {dtype}")
-                    dec = route == dispatch.DECODE
                     ms = time_graph_ms(call, 20)
                     host_ms = time_ms(call, 20)
-                    cc_ms = (time_graph_ms(kernel_call(name, nt, x, copies, out_dtype,
-                                                       route=dispatch.CUDA_CORE), 20)
-                             if dec else None)
+                    others = other_bodies_ms(name, nt, x, copies, out_dtype, route)
                     with dispatch.reference_pass():
                         plain_ms = time_ms(call, 3)
                     dense_ms = time_graph_ms(lambda i: torch.matmul(xd, dense[i % len(dense)]), 20)
                     rows.append(_row(name, shape, M, str(dtype).replace("torch.", ""), err, ms,
                                      plain_ms, *matmul_cost(x, streams[:rung + 1], N, out_dtype),
                                      PEAK_FLOPS[dtype], None, K=K, N=N, uses_per_forward=uses,
-                                     route=route, max_abs_ref=peak, cuda_core_ms=cc_ms,
-                                     eager_call_ms=host_ms, dense_bf16_matmul_ms=dense_ms))
-                    before_ms = "" if cc_ms is None else f" cuda-core={cc_ms:.4f}"
+                                     route=route, max_abs_ref=peak, eager_call_ms=host_ms,
+                                     dense_bf16_matmul_ms=dense_ms,
+                                     **{"cuda_core_ms": None, **others}))
                     log(f"[kernel] {name:13s} {shape:8s} M={M:2d} {rows[-1]['dtype']:8s} "
-                        f"{route:9s} err={err:.2e} ms={ms:.4f}{before_ms} eager={host_ms:.4f} "
-                        f"plain={plain_ms:.3f} dense_bf16={dense_ms:.4f} "
+                        f"{route:11s} err={err:.2e} ms={ms:.4f} "
+                        + "".join(f"{k[:-3]}={v:.4f} " for k, v in others.items())
+                        + f"eager={host_ms:.4f} plain={plain_ms:.3f} dense_bf16={dense_ms:.4f} "
                         f"bound={rows[-1]['bound_ms']:.4f}")
         if not out_f32:           # a prefill's LM head sees only the last token
+            rows += mid_rows(shape, K, N, uses, nt, streams, copies, gen)
             rows += prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen)
         del copies, dense, nt, streams
         torch.cuda.empty_cache()
@@ -632,9 +736,9 @@ def packed_linears_per_forward(store) -> int:
 def checked_generate(engine, reqs, rung, per_forward, what):
     """One ``generate`` of a short batch under the budget that lands on
     ``rung``; checks the rung, every packed_linear on the rung's kernel (the
-    32-row prefill's on the CUDA-core body, its LM head and every decode
-    step's on the decode body), no plain version, and the tokens in range.
-    Returns (wall s, launches, decode-body launches) of the call."""
+    32-row prefill's on the short-prefill body, its LM head and every
+    decode step's on the decode body), no plain version, and the tokens in
+    range.  Returns (wall s, launches, decode-body launches) of the call."""
     from repro_torch.kernels import dispatch
 
     store, vocab = engine.store, engine.cfg.vocab_size
@@ -642,6 +746,7 @@ def checked_generate(engine, reqs, rung, per_forward, what):
     want_dec = per_forward * NEW_TOKENS + 1
     before = {n: (c.launches, c.plain_launches) for n, c in dispatch.COUNTERS.items()}
     before_dec = {n: c.dec_launches for n, c in dispatch.COUNTERS.items()}
+    before_mid = {n: c.mid_launches for n, c in dispatch.COUNTERS.items()}
     torch.cuda.synchronize()
     t0 = time.time()
     engine.generate(reqs, memory_budget_bytes=budget_for(store, rung))
@@ -658,6 +763,10 @@ def checked_generate(engine, reqs, rung, per_forward, what):
     if dec != {n: want_dec if want[n][0] else 0 for n in dec}:
         raise AssertionError(f"{what}: decode-body launches {dec}, want {want_dec} "
                              f"on the rung's kernel")
+    mid = {n: c.mid_launches - before_mid[n] for n, c in dispatch.COUNTERS.items()}
+    if mid != {n: per_forward - 1 if want[n][0] else 0 for n in mid}:
+        raise AssertionError(f"{what}: short-prefill launches {mid}, want {per_forward - 1} "
+                             f"(the {BATCH * PROMPT}-row prefill's) on the rung's kernel")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens or not all(
                 0 <= t < vocab for t in r.out_tokens):
@@ -705,8 +814,8 @@ def phase_serve(cfg):
             f"{BATCH}x{NEW_TOKENS} tokens in {wall:.3f}s; ledger in="
             f"{store.ledger.page_in_bytes} out={store.ledger.page_out_bytes} "
             f"switches={store.ledger.switches}; launches {delta}, on the decode body {dec}")
-    launches = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches)
-                for n in KERNELS}
+    launches = {n: (dispatch.COUNTERS[n].launches, dispatch.COUNTERS[n].dec_launches,
+                    dispatch.COUNTERS[n].mid_launches) for n in KERNELS}
     if any(dispatch.COUNTERS[n].plain_launches for n in KERNELS):
         raise AssertionError("a plain version ran on the main path")
     if any(dispatch.COUNTERS[n].tc_launches for n in KERNELS):
@@ -715,7 +824,20 @@ def phase_serve(cfg):
 
 
 K1_K3_BODIES = (("decode", ("stream_matmul_dec<",)), ("tensor_core", ("stream_matmul_tc<",)),
-                ("cuda_core", ("stream_matmul<",)), ("reduce_partials", ("reduce_partials",)))
+                ("mid", ("stream_matmul_mid<",)), ("cuda_core", ("stream_matmul<",)),
+                ("reduce_partials", ("reduce_partials",)))
+
+
+def device_rows(fn):
+    """Profile ``fn()`` (device activity only, read from the raw events:
+    a CPU trace of a full-width generate costs the profiler more than the
+    generate) -> (device us, calls, kernel name) per kernel name, largest
+    first."""
+    by = {}
+    for name, ms in _events(fn)[2]:
+        t, c = by.get(name, (0.0, 0))
+        by[name] = (t + ms * 1e3, c + 1)
+    return sorted(((t, c, name) for name, (t, c) in by.items() if t > 0), reverse=True)
 
 
 def k1_k3_split(dev):
@@ -728,13 +850,11 @@ def k1_k3_split(dev):
 
 def phase_profile(engine, store, cfg, per_forward):
     """Where one generate call's time goes at the current rung: wall time
-    (host clock, unprofiled), device busy time (torch.profiler's CUDA
-    kernel self times, profiled run), K1-K3 by body and the largest
-    kernels.  Only the 32-row prefill's matmuls take the CUDA-core body,
-    so its split-K pass runs per_forward - 1 times and no more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (host clock, unprofiled), device busy time (the kernels' device times
+    in a profiled run, :func:`device_rows`), K1-K3 by body and the largest
+    kernels.  Only the 32-row prefill's matmuls take the short-prefill
+    body (per_forward - 1 launches), and nothing takes the CUDA-core body
+    or its split-K pass."""
     budget = budget_for(store, store.rung)
     engine.generate(make_requests(90, cfg.vocab_size), memory_budget_bytes=budget)
     torch.cuda.synchronize()
@@ -742,13 +862,9 @@ def phase_profile(engine, store, cfg, per_forward):
     engine.generate(make_requests(91, cfg.vocab_size), memory_budget_bytes=budget)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate(make_requests(92, cfg.vocab_size), memory_budget_bytes=budget)
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's device time repeats its kernels'
-    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                 reverse=True)
+    dev = device_rows(lambda: (engine.generate(make_requests(92, cfg.vocab_size),
+                                               memory_budget_bytes=budget),
+                               torch.cuda.synchronize()))
     busy_ms = sum(d[0] for d in dev) / 1e3
     split = k1_k3_split(dev)
     out = {"rung": store.rung, "wall_ms": wall_ms,
@@ -760,9 +876,11 @@ def phase_profile(engine, store, cfg, per_forward):
     log(f"[profile] rung {store.rung} generate ({BATCH}x{NEW_TOKENS} tokens): wall "
         f"{wall_ms:.1f} ms, device busy "
         f"{'not measured' if busy_ms == 0 else f'{busy_ms:.1f} ms'}; K1-K3 by body {split}")
-    if busy_ms > 0 and split["reduce_partials"]["calls"] != per_forward - 1:
-        raise AssertionError(f"short generate: {split['reduce_partials']['calls']} split-K "
-                             f"passes, want {per_forward - 1} (the 32-row prefill's)")
+    if busy_ms > 0 and (split["mid"]["calls"], split["cuda_core"]["calls"],
+                        split["reduce_partials"]["calls"]) != (per_forward - 1, 0, 0):
+        raise AssertionError(f"short generate: K1-K3 by body {split}, want "
+                             f"{per_forward - 1} short-prefill launches (the 32-row "
+                             f"prefill's) and no CUDA-core launch")
     for k in out["top_kernels"]:
         log(f"[profile]   {k['device_ms']:9.3f} ms  x{k['calls']:5d}  {k['name']}")
     return out
@@ -848,14 +966,13 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
                     u16, _ = e16.model.prefill(params, toks)
             else:
                 p32f = p32
-        t = {(d, plain): _generate(e, budget, phase, plain)
-             for d, e in (("bf16", e16), ("f32", e32)) for plain in (False, True)}
+        # greedy tokens in f32 only: bf16's are held by their logits above
+        t = {plain: _generate(e32, budget, phase, plain) for plain in (False, True)}
         r = {"f32_kernel_vs_plain": _rel(k32, p32),
              "bf16_kernel_vs_f32_plain": _rel(k16, p32f),
              "bf16_plain_vs_f32_plain": _rel(p16, p32f),
              "bf16_kernel_vs_bf16_plain": _rel(k16, p16),
-             "f32_tokens_identical": bool((t["f32", False] == t["f32", True]).all()),
-             "bf16_token_agreement": float((t["bf16", False] == t["bf16", True]).mean()),
+             "f32_tokens_identical": bool((t[False] == t[True]).all()),
              "max_abs_logit": p32.abs().max().item(), "bf16_tol": bf16_tol}
         finite = all(bool(x.isfinite().all()) for x in (k16, k32, p16, p32, p32f))
         r["ok"] = (finite and r["f32_kernel_vs_plain"] <= 1e-4 and r["f32_tokens_identical"]
@@ -885,8 +1002,7 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
             f"(tol 1e-4), tokens identical {r['f32_tokens_identical']}; bf16 kernel vs "
             f"f32 plain {r['bf16_kernel_vs_f32_plain']:.3e}, bf16 kernel vs bf16 plain "
             f"{r['bf16_kernel_vs_bf16_plain']:.3e} (tol {bf16_tol:.1e} each), bf16 "
-            f"plain vs f32 plain {r['bf16_plain_vs_f32_plain']:.3e}, bf16 greedy token "
-            f"agreement {r['bf16_token_agreement']:.3f}")
+            f"plain vs f32 plain {r['bf16_plain_vs_f32_plain']:.3e}")
         if not r["ok"]:
             failures.append(rung)
         del e16, e32
@@ -909,13 +1025,14 @@ def _timed(fn):
 
 def _build_state():
     """What a serve must leave alone after warm-up: the loaded kernel
-    libraries, the decode-body plans and the current stream's arrival
-    counters' buffer."""
+    libraries, the decode-body and short-prefill plans and the current
+    stream's arrival counters' buffer (both bodies share it)."""
     from repro_torch.kernels import build
 
     buf = build._dec_counters.get((torch.cuda.current_device(),
                                    torch.cuda.current_stream().cuda_stream))
     return {"libraries": sorted(build._libs), "dec_plans": len(build._dec_plans),
+            "mid_plans": len(build._mid_plans),
             "counters_ptr": None if buf is None else buf.data_ptr(),
             "counters_numel": None if buf is None else buf.numel()}
 
@@ -2311,25 +2428,18 @@ def phase_long_f32(cfg, store):
 
 def phase_long_profile(engine, cfg):
     """Where one long generate call's time goes (rung 2, bf16): host wall
-    clock unprofiled, then device busy time by kernel under torch.profiler.
+    clock unprofiled, then device busy time by kernel (:func:`device_rows`).
     In bf16 no K1-K3 launch of the path takes the CUDA-core body (so no
     split-K pass runs): the prefill's on the tensor cores, the rest on the
     decode body."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     reqs = long_requests(60, cfg.vocab_size)
     torch.cuda.synchronize()
     t0 = time.time()
     engine.generate(reqs, queue_depth=0)
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate(long_requests(61, cfg.vocab_size), queue_depth=0)
-        torch.cuda.synchronize()
-    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                 reverse=True)
+    dev = device_rows(lambda: (engine.generate(long_requests(61, cfg.vocab_size), queue_depth=0),
+                               torch.cuda.synchronize()))
     busy_ms = sum(d[0] for d in dev) / 1e3
     split = k1_k3_split(dev)
     body_ms = {body: v["device_ms"] for body, v in split.items()}
@@ -2463,20 +2573,21 @@ def moe_config():
 
 
 def _k_counts():
-    """(launches, decode-body, tensor-core, plain) of every wrapper."""
+    """(launches, decode-body, tensor-core, plain, short-prefill) of every
+    wrapper."""
     from repro_torch.kernels import dispatch
-    return {n: (c.launches, c.dec_launches, c.tc_launches, c.plain_launches)
+    return {n: (c.launches, c.dec_launches, c.tc_launches, c.plain_launches, c.mid_launches)
             for n, c in dispatch.COUNTERS.items()}
 
 
 def _k_delta(before):
-    return {n: tuple(a - b for a, b in zip(v, before.get(n, (0, 0, 0, 0))))
+    return {n: tuple(a - b for a, b in zip(v, before.get(n, (0, 0, 0, 0, 0))))
             for n, v in _k_counts().items()}
 
 
 def moe_want(glog, L, batch, dtype, attn=4):
-    """K1-K3 (launches, decode-body, tensor-core, plain) per kernel that the
-    routing ``moe.record_groups`` recorded implies.  Each forward (L
+    """K1-K3 (launches, decode-body, tensor-core, plain, short-prefill) per
+    kernel that the routing ``moe.record_groups`` recorded implies.  Each forward (L
     consecutive entries, one route and one rung) runs ``attn`` nested
     attention matmuls per layer at M = T (all 4 at full width), 3 matmuls
     per (layer, expert) group at its rows, and the LM head (M = T on the
@@ -2486,7 +2597,7 @@ def moe_want(glog, L, batch, dtype, attn=4):
     ``matmul_route`` picks for M."""
     from repro_torch.kernels import dispatch
 
-    want = {n: [0, 0, 0, 0] for n in KERNELS}
+    want = {n: [0, 0, 0, 0, 0] for n in KERNELS}
 
     def add(name, M, route, times):
         body = route or dispatch.matmul_route(M, dtype, DEVICE)
@@ -2494,6 +2605,7 @@ def moe_want(glog, L, batch, dtype, attn=4):
         want[name][0] += k
         want[name][1] += k * (body == dispatch.DECODE)
         want[name][2] += k * (body == dispatch.TENSOR_CORE)
+        want[name][4] += k * (body == dispatch.MID)
 
     if not glog or len(glog) % L:
         raise AssertionError(f"{len(glog)} MoE calls recorded, not whole {L}-layer forwards")
@@ -2517,9 +2629,10 @@ def _moe_check(glog, L, batch, dtype, delta, what, flash=0, attn=4):
     want = moe_want(glog, L, batch, dtype, attn)
     got = {n: delta[n] for n in KERNELS}
     others = {n: v for n, v in delta.items() if n not in KERNELS and any(v)}
-    want_others = {"flash_attention": (flash, 0, 0, 0)} if flash else {}
+    want_others = {"flash_attention": (flash, 0, 0, 0, 0)} if flash else {}
     if got != want or others != want_others:
-        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain) {got} "
+        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain, short "
+                             f"prefill) {got} "
                              f"{others}, the recorded routing implies {want} {want_others}")
     return {n: v[:3] for n, v in got.items()}
 
@@ -2849,12 +2962,12 @@ def ssm_matmuls(cfg) -> int:
 
 
 def ssm_want(cfg, batch, prompt, new, rung, flash=0):
-    """(launches, decode-body, tensor-core, plain) per wrapper that one
-    generate of ``batch`` prompts of ``prompt`` tokens and ``new`` new
-    tokens at ``rung`` implies: every forward's matmuls on the rung's
-    kernel; the prefill's on the body M = batch * prompt picks but its LM
-    head (M = batch), which takes the decode body as every decode step
-    does; ``flash`` K5 launches; nothing plain."""
+    """(launches, decode-body, tensor-core, plain, short-prefill) per
+    wrapper that one generate of ``batch`` prompts of ``prompt`` tokens and
+    ``new`` new tokens at ``rung`` implies: every forward's matmuls on the
+    rung's kernel; the prefill's on the body M = batch * prompt picks but
+    its LM head (M = batch), which takes the decode body as every decode
+    step does; ``flash`` K5 launches; nothing plain."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels import dispatch
 
@@ -2862,11 +2975,11 @@ def ssm_want(cfg, batch, prompt, new, rung, flash=0):
     name = next(n for n, v in KERNELS.items() if v[0] == min(rung, 2))
     body = dispatch.matmul_route(batch * prompt, torch_dtype(cfg.compute_dtype), DEVICE)
     pre = per - 1
-    want = {n: (0, 0, 0, 0) for n in dispatch.COUNTERS}
+    want = {n: (0, 0, 0, 0, 0) for n in dispatch.COUNTERS}
     want[name] = (per * (1 + new), per * new + 1 + pre * (body == dispatch.DECODE),
-                  pre * (body == dispatch.TENSOR_CORE), 0)
+                  pre * (body == dispatch.TENSOR_CORE), 0, pre * (body == dispatch.MID))
     if flash:
-        want["flash_attention"] = (flash, 0, 0, 0)
+        want["flash_attention"] = (flash, 0, 0, 0, 0)
     return want
 
 
@@ -2882,8 +2995,8 @@ def _ssm_generate(engine, reqs, what, budget=None, queue_depth=None, flash=0):
     want = ssm_want(cfg, len(reqs), max(len(r.prompt) for r in reqs),
                     max(r.max_new_tokens for r in reqs), engine.store.rung, flash)
     if delta != want:
-        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain) {delta}, "
-                             f"want {want}")
+        raise AssertionError(f"{what}: launches (all, decode, tensor core, plain, short "
+                             f"prefill) {delta}, want {want}")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens):
@@ -2915,7 +3028,7 @@ def ssm_rows(cfg, store, gen, long_batch, long_prompt):
     """K1-K3 on the model's own nested weights at rung 2's streams, bf16, at
     every (M, body) the main path launches: decode steps at M = ``BATCH``
     and at the long runs' batch (decode body), the short serve's prefill at
-    M = ``BATCH`` * ``PROMPT`` (CUDA cores) and the long prefill's M
+    M = ``BATCH`` * ``PROMPT`` (the short-prefill body) and the long prefill's M
     (tensor cores; the ragged N of in_proj and the LM head among them).
     Each is checked and counted by :func:`checked_launch` and timed by
     CUDA-graph replay (cycling through the layers' words, or cold copies
@@ -2925,8 +3038,8 @@ def ssm_rows(cfg, store, gen, long_batch, long_prompt):
 
     store.to_rung(2)
     bodies = ((BATCH, dispatch.DECODE), (long_batch, dispatch.DECODE),
-              (BATCH * PROMPT, dispatch.CUDA_CORE), (long_batch * long_prompt,
-                                                     dispatch.TENSOR_CORE))
+              (BATCH * PROMPT, dispatch.MID), (long_batch * long_prompt,
+                                               dispatch.TENSOR_CORE))
     rows = []
     for shape, views, reads, K in _ssm_matmul_leaves(cfg, store.params()):
         nt = views[0]
@@ -3327,9 +3440,9 @@ SCORE_STEPS = (10_000, 10_001)     # held-out batches of the training stream
 # plain: about the geometric mean of the worst sound reading (4.1e-5) and
 # the lowest one-stream-short control (1.07e-3) on the H100 (PERF.md)
 SCORE_TOL = 2e-4
+TRAIN_CLI_STEPS, TRAIN_CLI_FAIL_AT = 6, 5
 TRAIN_CLI = ["--arch", "qwen2-1.5b", "--layers", "2", "--batch", "1", "--seq", "2048",
-             "--steps", "6", "--ckpt-every", "4"]
-TRAIN_CLI_FAIL_AT = 5
+             "--steps", str(TRAIN_CLI_STEPS), "--ckpt-every", "4"]
 
 
 def train_config(layers: int, dtype: str):
@@ -3563,11 +3676,94 @@ def _dir_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def train_cli_resume():
-    """8(c): the train CLI as subprocesses on the card at full width
-    (``TRAIN_CLI``): straight through and with ``--simulate-failure-at 5``
-    (exit 42) side by side, then resumed; the resumed run's step-6
-    checkpoint must equal the straight run's bit for bit.  Both are
+class TrainCliRuns:
+    """8(d)'s train CLI subprocesses on the card at full width
+    (``TRAIN_CLI``), run by a thread: straight through (its one checkpoint
+    the last step's) and with ``--simulate-failure-at 5`` (exit 42) side
+    by side, then resumed.  ``main`` starts them after phase 9 and checks
+    them after phase 10 (:func:`train_cli_check`): they wait on the disk,
+    phase 10's rank processes on the host, and the card holds both."""
+
+    def __init__(self):
+        import shutil
+        import threading
+
+        self.base = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(self.base, ignore_errors=True)
+        self.dirs = {k: self.base / k for k in ("straight", "resumed", "again")}
+        self.procs, self.lines, self.error, self.stopped = [], [], None, False
+        self.out = {"peak_disk_bytes": 0}
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _cli(self, name, *extra):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+               "--ckpt-dir", str(self.dirs[name]), *extra]
+        with self._lock:
+            if self.stopped:
+                raise RuntimeError("the train CLI runs were stopped")
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            self.procs.append(proc)
+        return proc
+
+    def _finish(self, proc, want_rc, what):
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode != want_rc:
+            raise AssertionError(f"train CLI {what} exited {proc.returncode}, want "
+                                 f"{want_rc}:\n{text[-3000:]}")
+        self.lines += [f"{what}: {line}" for line in text.strip().splitlines()]
+        return text
+
+    def _disk(self):
+        self.out["peak_disk_bytes"] = max(self.out["peak_disk_bytes"], _dir_bytes(self.base))
+
+    def _run(self):
+        try:
+            t0 = time.perf_counter()
+            straight = self._cli("straight", "--ckpt-every", str(TRAIN_CLI_STEPS))
+            crashed = self._cli("resumed", "--simulate-failure-at", str(TRAIN_CLI_FAIL_AT))
+            self._finish(straight, 0, "straight")
+            text = self._finish(crashed, 42, "crashed")
+            self.out["straight_and_crashed_s"] = time.perf_counter() - t0
+            self._disk()
+            if f"[failure-injection] dying at step {TRAIN_CLI_FAIL_AT}" not in text:
+                raise AssertionError("the crashed run did not die where asked")
+            t0 = time.perf_counter()
+            text = self._finish(self._cli("resumed"), 0, "resumed")
+            self.out["resumed_s"] = time.perf_counter() - t0
+            self._disk()
+            if "[resume] from step 4" not in text:
+                raise AssertionError("the resumed run did not resume from step 4")
+        except BaseException as e:          # raised again by ``wait``
+            self.error = e
+
+    def wait(self):
+        """The runs' times and peak disk once they ended (raises what they
+        raised)."""
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+    def stop(self):
+        """End every process still running and remove every directory."""
+        import shutil
+
+        with self._lock:
+            self.stopped = True
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+        self._thread.join()
+        shutil.rmtree(self.base, ignore_errors=True)
+
+
+def train_cli_check(runs):
+    """8(d), checked: wait for :class:`TrainCliRuns`; the resumed run's
+    step-6 checkpoint must equal the straight run's bit for bit.  Both are
     restored with ``CheckpointManager`` (timed) and compared on the card,
     and one is saved again (timed); every directory is removed."""
     import shutil
@@ -3576,47 +3772,13 @@ def train_cli_resume():
     from repro_torch.models import make_model
     from repro_torch.optim import adamw
 
-    base = ROOT / "build" / "train_ckpt"
-    shutil.rmtree(base, ignore_errors=True)
-    torch.cuda.empty_cache()             # the two runs side by side need ~30 GB
-    log(f"[train-cli] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of "
-        f"device memory while the CLI runs")
-    dirs = {k: base / k for k in ("straight", "resumed", "again")}
-    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
-
-    def cli(name, *extra):
-        cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
-               "--ckpt-dir", str(dirs[name]), *extra]
-        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-
-    def finish(proc, want_rc, what):
-        text, _ = proc.communicate(timeout=600)
-        if proc.returncode != want_rc:
-            raise AssertionError(f"train CLI {what} exited {proc.returncode}, want "
-                                 f"{want_rc}:\n{text[-3000:]}")
-        for line in text.strip().splitlines():
-            log(f"[train-cli] {what}: {line}")
-        return text
-
-    peak_disk = 0
+    t0 = time.perf_counter()
     try:
-        t0 = time.perf_counter()
-        runs = {"straight": cli("straight"),
-                "crashed": cli("resumed", "--simulate-failure-at", str(TRAIN_CLI_FAIL_AT))}
-        finish(runs["straight"], 0, "straight")
-        crashed = finish(runs["crashed"], 42, "crashed")
-        t_pair = time.perf_counter() - t0
-        peak_disk = _dir_bytes(base)
-        if f"[failure-injection] dying at step {TRAIN_CLI_FAIL_AT}" not in crashed:
-            raise AssertionError("the crashed run did not die where asked")
-        shutil.rmtree(dirs["straight"] / "step_0000000004")       # read no further
-        t0 = time.perf_counter()
-        resumed = finish(cli("resumed"), 0, "resumed")
-        t_resume = time.perf_counter() - t0
-        peak_disk = max(peak_disk, _dir_bytes(base))
-        if "[resume] from step 4" not in resumed:
-            raise AssertionError("the resumed run did not resume from step 4")
+        out = dict(runs.wait())
+        wait_s = time.perf_counter() - t0
+        for line in runs.lines:
+            log(f"[train-cli] {line}")
+        dirs = runs.dirs
         model = make_model(train_config(2, "bfloat16"), device=DEVICE)
         params = model.init(0)
         tmpl = {"params": params, "opt": adamw.init_state(params)}
@@ -3633,19 +3795,19 @@ def train_cli_resume():
         shutil.rmtree(dirs["resumed"])
         _, t_save = _timed(lambda: CheckpointManager(str(dirs["again"])).save(
             6, got["straight"][0], extra=got["straight"][1]["extra"]))
-        peak_disk = max(peak_disk, _dir_bytes(base))
+        runs._disk()
     finally:
-        shutil.rmtree(base, ignore_errors=True)
-    out = {"leaves": len(a), "differing_leaves": differ, "checkpoint_bytes": nbytes,
-           "save_s": t_save, "restore_s": [got[n][2] for n in ("straight", "resumed")],
-           "straight_and_crashed_s": t_pair, "resumed_s": t_resume,
-           "data_step": [got[n][1]["extra"]["data_step"] for n in ("straight", "resumed")],
-           "peak_disk_bytes": peak_disk}
+        runs.stop()
+    out.update({"leaves": len(a), "differing_leaves": differ, "checkpoint_bytes": nbytes,
+                "save_s": t_save, "restore_s": [got[n][2] for n in ("straight", "resumed")],
+                "data_step": [got[n][1]["extra"]["data_step"] for n in ("straight", "resumed")],
+                "waited_after_phase_10_s": wait_s})
     log(f"[train-cli] resumed step-6 checkpoint vs straight: {len(a) - len(differ)} of "
         f"{len(a)} leaves bit for bit; checkpoint {nbytes / 1e9:.2f} GB, save "
         f"{t_save:.1f}s, restore {out['restore_s'][0]:.1f} / {out['restore_s'][1]:.1f}s; "
-        f"runs {t_pair:.1f}s (straight and crashed side by side) + {t_resume:.1f}s "
-        f"(resumed); peak disk {peak_disk / 1e9:.1f} GB")
+        f"runs {out['straight_and_crashed_s']:.1f}s (straight and crashed side by side) + "
+        f"{out['resumed_s']:.1f}s (resumed), beside phase 10, waited for {wait_s:.1f}s after "
+        f"it; peak disk {out['peak_disk_bytes'] / 1e9:.1f} GB")
     del got, a, b, tmpl, params
     torch.cuda.empty_cache()
     if differ or out["data_step"] != [6, 6]:
@@ -3737,17 +3899,17 @@ def train_score(cfg, params):
 
 def phase_train():
     """Phase 8: the gradient check, training, NestQuant of the trained
-    weights and scoring at every rung, then the CLI's crash and resume."""
+    weights and scoring at every rung (the CLI's crash and resume, 8(d),
+    runs beside phase 10)."""
     t0 = time.perf_counter()
     check = train_grad_check()
     cfg, params, run = train_run()
     score = train_score(cfg, params)
     del params
     torch.cuda.empty_cache()
-    cli = train_cli_resume()
     seconds = time.perf_counter() - t0
     log(f"[train] phase 8 took {seconds:.1f}s ({smi_line()})")
-    return {"check": check, "run": run, "cli": cli, "score": score, "seconds": seconds,
+    return {"check": check, "run": run, "score": score, "seconds": seconds,
             "k5_launches": (check["float32"]["k5_launches"] + check["bfloat16"]["k5_launches"]
                             + run["k5_launches"] + score["k5_launches"]),
             "launches": score["launches"]}
@@ -3770,21 +3932,27 @@ SHARDED_LOSS_TOL = 1e-5
 SHARDED_STATE_TOL = 0.1
 SHARDED_SERVE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}     # phase 3's qwen2 limits
 SHARDED_MOE_TOL = 1e-4
+# the nested serves' depth in phases 9 and 10 (of 28, 48 and 54 layers):
+# each layer and each K1/K2 launch repeats the one before it, and zamba2's
+# shared block applies twice; the limits above hold per position, and the
+# controls read above them from the first layer (PERF.md)
+SHARDED_SERVE_LAYERS = {"qwen2-1.5b": 4, "mamba2-780m": 8, "zamba2-2.7b": 12}
 
 
 def sharded_plan():
     """What phase 9 runs (read by every rank from ``plan.json``): (a) the
     train step of qwen2-1.5b at full width with 2 of its 28 layers, global
     batch 4 x 2048 in microbatches of 2, at schedule step 50 (learning rate
-    half its peak); (b) qwen2-1.5b, all 28 layers, nested (4, 8) rtn as
-    ``quantize_abstract`` lays it out: a prefill of 4 x 64 tokens and 8
+    half its peak); (b) qwen2-1.5b, 4 of its 28 layers, nested (4, 8) rtn
+    as ``quantize_abstract`` lays it out: a prefill of 4 x 64 tokens and 8
     decode steps, f32 at rung 0 and bf16 at rung 1; (c) dbrx-132b at its
     published widths with 2 of its 40 layers, nested (4, 8), f32: a prefill
     of 4 x 8 tokens and 4 greedy decode steps."""
     return {"device": DEVICE, "mesh": list(SHARDED_MESH),
             "train": {"arch": "qwen2-1.5b", "layers": 2, "batch": 4, "seq": 2048,
                       "micro": 2, "step": 50},
-            "serve": {"arch": "qwen2-1.5b", "layers": None, "batch": 4, "prompt": 64,
+            "serve": {"arch": "qwen2-1.5b", "layers": SHARDED_SERVE_LAYERS["qwen2-1.5b"],
+                      "batch": 4, "prompt": 64,
                       "new": 8, "rungs": {"float32": [0], "bfloat16": [1]},
                       "dtypes": ["float32", "bfloat16"]},
             "moe": {"arch": MOE_ARCH, "layers": MOE_LAYERS, "batch": 4, "prompt": 8,
@@ -4221,7 +4389,8 @@ def control_loss(plan, mesh, key, control):
 def _k_totals():
     from repro_torch.kernels import dispatch
     return {n: {"launches": c.launches, "plain": c.plain_launches, "dec": c.dec_launches,
-                "tc": c.tc_launches} for n, c in dispatch.COUNTERS.items()}
+                "tc": c.tc_launches, "mid": c.mid_launches}
+            for n, c in dispatch.COUNTERS.items()}
 
 
 def _rank_trees(cfg, part, mesh, dev):
@@ -4524,10 +4693,10 @@ def check_serve_runs(tag, serve, part, per_fwd, k5_per_run=0):
                                      f"{run['gap']:.3e}: within the limit")
             continue
         name = kernel_of[int(rung)]
-        c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0})
+        c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0, "mid": 0})
         want = {"launches": per_fwd * (1 + part["new"]), "plain": 0,
                 "dec": 1 + per_fwd * part["new"],
-                "tc": (per_fwd - 1) if dt == "bfloat16" else 0}
+                "tc": (per_fwd - 1) if dt == "bfloat16" else 0, "mid": 0}
         got = {k: c[k] for k in want}
         others = sum(v["launches"] + v["plain"] for n, v in run["counts"].items()
                      if n != name and n in kernel_of.values())
@@ -4687,26 +4856,28 @@ def seq_ssm_plans():
     ``plan.json``).  ``seq`` on (data 1, model 8): (a) the train step of
     qwen2-1.5b at full width with 4 of its 28 layers, 2 x 2048 in one
     microbatch of 2, at schedule step 50: sequence-parallel attention, K5
-    at offsets 0, 256, ..., 1792; (b) qwen2-1.5b, all 28 layers, nested
-    (4, 8) rtn: a prefill of 2 x 2048 (sequence-parallel, K5 at the
+    at offsets 0, 256, ..., 1792; (b) qwen2-1.5b, 4 of its 28 layers,
+    nested (4, 8) rtn: a prefill of 2 x 2048 (sequence-parallel, K5 at the
     offsets), then 4 decode steps against a cache of 2056 positions split
     over model (257 per rank), f32 at rung 0 (K1), bf16 at rung 1 (K2).  ``ssm`` on
     (2, 2): (c) mamba2-780m's train step at full width with 4 of its 48
-    layers, 2 x 2048, and its nested (4, 8) serve at all 48 layers, 4 x 64
-    prompt tokens and 8 decode steps at rungs 0 and 1, f32; (d)
-    zamba2-2.7b's nested serve at all 54 layers the same way."""
+    layers, 2 x 2048, and its nested (4, 8) serve at 8 of its 48 layers,
+    4 x 64 prompt tokens and 8 decode steps at rungs 0 and 1, f32; (d)
+    zamba2-2.7b's nested serve at 12 of its 54 layers (two applications
+    of the shared block) the same way (``SHARDED_SERVE_LAYERS``)."""
     train = {"layers": 4, "batch": 2, "seq": 2048, "micro": 2, "step": 50}
-    serve = {"layers": None, "batch": 4, "prompt": 64, "new": 8, "rungs": [0, 1],
-             "dtypes": ["float32"]}
+    serve = {"batch": 4, "prompt": 64, "new": 8, "rungs": [0, 1], "dtypes": ["float32"]}
+    depth = {arch: {"arch": arch, "layers": n} for arch, n in SHARDED_SERVE_LAYERS.items()}
     return {"seq": {"job": "seq", "device": DEVICE, "mesh": list(SEQ_MESH),
                     "train": dict(train, arch="qwen2-1.5b"),
-                    "serve": dict(serve, arch="qwen2-1.5b", batch=2, prompt=2048, new=4, cache=2056,
+                    "serve": dict(serve, **depth["qwen2-1.5b"], batch=2, prompt=2048, new=4,
+                                  cache=2056,
                                   dtypes=["float32", "bfloat16"],
                                   rungs={"float32": [0], "bfloat16": [1]})},
             "ssm": {"job": "ssm", "device": DEVICE, "mesh": list(SSM_MESH),
                     "train": dict(train, arch="mamba2-780m"),
-                    "serve": dict(serve, arch="mamba2-780m"),
-                    "hybrid": dict(serve, arch="zamba2-2.7b")}}
+                    "serve": dict(serve, **depth["mamba2-780m"]),
+                    "hybrid": dict(serve, **depth["zamba2-2.7b"])}}
 
 
 @contextlib.contextmanager
@@ -4939,7 +5110,8 @@ def dry_serve(plan, key, dtype, rung, device, rank=0):
 
 def _dry_totals(parts):
     """(per collective [calls, payload], per kernel [launches, decode body,
-    tensor cores]) of ``parts``: (StepCosts, calls) pairs summed."""
+    tensor cores, short-prefill body]) of ``parts``: (StepCosts, calls)
+    pairs summed."""
     comm, kern = {}, {}
     for costs, n in parts:
         for op, calls in costs.num_collectives.items():
@@ -4947,8 +5119,8 @@ def _dry_totals(parts):
             c[0] += n * calls
             c[1] += n * costs.payload_bytes[op]
         for name, k in costs.kernels.items():
-            c = kern.setdefault(name, [0, 0, 0])
-            for i, f in enumerate(("dry_launches", "decode", "tensor_core")):
+            c = kern.setdefault(name, [0, 0, 0, 0])
+            for i, f in enumerate(("dry_launches", "decode", "tensor_core", "mid")):
                 c[i] += n * k[f]
     return comm, kern
 
@@ -4957,7 +5129,7 @@ def _measured_totals(comm_counts, k_totals):
     """The same of a rank's measured ``comm.counts()`` and ``_k_totals()``."""
     comm = {op: [c["calls"], c["payload_bytes"]] for op, c in comm_counts.items()
             if c["calls"]}
-    kern = {n: [c["launches"], c["dec"], c["tc"]] for n, c in k_totals.items()
+    kern = {n: [c["launches"], c["dec"], c["tc"], c["mid"]] for n, c in k_totals.items()
             if c["launches"]}
     return comm, kern
 
@@ -5254,14 +5426,38 @@ def decode_steps(rows, M, dtype):
     return out
 
 
-def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, train_info, M=4,
-                   dtype="bfloat16"):
+def short_prefill_summary(rows, name, mid_launches):
+    """K1-K3's ``short_prefill`` entry: one short prefill's 196 launches at
+    M = ``BATCH`` * ``PROMPT`` bf16 on the short-prefill body (every
+    main-path shape but the LM head times its uses per forward), beside the
+    same launches on the CUDA-core body (the "before"), the decode route in
+    8-row groups and the tensor-core body; ``launches`` phase 2's on it."""
+    M = BATCH * PROMPT
+    sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["dtype"] == "bfloat16"
+           and r["shape"] != "lm_head"]
+    tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)  # noqa: E731
+    t_bytes = tot("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = tot("ops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return {"route": "cuda", "source": "src/repro_torch/csrc/nest_matmul_mid.cu",
+            "replaces": KERNELS[name][2], "body": "mid", "launches": mid_launches,
+            "per": f"one short prefill: {sum(r['uses_per_forward'] for r in sel)} launches "
+                   f"at M={M} bf16",
+            "max_abs_err": max(r["max_abs_err"] for r in sel), "ms": tot("ms"),
+            "cuda_core_ms": tot("cuda_core_ms"), "decode_ms": tot("decode_ms"),
+            "tensor_core_ms": tot("tensor_core_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def kernel_summary(rows, launches, tc_launches, mid_launches, moe_info, ssm_info, train_info,
+                   M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
     (every main-path shape times its uses per forward) on the decode body,
     the same launches on the CUDA-core body beside it (``cuda_core_ms``);
     ``launches`` the main paths' (all bodies; phases 6 and 7 included),
     ``decode_launches`` those on the decode body; the long prefill's
-    tensor-core launches as its ``prefill`` entry; phase 6's (all, decode
+    tensor-core launches as its ``prefill`` entry, the short prefill's
+    short-prefill launches as its ``short_prefill`` entry; phase 6's (all, decode
     body, tensor cores) as ``moe_launches``, phase 7's per model as
     ``ssm_launches``, phase 8's scoring (all, decode body, tensor cores) as
     ``score_launches``."""
@@ -5284,6 +5480,7 @@ def kernel_summary(rows, launches, tc_launches, moe_info, ssm_info, train_info, 
             "per": f"one decode step: {sum(r['uses_per_forward'] for r in sel)} "
                    f"launches at M={M} {dtype}, decode body",
             "prefill": prefill_summary(rows, name, tc_launches[name]),
+            "short_prefill": short_prefill_summary(rows, name, mid_launches[name]),
             "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],),
             "ssm_launches": {arch: m["launches"][name] for arch, m in ssm_info.items()},
             "score_launches": train_info["launches"][name]})
@@ -5372,55 +5569,65 @@ def main() -> int:
     t_start = time.time()
     # phase 11's dry runs need the plans alone: they trace while nvcc builds
     dry_costs = {}
-    rows = phase_kernels(cfg, gen, during=lambda: dry_costs.update(dry_runs(DEVICE)))
-    kv_rows = phase_kv_kernels(cfg, gen)
-    engine, store, phases, launches = phase_serve(cfg)
-    profile_info = phase_profile(engine, store, cfg, packed_linears_per_forward(store))
-    reference = phase_reference(cfg, store)
+    rows = timed_phase("1", phase_kernels, cfg, gen,
+                       during=lambda: dry_costs.update(dry_runs(DEVICE)))
+    kv_rows = timed_phase("4", phase_kv_kernels, cfg, gen)
+    engine, store, phases, launches = timed_phase("2", phase_serve, cfg)
+    mid_launches = {n: launches[n][2] for n in KERNELS}
+    profile_info = timed_phase("2-profile", phase_profile, engine, store, cfg,
+                               packed_linears_per_forward(store))
+    reference = timed_phase("3", phase_reference, cfg, store)
     del engine
-    artifact = phase_artifact(cfg, store, phases, packed_linears_per_forward(store))
-    spec = phase_spec_faults(cfg, store, packed_linears_per_forward(store), gen)
+    artifact = timed_phase("3b", phase_artifact, cfg, store, phases,
+                           packed_linears_per_forward(store))
+    spec = timed_phase("3c", phase_spec_faults, cfg, store, packed_linears_per_forward(store),
+                       gen)
     peak_before_fleet = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fleet = phase_fleet(cfg, store, packed_linears_per_forward(store))
+    fleet = timed_phase("3d", phase_fleet, cfg, store, packed_linears_per_forward(store))
     launches = {n: tuple(launches[n][i] + artifact["launches"][n][i] + spec["launches"][n][i]
                          + fleet["launches"][n][i] for i in range(2))
                 for n in KERNELS}
     peak_before_long = max(peak_before_fleet, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
-    long_engine_, dense, long_info = phase_long_serve(cfg, store,
-                                                      packed_linears_per_forward(store))
+    long_engine_, dense, long_info = timed_phase("5", phase_long_serve, cfg, store,
+                                                 packed_linears_per_forward(store))
     long_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[long] peak device memory over the five long generates "
         f"{long_info['peak_mem_bytes'] / 1e9:.2f} GB")
-    served_kv = phase_served_kv_attention(long_engine_, dense, cfg, gen)
+    served_kv = timed_phase("5-kv", phase_served_kv_attention, long_engine_, dense, cfg, gen)
     del dense
-    long_profile = phase_long_profile(long_engine_, cfg)
+    long_profile = timed_phase("5-profile", phase_long_profile, long_engine_, cfg)
     del long_engine_
-    long_f32 = phase_long_f32(cfg, store)
-    served_recompose = phase_served_recompose(store)
+    long_f32 = timed_phase("5-f32", phase_long_f32, cfg, store)
+    served_recompose = timed_phase("5-k6", phase_served_recompose, store)
     del store
     torch.cuda.empty_cache()
     peak_before_moe = max(peak_before_long, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
-    moe_info = phase_moe(gen)
+    moe_info = timed_phase("6", phase_moe, gen)
     moe_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[moe] peak device memory over phase 6 {moe_info['peak_mem_bytes'] / 1e9:.2f} GB")
     peak_before_ssm = max(peak_before_moe, moe_info["peak_mem_bytes"])
-    ssm_info = phase_ssm(gen)
+    ssm_info = timed_phase("7", phase_ssm, gen)
     peak_before_train = max([peak_before_ssm]
                             + [m["peak_mem_bytes"] for m in ssm_info.values()])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train_info = phase_train()
+    train_info = timed_phase("8", phase_train)
     train_info["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     log(f"[train] peak device memory over phase 8 {train_info['peak_mem_bytes'] / 1e9:.2f} GB")
     torch.cuda.empty_cache()
-    sharded = phase_sharded()
+    sharded = timed_phase("9", phase_sharded)
     torch.cuda.empty_cache()
-    seq_ssm = phase_seq_ssm_sharded()
-    torch.cuda.empty_cache()
-    dry = phase_dryrun(dry_costs, sharded, seq_ssm)
+    train_cli = TrainCliRuns()         # phase 8(d), beside phase 10
+    try:
+        seq_ssm = timed_phase("10", phase_seq_ssm_sharded)
+        torch.cuda.empty_cache()
+        train_info["cli"] = timed_phase("8-cli", train_cli_check, train_cli)
+    finally:
+        train_cli.stop()
+    dry = timed_phase("11", phase_dryrun, dry_costs, sharded, seq_ssm)
     launches = {n: tuple(launches[n][i] + moe_info["launches"][n][i]
                          + sum(m["launches"][n][i] for m in ssm_info.values())
                          + train_info["launches"][n][i]
@@ -5432,8 +5639,8 @@ def main() -> int:
                                        + train_info["k5_launches"]),
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], moe_info, ssm_info,
-                              train_info)
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], mid_launches, moe_info,
+                              ssm_info, train_info)
                + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
                                    ssm_info["zamba2-2.7b"]["flash_check"], train_info))
     for k in kernels:          # phases 9 and 10, summed over their rank processes
@@ -5449,6 +5656,7 @@ def main() -> int:
         log(f"[decode-step] {key}: " + "; ".join(
             f"{n} {v['ms']:.3f} ms (cuda-core {v['cuda_core_ms']:.3f}, dense bf16 "
             f"{v['dense_bf16_matmul_ms']:.3f}, bound {v['bound_ms']:.3f})" for n, v in by.items()))
+    layers = mid_layers(rows)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
               "reference": reference, "artifact": artifact, "spec_faults": spec,
@@ -5457,7 +5665,8 @@ def main() -> int:
               "long_profile": long_profile, "long_f32": long_f32,
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
               "train": train_info, "sharded": sharded, "seq_ssm": seq_ssm, "dryrun": dry,
-              "kernels": kernels, "decode_steps": steps,
+              "kernels": kernels, "decode_steps": steps, "phase_s": PHASE_S,
+              "mid_layers": layers,
               "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for the three weight matmuls of the
 // NestQuant serving path, three templated bodies (a decode one, a CUDA-core
 // one and a tensor-core one), each instantiated for 1..4 packed word
-// streams:
+// streams; the fourth body, for bf16 at M 9-63 (the short prefill), is in
+// nest_matmul_mid.cu, and the operands and plans the two sources share in
+// nest_matmul.cuh:
 //
 //   nq_packed_matmul  replaces repro/kernels/packed_matmul/kernel.py:48
 //                     packed_matmul (rung 0: the base stream alone)
@@ -24,7 +26,8 @@
 // slots per word); every narrower component's word for the same elements
 // is its row r mod R_c.  The caller picks the body (kernels/dispatch.py
 // matmul_route: M <= 8 the decode body, bf16 at M >= TC_MIN_M the tensor
-// cores, the rest the CUDA cores; the decode route of a decode step or a
+// cores, bf16 in between the short-prefill body (nest_matmul_mid.cu), f32
+// above M 8 the CUDA cores; the decode route of a decode step or a
 // speculative verify pass names the decode body for groups of <= 8 rows;
 // the C entry points' `body` argument); nothing here switches from one to
 // another.
@@ -90,8 +93,9 @@
 //   say which stall), and short launches (k/v, q/o) pay a launch and one round trip
 //   to memory: 2-23 % of the byte bound per shape at M = 4 (PERF.md).
 //
-// CUDA-core body (stream_matmul; bf16 at M 9-63, f32 above M 8; it was
-// written for decode, which the decode body now serves).
+// CUDA-core body (stream_matmul; f32 above M 8; it was written for decode,
+// which the decode body now serves, and bf16 at M 9-63 takes the
+// short-prefill body).
 // At decode (M = 1..8) every packed weight word is read once for 2*M flops
 // per weight, far below the card's ~295 flop/byte ridge, so the bound is
 // the bytes of the packed words: 4 / 7 / 10 bits per weight at rungs
@@ -156,80 +160,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nest_matmul.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kMaxStreams = 4;
-constexpr int kMaxComps = 4;  // a <= 16-bit field splits into <= 4 parts
+using namespace nq_mm;
+
 constexpr int kBN = 32;       // output columns per CTA: one per lane
 constexpr int kWarps = 8;     // warps per CTA, splitting the word rows
 constexpr int kBM = 8;        // activation rows per CTA
-constexpr int kMaxBlock = 512;
 constexpr int kThreads = kWarps * 32;
 static_assert(kWarps == kBM, "the epilogue maps one warp to one output row");
-
-struct Stream {
-  const uint32_t* words;
-  int rows_pb;          // word rows one pack block of this stream holds
-  int code_bits;        // width of the stream's codes
-  int ncomp;            // power-of-two components, widest first
-  int w[kMaxComps];     // component widths
-  int R[kMaxComps];     // word rows of each component within a block
-  int off[kMaxComps];   // first row of each component within a block
-  int q[kMaxComps];     // rmax / R[c]
-  int cs[kMaxComps];    // bit position of each component in the stream's code
-                        // (tensor-core and decode routes)
-  // tensor-core route only
-  int first;            // index of component 0 among every stream's components
-  int rdiv[kMaxComps];  // ceil(2^20 / R[c]): r / R[c] == (r * rdiv) >> 20, r < 512
-  // decode route only
-  int glog[kMaxComps];  // log2(R[c] / R_min): word rows of this component per unit
-  int cbase[kMaxComps]; // first word row of this component in a unit (units of G rows)
-  uint32_t spread[kMaxComps];  // the component's field mask repeated every wmax bits
-  uint32_t fbias;       // 0x4B000000 | 2^(code_bits - 1): the code as an f32 2^23 + ...
-  float foff;           // ... minus this is the signed code
-  float fmul, flo;      // 2^gap and lo of this level as f32
-};
-
-struct Args {
-  const void* x;
-  void* out;
-  const float* scale;
-  float* partial;       // CUDA cores: (nk, M, N) split-K sums; decode: per-run slots
-  int M, N, K, block, nk;
-  int rmax;             // word rows of the widest component in a block
-  int slots;            // block / rmax: codes per word of that component
-  int out_f32;
-  // tensor-core route only
-  int rb, rb_shift;     // widest-component word rows per K step, its log2
-  int bk;               // codes of K per step: rb * slots (64, or 32)
-  int spb;              // K steps per pack block: rmax / rb
-  int nsteps;           // nk * spb
-  int ncomp_all;        // components of every stream together
-  int vx_shift;         // log2 of the x elements per async copy (1..8)
-  int vw_shift;         // log2 of the words per async copy of a word row (1..4)
-  // decode route only
-  int wmax;             // widest component's width: bits to a code's next slot
-  int bn_log;           // log2 of the output columns per CTA (5..7)
-  int rmin;             // word rows of the narrowest component in a block: units per block
-  int umax;             // rmax / rmin: widest-component rows per unit
-  int wpu;              // words per column in one unit, every component together
-  int g_log;            // log2 of the units per chunk (a chunk is one ring stage)
-  int cpb;              // chunks per pack block
-  int tiles;            // column tiles of 2^bn_log
-  long nitems;          // nk * tiles * cpb work items
-  int nctas;            // CTAs, each taking an equal run of items
-  int round_codes;      // bf16 x with codes over 9 bits: round each code to bf16
-  int spread;           // every stream's code fits wmax bits (and no rounding): the
-                        // packed-field path of the decode body
-  int x_bf16;
-  int* counters;        // per column tile arrival counts, 0 between launches
-  Stream s[kMaxStreams];
-  int gap[kMaxStreams];  // level i >= 1: codes = clip(codes * 2^gap + delta)
-  int lo[kMaxStreams];
-  int hi[kMaxStreams];
-};
 
 __device__ __forceinline__ float load_x(const float* x, size_t i) { return x[i]; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* x, size_t i) {
@@ -243,15 +185,6 @@ __device__ __forceinline__ float code_as(int c, const float*) {
 }
 __device__ __forceinline__ float code_as(int c, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(static_cast<float>(c)));
-}
-
-__device__ __forceinline__ void store_out(const Args& a, int m, int n, float v) {
-  const size_t i = static_cast<size_t>(m) * a.N + n;
-  if (a.out_f32) {
-    static_cast<float*>(a.out)[i] = v;
-  } else {
-    static_cast<__nv_bfloat16*>(a.out)[i] = __float2bfloat16_rn(v);
-  }
 }
 
 template <int NS, typename T>
@@ -371,11 +304,6 @@ size_t tc_smem_bytes(int bn, int wrows) {
   return 2ull * kTcBK * (bn + 8) * sizeof(__nv_bfloat16)                  // code ring
          + 2ull * kTcBM * kTcLDA * sizeof(__nv_bfloat16)                  // x ring
          + 2ull * wrows * bn * sizeof(uint32_t);                           // word ring
-}
-
-// an int code as f32, exact for |c| < 2^22 (two full-rate adds, no I2F)
-__device__ __forceinline__ float code_f32(int c) {
-  return __int_as_float(0x4B400000 + c) - 12582912.f;
 }
 
 template <int NS, int BN>
@@ -627,21 +555,9 @@ int launch_tc_ns(const Args& a, int ns, size_t smem, cudaStream_t stream) {
   }
 }
 
-int log2_exact(int v) {
-  int s = 0;
-  while ((1 << s) < v) ++s;
-  return s;
-}
-
 // Tensor-core route: Args filled by launch() up to the CUDA-core fields.
 int launch_tc(Args a, int ns, cudaStream_t stream) {
-  static int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess) {
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return n;
-  }();
+  const int sms = device_sms();
   // K step: 2 * w_max word rows (64 codes) when they tile the block's
   // rmax = (block / 32) * w_max rows, else w_max rows (32 codes)
   const int wmax = 32 / a.slots;
@@ -668,15 +584,7 @@ int launch_tc(Args a, int ns, cudaStream_t stream) {
     vx /= 2;
   }
   a.vx_shift = log2_exact(vx);
-  int vw = 4;
-  for (bool fits = false; !fits && vw > 1;) {
-    fits = a.N % vw == 0;
-    for (int s = 0; s < ns; ++s) {
-      fits = fits && reinterpret_cast<uintptr_t>(a.s[s].words) % (4 * vw) == 0;
-    }
-    if (!fits) vw /= 2;
-  }
-  a.vw_shift = log2_exact(vw);
+  a.vw_shift = word_copy_shift(a, ns);
   // 128-column tiles unless they would fill fewer than half the SMs (k/v,
   // N = 256, and short M at N = 1536 take 64)
   const long tiles = static_cast<long>((a.M + kTcBM - 1) / kTcBM) * ((a.N + 127) / 128);
@@ -859,9 +767,6 @@ __device__ __forceinline__ void dec_row(const Args& a, const uint32_t* wb, const
 // order (deterministic whoever arrives last), scales, casts and resets
 // the tile's counter.  Thread i owns the 4 columns of quad i mod (bn / 4)
 // and takes every (1024 / bn)-th widest-component row of a chunk.
-__device__ __forceinline__ int dec_owner(long item, long W, long P) {
-  return static_cast<int>(((item + 1) * P - 1) / W);  // the CTA whose run holds item
-}
 
 // (pack block, column tile, chunk) of an item, advanced without division
 struct DecItem {
@@ -1135,40 +1040,8 @@ int launch_dec_ns(const Args& a, int ns, size_t smem, cudaStream_t stream) {
 // streams' alignment and the device, never M.  nq_dec_workspace() reads the
 // same plan, so the wrapper allocates exactly the partials the launch writes.
 void dec_plan(Args& a, int ns) {
-  static int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess) {
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    }
-    return n;
-  }();
-  a.wmax = 32 / a.slots;
-  int wmin = a.wmax;
-  for (int s = 0; s < ns; ++s) {
-    for (int c = 0; c < a.s[s].ncomp; ++c) wmin = a.s[s].w[c] < wmin ? a.s[s].w[c] : wmin;
-  }
-  a.rmin = a.block * wmin / 32;
-  a.umax = a.rmax / a.rmin;
-  a.wpu = 0;
-  a.spread = 1;
-  for (int s = 0; s < ns; ++s) {
-    Stream& st = a.s[s];
-    a.spread = a.spread && st.code_bits <= a.wmax;
-    int cs = 0;
-    for (int c = 0; c < st.ncomp; ++c) {
-      st.glog[c] = log2_exact(st.w[c] / wmin);
-      st.cbase[c] = a.wpu;
-      a.wpu += st.w[c] / wmin;
-      st.cs[c] = cs;
-      cs += st.w[c];
-      st.spread[c] = 0u;
-      for (int j = 0; j < a.slots; ++j) st.spread[c] |= ((1u << st.w[c]) - 1u) << (j * a.wmax);
-    }
-    st.fbias = 0x4B000000u | (1u << (st.code_bits - 1));
-    st.foff = 8388608.f + static_cast<float>(1 << (st.code_bits - 1));
-    st.fmul = static_cast<float>(1 << a.gap[s]);
-    st.flo = static_cast<float>(a.lo[s]);
-  }
+  const int sms = device_sms();
+  unit_plan(a, ns);
   // the widest column tile (128, 64, 32) whose tiles times pack blocks
   // reach kDecItems per SM; the largest chunk (a power of two of units
   // dividing rmin) whose words fit one ring stage; then smaller chunks
@@ -1199,15 +1072,7 @@ void dec_plan(Args& a, int ns) {
   const long fit = static_cast<long>(sms) * dec_occupancy_ns<kDecMaxM>(
       ns, dec_smem_bytes(a, kDecMaxM));
   a.nctas = static_cast<int>(a.nitems > kDecPersist * fit ? fit : a.nitems);
-  int vw = 4;                                        // 16-byte copies unless misaligned
-  for (bool fits = false; !fits && vw > 1;) {
-    fits = a.N % vw == 0;
-    for (int s = 0; s < ns; ++s) {
-      fits = fits && reinterpret_cast<uintptr_t>(a.s[s].words) % (4 * vw) == 0;
-    }
-    if (!fits) vw /= 2;
-  }
-  a.vw_shift = log2_exact(vw);
+  a.vw_shift = word_copy_shift(a, ns);                // 16-byte copies unless misaligned
 }
 
 // f32 partial floats per activation row: one (bn)-wide slot per segment
@@ -1237,14 +1102,6 @@ int launch_dec(Args a, int ns, int x_bf16, int top_bits, int* counters, int ncou
   }
 }
 
-int split_components(int k, int* w) {
-  int n = 0;
-  for (int i = 4; i >= 0; --i) {
-    if ((k >> i) & 1) w[n++] = 1 << i;
-  }
-  return n;
-}
-
 template <int NS>
 void launch_body(const Args& a, int x_bf16, dim3 grid, cudaStream_t stream) {
   if (x_bf16) {
@@ -1252,53 +1109,6 @@ void launch_body(const Args& a, int x_bf16, dim3 grid, cudaStream_t stream) {
   } else {
     stream_matmul<NS, float><<<grid, kThreads, 0, stream>>>(a);
   }
-}
-
-// bits: ascending ladder bitwidths of the resident streams (one per
-// stream).  Stream 0 holds bits[0]-bit codes, stream i the
-// (bits[i] - bits[i-1] + 1)-bit compensated delta of level i.  Fills the
-// fields every body reads; returns a cudaError_t.
-int make_args(Args& a, const void* const* words, const int* bits, int ns, int M, int N,
-              int K, int block) {
-  if (ns < 1 || ns > kMaxStreams || M < 1 || N < 1 || K < 1 || block < 32 ||
-      block > kMaxBlock || block % 32 != 0 || bits[0] < 1 || bits[ns - 1] > 16) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  a.M = M;
-  a.N = N;
-  a.K = K;
-  a.block = block;
-  a.nk = (K + block - 1) / block;
-  int wmax = 1;
-  int first = 0;
-  for (int s = 0; s < ns; ++s) {
-    if (s > 0 && bits[s] <= bits[s - 1]) return static_cast<int>(cudaErrorInvalidValue);
-    Stream& st = a.s[s];
-    st.words = words == nullptr ? nullptr : static_cast<const uint32_t*>(words[s]);
-    st.code_bits = (s == 0) ? bits[0] : bits[s] - bits[s - 1] + 1;
-    st.ncomp = split_components(st.code_bits, st.w);
-    int off = 0;
-    for (int c = 0; c < st.ncomp; ++c) {
-      st.R[c] = block * st.w[c] / 32;
-      st.off[c] = off;
-      off += st.R[c];
-      if (st.w[c] > wmax) wmax = st.w[c];
-    }
-    st.rows_pb = off;
-    st.first = first;
-    first += st.ncomp;
-    if (s > 0) {
-      a.gap[s] = bits[s] - bits[s - 1];
-      a.lo[s] = -(1 << (bits[s] - 1));
-      a.hi[s] = (1 << (bits[s] - 1)) - 1;
-    }
-  }
-  a.rmax = block * wmax / 32;
-  a.slots = 32 / wmax;
-  for (int s = 0; s < ns; ++s) {
-    for (int c = 0; c < a.s[s].ncomp; ++c) a.s[s].q[c] = a.rmax / a.s[s].R[c];
-  }
-  return 0;
 }
 
 // body: 0 = CUDA cores, 1 = tensor cores (bf16 only), 2 = decode (M <= 8).

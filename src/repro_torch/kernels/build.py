@@ -5,9 +5,10 @@ The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc`` for
 ``ctypes`` (seconds to build; nothing includes PyTorch's headers).  A
 build happens at first use, into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``); the library name carries a hash of
-its source and of the shared ``csrc/*.cuh`` headers, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing here runs at import time: the CPU tests import every
-module of the port on a machine without ``nvcc``.
+its source, of the shared ``csrc/*.cuh`` headers and of its flags, so an
+edited source is rebuilt and a stale library is never loaded.  Nothing
+here runs at import time: the CPU tests import every module of the port
+on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
+# flags of one source: nest_matmul.cu's 33 kernels are the build's long
+# pole, so nvcc optimizes them in parallel on every core it finds (each
+# kernel keeps its registers and spills; the other sources, which build
+# several times faster beside it, keep one thread: the flag changes
+# nest_recompose.cu's register counts)
+SOURCE_FLAGS: Dict[str, List[str]] = {"nest_matmul.cu": ["--split-compile=0"]}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C entry points of each source: name -> argtypes (all return int:
@@ -39,6 +46,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                              _I, _I, _I, _I, _I, _P],
         "nq_dec_workspace": [_P, _I, _I, _I, _I, _I, _P],
         "nq_dec_rows": [_I],
+    },
+    "nest_matmul_mid.cu": {
+        "nq_mid_matmul": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
+                          _I, _I, _I, _I, _P],
+        "nq_mid_workspace": [_P, _I, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -73,16 +85,18 @@ def nvcc_path() -> str:
 def _start_build(source: str):
     """Start nvcc on one source; returns (library path, process or None)."""
     src = CSRC / source
+    flags = [*ARCH_FLAGS, *NVCC_FLAGS, *SOURCE_FLAGS.get(source, [])]
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):     # sources share these headers
         h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     if lib.exists():
         return lib, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return lib, (proc, tmp)
@@ -128,9 +142,9 @@ def check(err: int, what: str) -> None:
 
 
 # the decode body's plan per (device, bits, N, K, block): f32 partials per
-# activation row and column tiles; and its per-column-tile arrival
-# counters per (device, stream) (int32, 0 between launches: the last CTA of
-# a tile resets its own)
+# activation row and column tiles; and the per-column-tile arrival
+# counters per (device, stream) the decode and short-prefill bodies share
+# (int32, 0 between launches: the last CTA of a tile resets its own)
 _dec_plans: Dict[tuple, tuple] = {}
 _dec_counters: Dict[Tuple[int, int], "object"] = {}
 DEC_COUNTERS_MIN = 8192
@@ -175,16 +189,80 @@ def dec_counters(device, tiles: int, stream=None):
     return buf
 
 
+# the C entry points' ``body`` of the short-prefill body (``dispatch.BODY``),
+# whose kernel lives in its own source and entry point (``nq_mid_matmul``)
+MID_BODY = 3
+# the short-prefill body's plan constants (csrc/nest_matmul_mid.cu): the
+# ring stage (a chunk's words and its x at 64 token rows), the items per SM
+# the plan aims for and the CTAs per SM it takes at most
+MID_STAGE_BYTES, MID_ITEMS, MID_CTAS_PER_SM = 48 * 1024, 1, 2
+_mid_plans: Dict[tuple, tuple] = {}
+
+
+def mid_workspace(bits, N: int, K: int, block: int, sms: int):
+    """(f32 partials per activation row, column tiles) of a short-prefill
+    launch on a card of ``sms`` SMs: ``mid_plan`` and ``mid_workspace`` of
+    ``csrc/nest_matmul_mid.cu`` in Python, for the dry run, which has no
+    library (a gpu test holds the two equal).  One tile-wide slot per run
+    of items of one tile: the tiles plus the CTAs."""
+    widths = [bits[0]] + [b - a + 1 for a, b in zip(bits, bits[1:])]
+    comps = [1 << i for w in widths for i in range(4, -1, -1) if (w >> i) & 1]
+    wmax, wmin = max(comps), min(comps)
+    rmin, umax, slots = block * wmin // 32, wmax // wmin, 32 // wmax
+    wpu = sum(c // wmin for c in comps)
+    nk, want = -(-K // block), MID_ITEMS * sms
+    bn = 64
+    while bn > 16 and -(-N // bn) * nk < want:
+        bn //= 2
+    tiles = -(-N // bn)
+
+    def stage_bytes(g):          # a chunk's words and its x at 64 token rows
+        return 4 * (wpu * (1 << g) * (bn + 4) + 64 * (((umax << g) * slots + 8) // 2))
+    g = 0
+    while rmin % (2 << g) == 0:
+        g += 1
+        if stage_bytes(g) > MID_STAGE_BYTES:
+            g -= 1
+            break
+    while (umax << g) * slots < 16:
+        g += 1
+
+    def items():
+        return tiles * nk * (rmin >> g)
+    while (g > 1 and items() < want and (umax << (g - 1)) >= 8
+           and (umax << (g - 1)) * slots >= 32):
+        g -= 1
+    return (tiles + min(items(), MID_CTAS_PER_SM * sms)) * bn, tiles
+
+
+def mid_plan(device, bits, N: int, K: int, block: int):
+    """(partial floats per activation row, column tiles) of a short-prefill
+    launch (``nq_mid_workspace``, the plan the launch itself follows);
+    cached per shape.  The plan does not depend on M."""
+    key = (device.index, tuple(bits), N, K, block)
+    if key not in _mid_plans:
+        arr = (ctypes.c_int * len(bits))(*bits)
+        tiles = ctypes.c_int(0)
+        n = library("nest_matmul_mid.cu").nq_mid_workspace(
+            ctypes.addressof(arr), len(bits), N, K, block, ctypes.byref(tiles))
+        if n < 1:
+            raise ValueError(f"the short-prefill body refuses bits {tuple(bits)}, N={N}, "
+                             f"K={K}, block={block}")
+        _mid_plans[key] = (n, tiles.value)
+    return _mid_plans[key]
+
+
 def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits,
                           out=None):
     """Output (``out`` where the caller gives one: a row slice of a larger
     output), f32 partials, arrival counters and the current stream handle
     for one stream-matmul launch on ``body`` (0 CUDA cores, 1 tensor cores,
-    2 decode; ``dispatch.BODY``).  The CUDA-core body splits K over every
-    pack block: (nk, M, N) partials added by a second pass.  The decode
-    body's CTAs each take an equal run of (pack block, column tile, chunk)
-    items: one partial row per run of one tile, added by the tile's last
-    CTA.  The tensor-core body takes no workspace (None).  The kernel
+    2 decode, 3 short prefill; ``dispatch.BODY``).  The CUDA-core body
+    splits K over every pack block: (nk, M, N) partials added by a second
+    pass.  The decode and short-prefill bodies' CTAs each take an equal run
+    of (pack block, column tile, chunk) items: one partial row per run of
+    one tile, added by the tile's last CTA; they share the stream's arrival
+    counters.  The tensor-core body takes no workspace (None).  The kernel
     allocates nothing itself."""
     import torch
 
@@ -196,11 +274,32 @@ def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, b
     nk = -(-K // block)
     if body == 0 and nk > 1:
         partial = torch.empty((nk, M, N), dtype=torch.float32, device=x.device)
-    elif body == 2:
-        per_row, tiles = dec_plan(x.device, bits, N, K, block)
+    elif body in (2, MID_BODY):
+        plan = dec_plan if body == 2 else mid_plan
+        per_row, tiles = plan(x.device, bits, N, K, block)
         partial = torch.empty(per_row * M, dtype=torch.float32, device=x.device)
         counters = dec_counters(x.device, tiles, stream)
     return out, partial, counters, stream
+
+
+def mid_matmul(x, streams, bits, scale, *, K: int, block: int, out_dtype, out=None,
+               what: str = "mid_matmul"):
+    """One launch of the short-prefill body (``nq_mid_matmul``; body 3) on
+    bf16 ``x`` (M <= 64, K) and the word streams of ascending ``bits``: the
+    launch K1, K2 and K3 make on that body."""
+    import torch
+
+    N = streams[0].shape[1]
+    out, partial, counters, stream = stream_matmul_buffers(x, N, K, block, out_dtype,
+                                                           MID_BODY, bits, out)
+    ptrs = (ctypes.c_void_p * len(streams))(*[s.data_ptr() for s in streams])
+    bit_arr = (ctypes.c_int * len(bits))(*bits)
+    err = library("nest_matmul_mid.cu").nq_mid_matmul(
+        ptr(x), ctypes.addressof(ptrs), ctypes.addressof(bit_arr), len(streams), ptr(scale),
+        ptr(out), int(out_dtype == torch.float32), ptr(partial), numel(partial),
+        ptr(counters), numel(counters), x.shape[0], N, K, block, stream)
+    check(err, what)
+    return out
 
 
 def ptr(t) -> int:

@@ -28,6 +28,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_INT8_OPS = 1979e12
 NVLINK_BYTES_PER_S = 450e9
 NODE_CARDS = 8
+# streaming multiprocessors of the H100 SXM5 (the data sheet's 132): the
+# dry run sizes the short-prefill body's partials, which its plan spreads
+# over the SMs, as on this card
+SMS = 132
 
 Cost = Tuple[float, float]
 

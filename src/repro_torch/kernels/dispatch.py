@@ -26,12 +26,13 @@ workspace with ``torch.empty`` and counts the launch it would make in
 (:func:`count_abstract`).  There is no build and no ctypes call on that
 route, and ``launches`` and ``plain_launches`` do not move.
 
-The weight matmuls (K1-K3) have three kernel bodies.  Which one a CUDA
+The weight matmuls (K1-K3) have four kernel bodies.  Which one a CUDA
 tensor takes is :func:`matmul_route`, a function of M and the dtype alone,
 decided before the launch: M <= ``DEC_MAX_M`` (decode) takes the decode
 body in bf16 and f32, bf16 with M >= ``TC_MIN_M`` the tensor-core body,
-and everything else (bf16 at M 9-63, f32 above M 8) the CUDA-core body.
-A launch that the chosen body refuses raises; it never runs another body.
+bf16 in between (the short prefill) the short-prefill body, and f32 above
+M 8 the CUDA-core body.  A launch that the chosen body refuses raises; it
+never runs another body.
 
 The decode phase names its route instead (``DECODE``, the wrappers'
 ``route=``), whatever M: a named decode route launches the decode body
@@ -63,11 +64,13 @@ class LaunchCounter:
     plain_launches: int = 0
     tc_launches: int = 0       # of ``launches``: those on the tensor-core body
     dec_launches: int = 0      # of ``launches``: those on the decode body
+    mid_launches: int = 0      # of ``launches``: those on the short-prefill body
     # launches on abstract tensors, split by body like ``launches``, and
     # their work (``costs.py``)
     dry_launches: int = 0
     dry_tc_launches: int = 0
     dry_dec_launches: int = 0
+    dry_mid_launches: int = 0
     dry_flops: float = 0.0
     dry_bytes: float = 0.0
 
@@ -120,25 +123,30 @@ def takes_kernel(x: torch.Tensor) -> bool:
 
 
 PLAIN, CUDA_CORE, TENSOR_CORE, DECODE = "plain", "cuda_core", "tensor_core", "decode"
-# the C entry points' ``body`` argument of each kernel route
-BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2}
+MID = "mid"
+# the C entry points' ``body`` argument of each kernel route (the
+# short-prefill body's is its own entry point, ``build.mid_matmul``)
+BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2, MID: 3}
 # Largest M the K1-K3 decode body takes (bf16 and f32): one 8-row x tile
 # per CTA, each packed word unpacked once for all rows.
 DEC_MAX_M = 8
-# Smallest M that takes the K1-K3 tensor-core body in bf16: the short
-# prefill (M 32) stays on the CUDA-core body.  At M = 64 the
-# tensor-core body takes less time than the CUDA-core body summed over a
-# qwen2-1.5b layer's seven matmuls at every rung on the H100 (k/v and down
-# alone are still faster on the CUDA cores there); chip_smoke.py times
-# both bodies at M = 64 and PERF.md keeps the crossover.
+# Smallest M that takes the K1-K3 tensor-core body in bf16; below it (M
+# 9-63, the short prefill: M 32) bf16 takes the short-prefill body, the
+# fastest of the four bodies summed over a qwen2-1.5b layer's seven
+# matmuls at M 16, 32, 48 and 63 at every rung on the H100
+# (chip_smoke.py's phase 1 measures them, its [mid-layer] lines; PERF.md
+# keeps them, with the bodies at M = 64).
 TC_MIN_M = 64
+# Most rows the K1-K3 short-prefill body takes (bf16; 8 token tiles of 8).
+MID_MAX_M = 64
 
 
 def matmul_route(M: int, dtype: torch.dtype, device) -> str:
     """The body a K1-K3 wrapper runs for an (M, K) activation of ``dtype``
     on ``device``: ``"plain"`` on the CPU, else ``"decode"`` for M <=
     ``DEC_MAX_M`` (bf16 or f32), ``"tensor_core"`` for bf16 with M >=
-    ``TC_MIN_M`` and ``"cuda_core"`` for the rest."""
+    ``TC_MIN_M``, ``"mid"`` for bf16 in between and ``"cuda_core"`` for
+    f32 above ``DEC_MAX_M``."""
     kind = torch.device(device).type
     if kind == "cpu":
         return PLAIN
@@ -146,7 +154,9 @@ def matmul_route(M: int, dtype: torch.dtype, device) -> str:
         raise ValueError(f"no kernel or plain route for device {device}")
     if M <= DEC_MAX_M and dtype in KERNEL_DTYPES:
         return DECODE
-    return TENSOR_CORE if dtype == torch.bfloat16 and M >= TC_MIN_M else CUDA_CORE
+    if dtype == torch.bfloat16:
+        return TENSOR_CORE if M >= TC_MIN_M else MID
+    return CUDA_CORE
 
 
 def kernel_route(x: torch.Tensor, route) -> str:
@@ -154,14 +164,17 @@ def kernel_route(x: torch.Tensor, route) -> str:
     outside ``reference_pass``): ``route`` where the caller names one (the
     decode phase names ``DECODE``; the chip check and the tests compare
     the bodies at one shape), else :func:`matmul_route`.  A named
-    tensor-core route takes bf16 only; a named decode route takes any M,
-    in groups of at most ``DEC_MAX_M`` rows (:func:`launch_matmul`)."""
+    tensor-core or short-prefill route takes bf16 only (the short-prefill
+    body at most ``MID_MAX_M`` rows); a named decode route takes any M, in
+    groups of at most ``DEC_MAX_M`` rows (:func:`launch_matmul`)."""
     if route is None:
         return matmul_route(x.shape[0], x.dtype, x.device)
     if route not in BODY:
         raise ValueError(f"route must be one of {sorted(BODY)}, got {route!r}")
-    if route == TENSOR_CORE and x.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core body takes bf16 activations, got {x.dtype}")
+    if route in (TENSOR_CORE, MID) and x.dtype != torch.bfloat16:
+        raise TypeError(f"the {route} body takes bf16 activations, got {x.dtype}")
+    if route == MID and x.shape[0] > MID_MAX_M:
+        raise ValueError(f"the mid body takes at most {MID_MAX_M} rows, got {x.shape[0]}")
     return route
 
 
@@ -169,6 +182,7 @@ def count_launch(counter: LaunchCounter, route: str) -> None:
     counter.launches += 1
     counter.tc_launches += int(route == TENSOR_CORE)
     counter.dec_launches += int(route == DECODE)
+    counter.mid_launches += int(route == MID)
 
 
 def count_abstract(counter: LaunchCounter, route: str, cost) -> None:
@@ -177,6 +191,7 @@ def count_abstract(counter: LaunchCounter, route: str, cost) -> None:
     counter.dry_launches += 1
     counter.dry_tc_launches += int(route == TENSOR_CORE)
     counter.dry_dec_launches += int(route == DECODE)
+    counter.dry_mid_launches += int(route == MID)
     counter.dry_bytes += cost[0]
     counter.dry_flops += cost[1]
 
@@ -224,21 +239,28 @@ def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
 
 
 def launch_abstract(x: torch.Tensor, N: int, out_dtype, route: str,
-                    counter: LaunchCounter, streams, block: int) -> torch.Tensor:
+                    counter: LaunchCounter, streams, bits, block: int) -> torch.Tensor:
     """:func:`launch_matmul` on an abstract x: the (M, N) output and, per
-    launch, the CUDA-core body's (nk, rows, N) f32 partials as
+    launch, the CUDA-core body's (nk, rows, N) and the short-prefill body's
+    (``build.mid_workspace`` on an H100's ``costs.SMS``) f32 partials as
     ``build.stream_matmul_buffers`` allocates them (the decode body's
-    partials are sized by the library from the card's SM count, and are
+    partials are sized by the library from the card's occupancy, and are
     left out), each launch counted with :func:`costs.matmul_cost`."""
+    from . import build
+
     M, K = x.shape
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     step = DEC_MAX_M if route == DECODE else M
     nk = -(-K // block)
     for g in range(0, M, step):
         rows = x[g:g + step]
-        if route == CUDA_CORE and nk > 1:     # held for the launch, as on the card
-            partial = torch.empty((nk, rows.shape[0], N), dtype=torch.float32,
-                                  device=x.device)
+        shape = None                          # held for the launch, as on the card
+        if route == CUDA_CORE and nk > 1:
+            shape = (nk, rows.shape[0], N)
+        elif route == MID:
+            shape = (build.mid_workspace(bits, N, K, block, costs.SMS)[0] * rows.shape[0],)
+        if shape is not None:
+            partial = torch.empty(shape, dtype=torch.float32, device=x.device)
             del partial
         count_abstract(counter, route, costs.matmul_cost(rows, streams, N, out_dtype))
     return out

@@ -5,11 +5,12 @@
 * ``nq_ladder_matmul`` replaces ``repro/kernels/nested_matmul/kernel.py:125
   ladder_matmul`` (base + R resident deltas, 2..4 streams in all).
 
-Three bodies, picked by the caller (``body``, ``dispatch.BODY``): the
-decode body (M <= 8), the tensor-core body (bf16 at prefill M) and the
-CUDA-core body (every other M); what bounds each and what its design does
-about it is in the note at the top of the CUDA source.  Operands are
-checked by the wrappers in ``ops.py``.
+Four bodies, picked by the caller (``body``, ``dispatch.BODY``): the
+decode body (M <= 8), the short-prefill body (bf16 at M 9-63,
+``csrc/nest_matmul_mid.cu``), the tensor-core body (bf16 at prefill M) and
+the CUDA-core body (f32 above M 8); what bounds each and what its design
+does about it is in the note at the top of each CUDA source.  Operands
+are checked by the wrappers in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -24,6 +25,10 @@ SOURCE = "nest_matmul.cu"
 
 def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
                   block_k: int, out_dtype, body: int, out=None) -> torch.Tensor:
+    if body == build.MID_BODY:
+        return build.mid_matmul(x, (words_high, words_low), (h, n), scale, K=K,
+                                block=block_k, out_dtype=out_dtype, out=out,
+                                what="nested_matmul")
     N = words_high.shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
         x, N, K, block_k, out_dtype, body, (h, n), out)
@@ -38,6 +43,9 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
 
 def ladder_matmul(x, streams, scale, *, bits, K: int, block_k: int,
                   out_dtype, body: int, out=None) -> torch.Tensor:
+    if body == build.MID_BODY:
+        return build.mid_matmul(x, streams, bits, scale, K=K, block=block_k,
+                                out_dtype=out_dtype, out=out, what="ladder_matmul")
     N = streams[0].shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
         x, N, K, block_k, out_dtype, body, bits, out)

@@ -26,7 +26,8 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
         dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
                                 K=K, block=block_k, out_dtype=out_dtype)
         y = dispatch.launch_abstract(x2, words_high.shape[1], out_dtype, route,
-                                     NESTED_COUNTER, (words_high, words_low), block_k)
+                                     NESTED_COUNTER, (words_high, words_low), (h, n),
+                                     block_k)
     elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words_high, words_low), (h, n), scale,
@@ -60,7 +61,7 @@ def ladder_matmul(x, streams, scale, *, bits, K: int,
         dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
         y = dispatch.launch_abstract(x2, streams[0].shape[1], out_dtype, route,
-                                     LADDER_COUNTER, streams, block_k)
+                                     LADDER_COUNTER, streams, bits, block_k)
     elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, streams, bits, scale, K=K, block=block_k,

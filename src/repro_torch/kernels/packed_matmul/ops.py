@@ -50,7 +50,7 @@ def packed_matmul(x, words, scale, *, k: int, K: int,
         dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,
                                 out_dtype=out_dtype)
         y = dispatch.launch_abstract(x2, words.shape[1], out_dtype, route, COUNTER,
-                                     (words,), block_k)
+                                     (words,), (k,), block_k)
     elif dispatch.takes_kernel(x2):
         route = dispatch.kernel_route(x2, route)
         dispatch.check_operands(x2, (words,), (k,), scale, K=K, block=block_k,

@@ -211,11 +211,12 @@ class ServeEngine:
 
         The JAX package pre-traces its jitted steps here.  The card's
         equivalent: the first launch of a kernel builds and loads the
-        kernel libraries, the first decode-body launch of a shape fills its
-        plan (``kernels/build.py::dec_plan``) and may grow the arrival
-        counters (``build.dec_counters``), which would replace the buffer a
-        captured graph holds, and the first launch of each decode-body
-        instantiation (streams, rows) opts it into large shared memory.
+        kernel libraries, the first decode-body or short-prefill launch of a
+        shape fills its plan (``kernels/build.py::dec_plan``, ``mid_plan``)
+        and may grow the arrival counters both share
+        (``build.dec_counters``), which would replace the buffer a captured
+        graph holds, and the first launch of each decode-body instantiation
+        (streams, rows) opts it into large shared memory.
         The counters are one buffer per (device, stream): warm-up sizes the
         buffer of the stream it runs on, so serve on that stream.  So this
         loads every kernel library (on the card), then runs the prefill of

@@ -119,7 +119,7 @@ def _matmul(name, nt, route):
 @pytest.mark.parametrize("M,dtype,route,launches,body", [
     (4, torch.bfloat16, None, 1, dispatch.DECODE),
     (20, torch.float32, dispatch.DECODE, 3, dispatch.DECODE),       # one per 8 rows
-    (32, torch.bfloat16, None, 1, dispatch.CUDA_CORE),
+    (32, torch.bfloat16, None, 1, dispatch.MID),
     (64, torch.bfloat16, None, 1, dispatch.TENSOR_CORE),
     (64, torch.float32, None, 1, dispatch.CUDA_CORE),
 ])
@@ -139,10 +139,34 @@ def test_matmul_wrappers_count_the_cards_launches_on_fake_tensors(name, M, dtype
     assert c.dry_launches == launches
     assert c.dry_dec_launches == launches * (body == dispatch.DECODE)
     assert c.dry_tc_launches == launches * (body == dispatch.TENSOR_CORE)
+    assert c.dry_mid_launches == launches * (body == dispatch.MID)
     step = dispatch.DEC_MAX_M if body == dispatch.DECODE else M
     work = [costs.matmul_cost(x[g:g + step], streams, nt.w_base.shape[1], dtype)
             for g in range(0, M, step)]
     assert (c.dry_bytes, c.dry_flops) == (sum(w[0] for w in work), sum(w[1] for w in work))
+
+
+@pytest.mark.parametrize("M,route", [(9, None), (63, None), (16, dispatch.MID)])
+def test_mid_route_dry_launch_and_its_partials(M, route):
+    """bf16 at M 9-63, or a named short-prefill route, dry-runs one launch
+    on the short-prefill body, and the call's peak holds the f32 partials
+    that launch allocates on the card (``build.mid_workspace`` on an H100's
+    132 SMs) beside its arguments and output."""
+    from repro_torch.kernels import build
+
+    nt = _nested((4, 6, 8), K=1536, N=256)
+    call, streams, scale = _matmul("ladder_matmul", nt, route)
+    x = torch.randn(M, nt.K, generator=torch.Generator().manual_seed(M)).bfloat16()
+    dispatch.reset_counters()
+    got = step_analysis.analyze(call, (x, streams, scale), shape_only((1, 1)), "cpu")
+    c = dispatch.counter("ladder_matmul")
+    assert (c.dry_launches, c.dry_mid_launches, c.dry_dec_launches, c.dry_tc_launches,
+            c.launches) == (1, 1, 0, 0, 0)
+    assert got.kernels["ladder_matmul"]["mid"] == 1
+    per_row, tiles = build.mid_workspace(nt.bits[:3], 256, nt.K, nt.block, costs.SMS)
+    assert tiles == 16 and per_row == (16 + 192) * 16
+    held = got.argument_bytes + M * 256 * 2 + per_row * M * 4
+    assert held <= got.peak_bytes <= held + 4 * 1024
 
 
 def test_flash_attention_counts_its_launch_served_and_in_training():

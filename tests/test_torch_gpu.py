@@ -1,7 +1,7 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version at
-the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their three
-bodies - decode at M <= 8, CUDA cores at M 9-63 and f32 above M 8, tensor
-cores at bf16 prefill M - the nested KV
+the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their four
+bodies - decode at M <= 8, the short prefill at bf16 M 9-63, CUDA cores at
+f32 above M 8, tensor cores at bf16 prefill M - the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
 recompose K6), the kernel routes' refusals, artifact fetches onto the card,
 a serve after ``ServeEngine.warmup`` that builds nothing, the decode route's
@@ -191,27 +191,31 @@ def test_tensor_core_body_f32_output(cuda):
 
 def test_route_counter_shows_which_body_ran(cuda):
     """M <= DEC_MAX_M takes the decode body in bf16 and f32; bf16 at M 9-63
-    and f32 above M 8 the CUDA-core body; bf16 at TC_MIN_M the tensor-core
-    one; a named route is honoured."""
+    the short-prefill body; f32 above M 8 the CUDA-core body; bf16 at
+    TC_MIN_M the tensor-core one; a named route is honoured."""
     g = torch.Generator(device=cuda).manual_seed(7)
     nt = nest_quantize(torch.randn(512, 256, generator=g, device=cuda), bits=(8, 6, 4),
                        rounding="rtn")
-    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0, 0),
-             (dispatch.TC_MIN_M, torch.bfloat16, None, 1, 0),
-             (dispatch.TC_MIN_M, torch.float32, None, 0, 0),
-             (dispatch.DEC_MAX_M + 1, torch.float32, None, 0, 0),
-             (4, torch.bfloat16, None, 0, 1),
-             (dispatch.DEC_MAX_M, torch.float32, None, 0, 1),
-             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1, 0),
-             (4, torch.float32, dispatch.CUDA_CORE, 0, 0),
-             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0, 0)]
-    for M, dtype, route, tc, dec in cases:
+    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0, 0, 1),
+             (dispatch.DEC_MAX_M + 1, torch.bfloat16, None, 0, 0, 1),
+             (dispatch.TC_MIN_M, torch.bfloat16, None, 1, 0, 0),
+             (dispatch.TC_MIN_M, torch.float32, None, 0, 0, 0),
+             (dispatch.DEC_MAX_M + 1, torch.float32, None, 0, 0, 0),
+             (4, torch.bfloat16, None, 0, 1, 0),
+             (dispatch.DEC_MAX_M, torch.float32, None, 0, 1, 0),
+             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1, 0, 0),
+             (4, torch.bfloat16, dispatch.MID, 0, 0, 1),
+             (dispatch.TC_MIN_M, torch.bfloat16, dispatch.MID, 0, 0, 1),
+             (4, torch.float32, dispatch.CUDA_CORE, 0, 0, 0),
+             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0, 0, 0)]
+    for M, dtype, route, tc, dec, mid in cases:
         x = torch.randn(M, 512, generator=g, device=cuda).to(dtype)
         for rung, counter in enumerate(COUNTERS.values()):
-            before = (counter.launches, counter.tc_launches, counter.dec_launches)
+            seen = lambda: (counter.launches, counter.tc_launches,  # noqa: E731
+                            counter.dec_launches, counter.mid_launches)
+            before = seen()
             got, _ = _run_rung(nt, rung, x, route=route)
-            assert (counter.launches, counter.tc_launches, counter.dec_launches) == (
-                before[0] + 1, before[1] + tc, before[2] + dec)
+            assert seen() == (before[0] + 1, before[1] + tc, before[2] + dec, before[3] + mid)
             with dispatch.reference_pass():
                 want = _run_rung(nt, rung, x)[0]
             err = (got.float() - want.float()).abs().max().item()
@@ -231,6 +235,132 @@ def test_tensor_core_route_raises_on_what_it_refuses(cuda):
     with pytest.raises(ValueError):
         _run_rung(nt, 2, x.bfloat16(), route="tensor")
     assert {n: (c.launches, c.tc_launches) for n, c in COUNTERS.items()} == before
+
+
+# ---------------------------------------------------------------------------
+# K1-K3 short-prefill body (bf16 at M 9-63)
+# ---------------------------------------------------------------------------
+def _check_mid_rungs(nt, x, rungs=None, out_dtype=None, streams=None):
+    """Rungs of ``nt`` (every one by default) on the short-prefill body,
+    chosen by the route: counted as one launch on it, within 2e-2 of max(1,
+    max |y|) of the plain version, and bit-identical over two launches.
+    ``streams`` replaces the leaf's own word streams."""
+    assert dispatch.matmul_route(x.shape[0], x.dtype, x.device) == dispatch.MID
+    for rung in range(len(nt.bits)) if rungs is None else rungs:
+        src = nt if streams is None else nt._replace(w_base=streams[0],
+                                                     deltas=tuple(streams[1:]))
+        counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[min(rung, 2)]]
+        before = (counter.launches, counter.mid_launches)
+        got, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        again, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        assert (counter.launches, counter.mid_launches) == (before[0] + 2, before[1] + 2)
+        with dispatch.reference_pass():
+            want, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == (out_dtype or x.dtype) and got.shape == want.shape
+        assert torch.equal(got, again), (nt.bits, rung, "two launches differ")
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        assert err <= TOL[torch.bfloat16] * max(1.0, peak), (nt.bits, rung, x.shape, err, peak)
+
+
+@pytest.mark.parametrize("bits", [(8, 6, 4), (3, 5, 6, 8)])
+@pytest.mark.parametrize("K,N", SHAPES[:4])
+def test_mid_body_matches_plain_at_every_rung(cuda, K, N, bits):
+    """qwen2-1.5b's q/o, k/v, gate/up and down at M 9-63 (a multiple of 8
+    and either side of one), 1-4 streams (every rung of each ladder)."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + len(bits))
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn")
+    for M in (9, 16, 31, 32, 33, 48, 63):
+        _check_mid_rungs(nt, torch.randn(M, K, generator=g, device=cuda).bfloat16())
+
+
+@pytest.mark.parametrize("K,N,block,bits", [
+    (2560, 6448, 512, (8, 6, 4)),    # mamba2's in_proj: N no multiple of a tile
+    (1000, 200, 64, (12, 16)),       # codes over 9 bits: the general path, bf16 rounding
+    (96, 100, 32, (2, 4, 6, 8)),     # block 32: 2-row chunks, the general path
+    (999, 130, 96, (3, 5, 6, 8)),    # block 96, odd K: element-wise x copies
+    (520, 33, 64, (4, 8)),           # odd N: 4-byte word copies
+    (8960, 256, 256, (8, 6, 4)),     # block 256, k/v's width
+])
+def test_mid_body_ragged_shapes_blocks_and_wide_codes(cuda, K, N, block, bits):
+    g = torch.Generator(device=cuda).manual_seed(K + N + block)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn", block=block)
+    for M in (9, 40, 63):
+        _check_mid_rungs(nt, torch.randn(M, K, generator=g, device=cuda).bfloat16())
+
+
+def test_mid_body_16_bit_stream_and_misaligned_views(cuda):
+    """K1 on one 16-bit stream (two codes a word: ``prepare(..., "full")``
+    of a (12, 16) ladder), and streams that start 4 or 8 bytes past a
+    16-byte boundary (views into a larger buffer: narrower copies)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    nt = nest_quantize(torch.randn(999, 130, generator=g, device=cuda) / 30, bits=(12, 16),
+                       rounding="rtn", block=64)
+    words, scale, k, _ = pops.prepare(nt, "full", block_k=64)
+    for M in (9, 40):
+        x = torch.randn(M, 999, generator=g, device=cuda).bfloat16()
+        before = pops.COUNTER.mid_launches
+        got = pops.packed_matmul(x, words, scale.contiguous(), k=k, K=999, block_k=64)
+        assert pops.COUNTER.mid_launches == before + 1
+        with dispatch.reference_pass():
+            want = pops.packed_matmul(x, words, scale.contiguous(), k=k, K=999, block_k=64)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+    nt = nest_quantize(torch.randn(1536, 256, generator=g, device=cuda) / 40, bits=(8, 6, 4),
+                       rounding="rtn")
+    for shift in (1, 2):
+        views = []
+        for s in (nt.w_base,) + nt.deltas:
+            buf = torch.empty(s.numel() + shift, dtype=s.dtype, device=cuda)
+            v = buf[shift:].view(s.shape)
+            v.copy_(s)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4 * shift
+        _check_mid_rungs(nt, torch.randn(20, 1536, generator=g, device=cuda).bfloat16(),
+                         streams=views)
+
+
+def test_mid_body_f32_output_at_the_lm_head(cuda):
+    """The LM head's f32 output (N 151936) through the short-prefill body."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    nt = nest_quantize(torch.randn(1536, 151936, generator=g, device=cuda) / 40,
+                       bits=(8, 6, 4), rounding="rtn")
+    _check_mid_rungs(nt, torch.randn(32, 1536, generator=g, device=cuda).bfloat16(),
+                     out_dtype=torch.float32)
+
+
+def test_mid_route_raises_on_what_it_refuses(cuda):
+    """A named short-prefill route takes bf16 at most MID_MAX_M rows: an f32
+    activation raises TypeError, 65 rows ValueError, before any launch (no
+    other body runs, nothing is counted)."""
+    nt = nest_quantize(torch.randn(512, 256, device=cuda), bits=(8, 6, 4), rounding="rtn")
+    before = {n: (c.launches, c.mid_launches, c.plain_launches) for n, c in COUNTERS.items()}
+    for rung in range(3):
+        with pytest.raises(TypeError):
+            _run_rung(nt, rung, torch.randn(32, 512, device=cuda), route=dispatch.MID)
+        with pytest.raises(ValueError):
+            _run_rung(nt, rung, torch.randn(dispatch.MID_MAX_M + 1, 512,
+                                            device=cuda).bfloat16(), route=dispatch.MID)
+    assert {n: (c.launches, c.mid_launches, c.plain_launches)
+            for n, c in COUNTERS.items()} == before
+
+
+@pytest.mark.parametrize("bits,N,K,block", [
+    ((4,), 1536, 1536, 512), ((4, 6, 8), 256, 1536, 512), ((4, 6, 8), 8960, 1536, 512),
+    ((4, 6, 8), 1536, 8960, 512), ((4, 6, 8), 151936, 1536, 512), ((4, 6, 8), 6448, 2560, 512),
+    ((2, 4, 6, 8), 100, 96, 32), ((16,), 130, 999, 64), ((12, 16), 200, 1000, 64),
+])
+def test_mid_plan_mirror_is_the_library_s(cuda, bits, N, K, block):
+    """The dry run's Python mirror of the short-prefill plan
+    (``build.mid_workspace``) gives the library's partials per row and
+    column tiles (``nq_mid_workspace``) on this card's SM count."""
+    from repro_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert build.mid_plan(cuda, bits, N, K, block) == build.mid_workspace(bits, N, K, block, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -770,8 +900,10 @@ def test_file_pager_fetches_land_on_the_card_bit_exact(cuda, tmp_path):
 
 def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
     """After ``warmup`` a generate at every rung loads no kernel library,
-    fills no decode-body plan and keeps the arrival counters' buffer, with
-    every packed_linear on a kernel (2 layers of qwen2-1.5b at full width)."""
+    fills no decode-body or short-prefill plan and keeps the arrival
+    counters' buffer, with every packed_linear on a kernel (2 layers of
+    qwen2-1.5b at full width; the 32-row prefill on the short-prefill
+    body)."""
     from repro_torch.configs import get_config
     from repro_torch.core.recipe import QuantRecipe, quantize
     from repro_torch.core.switching import NestQuantStore
@@ -786,7 +918,7 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
     engine = ServeEngine(cfg, store, max_batch=4, max_len=32)
     assert engine.warmup(8, batch=4) == 6
     key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
-    libs, plans = sorted(build._libs), dict(build._dec_plans)
+    libs, plans = sorted(build._libs), (dict(build._dec_plans), dict(build._mid_plans))
     buf = build._dec_counters[key]
     ptr, numel = buf.data_ptr(), buf.numel()
     need = [store.rung_resident_bytes(r) for r in range(3)]
@@ -798,11 +930,12 @@ def test_warmup_then_serve_builds_nothing_and_keeps_the_counters(cuda):
         engine.generate(reqs, memory_budget_bytes=budget)
         torch.cuda.synchronize()
         assert store.rung == rung
-        assert sorted(build._libs) == libs and build._dec_plans == plans
+        assert sorted(build._libs) == libs
+        assert (build._dec_plans, build._mid_plans) == plans
         assert build._dec_counters[key] is buf
         assert (buf.data_ptr(), buf.numel()) == (ptr, numel)
     assert all(c.plain_launches == 0 for c in dispatch.COUNTERS.values())
-    assert all(dispatch.counter(n).launches > 0
+    assert all(dispatch.counter(n).launches > 0 and dispatch.counter(n).mid_launches > 0
                for n in ("packed_matmul", "nested_matmul", "ladder_matmul"))
 
 
@@ -1059,10 +1192,10 @@ MOE_EXPERT_SHAPES = [(6144, 10752), (10752, 6144)]
 @pytest.mark.parametrize("K,N", MOE_EXPERT_SHAPES)
 def test_expert_groups_match_plain_on_each_route(cuda, K, N, dtype):
     """An expert's 2-D view of a stacked leaf through ``packed_linear`` at M
-    1, 5, 8, 12, 40 and 130 (the decode body, the CUDA cores, and for bf16
-    at 130 the tensor cores: the body M picks, counted there) within 2e-2
-    (bf16) or 1e-4 (f32) of max(1, max |y|) of the plain version at every
-    rung."""
+    1, 5, 8, 12, 40 and 130 (the decode body; at 12 and 40 the short-prefill
+    body in bf16 and the CUDA cores in f32; for bf16 at 130 the tensor
+    cores: the body M picks, counted there) within 2e-2 (bf16) or 1e-4
+    (f32) of max(1, max |y|) of the plain version at every rung."""
     from repro_torch.models.layers import packed_linear
 
     g = torch.Generator(device=cuda).manual_seed(K + 3)
@@ -1075,11 +1208,14 @@ def test_expert_groups_match_plain_on_each_route(cuda, K, N, dtype):
         for rung in range(3):
             nt = view.with_rung(rung)
             counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[rung]]
-            before = (counter.launches, counter.dec_launches, counter.tc_launches)
+            seen = lambda: (counter.launches, counter.dec_launches,  # noqa: E731
+                            counter.tc_launches, counter.mid_launches)
+            before = seen()
             got = packed_linear(x, nt)
-            assert (counter.launches, counter.dec_launches, counter.tc_launches) == (
+            assert seen() == (
                 before[0] + 1, before[1] + (route == dispatch.DECODE),
-                before[2] + (route == dispatch.TENSOR_CORE)), (M, rung, route)
+                before[2] + (route == dispatch.TENSOR_CORE),
+                before[3] + (route == dispatch.MID)), (M, rung, route)
             with dispatch.reference_pass():
                 want = packed_linear(x, nt)
             torch.cuda.synchronize()

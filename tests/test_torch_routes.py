@@ -1,6 +1,7 @@
-"""The K1-K3 route choice (plain, decode body, CUDA-core body or
-tensor-core body) as a pure function of M, dtype and device; the decode
-route in row groups; the per-route launch counters; and
+"""The K1-K3 route choice (plain, decode body, short-prefill body,
+CUDA-core body or tensor-core body) as a pure function of M, dtype and
+device; the decode route in row groups; the per-route launch counters;
+the short-prefill body's plan mirror; and
 the plain route at prefill-like M against the JAX package (its Pallas
 kernels in interpret mode, its flash op at a ragged S)."""
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ from repro_torch.kernels.nested_matmul import ops
 from torch_parity import activations, assert_close, flash_inputs, j2n, stream_operands, t2n
 
 TC, CC, PLAIN = dispatch.TENSOR_CORE, dispatch.CUDA_CORE, dispatch.PLAIN
-DEC = dispatch.DECODE
+DEC, MID = dispatch.DECODE, dispatch.MID
 
 
 @pytest.mark.parametrize("M,dtype,device,want", [
@@ -26,10 +27,10 @@ DEC = dispatch.DECODE
     (1, torch.float32, "cuda", DEC),
     (4, torch.float32, "cuda:0", DEC),
     (dispatch.DEC_MAX_M, torch.float32, "cuda", DEC),
-    (dispatch.DEC_MAX_M + 1, torch.bfloat16, "cuda", CC),  # M 9-63 in bf16
+    (dispatch.DEC_MAX_M + 1, torch.bfloat16, "cuda", MID),  # M 9-63 in bf16
     (dispatch.DEC_MAX_M + 1, torch.float32, "cuda", CC),   # f32 above M 8
-    (32, torch.bfloat16, "cuda", CC),                      # the short prefill
-    (dispatch.TC_MIN_M - 1, torch.bfloat16, "cuda", CC),
+    (32, torch.bfloat16, "cuda", MID),                     # the short prefill
+    (dispatch.TC_MIN_M - 1, torch.bfloat16, "cuda", MID),
     (dispatch.TC_MIN_M, torch.bfloat16, "cuda", TC),
     (4096, torch.bfloat16, "cuda:0", TC),                   # the long prefill
     (4096, torch.float32, "cuda", CC),                      # f32: no TF32, CUDA cores
@@ -81,6 +82,63 @@ def test_launch_counts_per_route_and_reset():
     dispatch.reset_counters()
     assert (probe.launches, probe.tc_launches, probe.dec_launches) == (0, 0, 0)
     del dispatch.COUNTERS["route_probe"]
+
+
+def test_body_has_an_entry_per_kernel_route():
+    """Four bodies, numbered as the C entry points take them; the
+    short-prefill body's number is the one its binding dispatches on."""
+    from repro_torch.kernels import build
+
+    assert dispatch.BODY == {CC: 0, TC: 1, DEC: 2, MID: 3}
+    assert dispatch.BODY[MID] == build.MID_BODY
+    assert set(build.SIGNATURES) >= {"nest_matmul.cu", "nest_matmul_mid.cu"}
+
+
+def test_mid_route_refuses_f32_and_counts_its_launches():
+    """A named short-prefill route takes bf16 only, at most MID_MAX_M rows
+    (TypeError / ValueError, never another body); its launches count in
+    ``mid_launches`` and reset with the rest."""
+    for M in (dispatch.DEC_MAX_M + 1, 32, dispatch.TC_MIN_M - 1):
+        assert dispatch.kernel_route(torch.zeros(M, 8, dtype=torch.bfloat16), MID) == MID
+        with pytest.raises(TypeError):
+            dispatch.kernel_route(torch.zeros(M, 8), MID)
+    with pytest.raises(ValueError):
+        dispatch.kernel_route(torch.zeros(dispatch.MID_MAX_M + 1, 8, dtype=torch.bfloat16),
+                              MID)
+    probe = dispatch.counter("mid_probe")
+    dispatch.count_launch(probe, MID)
+    dispatch.count_launch(probe, MID)
+    dispatch.count_launch(probe, TC)
+    assert (probe.launches, probe.mid_launches, probe.tc_launches, probe.dec_launches) == \
+        (3, 2, 1, 0)
+    dispatch.reset_counters()
+    assert (probe.launches, probe.mid_launches) == (0, 0)
+    del dispatch.COUNTERS["mid_probe"]
+
+
+@pytest.mark.parametrize("bits,N,K,block,want", [
+    # qwen2-1.5b q/o, k/v, gate/up, down and the LM head (block 512): the
+    # widest tile of 64 / 32 / 16 columns with tiles * nk >= 132 items (else
+    # 16), CTAs = min(items, 2 * 132), one slot per tile and per CTA
+    ((4,), 1536, 1536, 512, ((48 + 264) * 32, 48)),           # 32 columns, 288 items
+    ((4, 6, 8), 1536, 1536, 512, ((48 + 264) * 32, 48)),
+    ((4,), 256, 1536, 512, ((16 + 192) * 16, 16)),            # 16 columns, 192 items
+    ((4, 6, 8), 256, 1536, 512, ((16 + 192) * 16, 16)),
+    ((4, 6, 8), 8960, 1536, 512, ((140 + 264) * 64, 140)),    # 64 columns, 1680 items
+    ((4, 6, 8), 1536, 8960, 512, ((24 + 264) * 64, 24)),
+    ((4, 6, 8), 151936, 1536, 512, ((2374 + 264) * 64, 2374)),
+    ((2, 4, 6, 8), 100, 96, 32, ((7 + 21) * 16, 7)),          # block 32: a block a chunk
+    ((16,), 130, 999, 64, ((9 + 144) * 16, 9)),               # 2 slots a word
+])
+def test_mid_workspace_mirror_of_the_plan(bits, N, K, block, want):
+    """The short-prefill body's partials per row and column tiles, as the
+    Python mirror of its plan computes them on an H100's 132 SMs (a gpu test
+    holds the mirror equal to the library): one tile-wide slot per tile and
+    per CTA (a tile's CTAs p0 .. p1 write slots T + p), the CTAs at most two
+    per SM."""
+    from repro_torch.kernels import build, costs
+
+    assert build.mid_workspace(bits, N, K, block, costs.SMS) == want
 
 
 @pytest.mark.parametrize("M", [1, 4, 8, 12, 20, 17])
