@@ -21,7 +21,16 @@ Phases (each raises on failure; the script then exits non-zero):
    (``csrc/nest_matmul_mid.cu``; its counter says so) and are timed beside
    the same call on the CUDA-core body (the "before"), the decode route in
    8-row groups and the tensor-core body: the measurement behind
-   ``dispatch.matmul_route``'s short-prefill range.  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
+   ``dispatch.matmul_route``'s short-prefill range.  The f32 rows at M =
+   32 must launch on the f32 body (``csrc/nest_matmul_f32.cu``; its
+   counter says so), timed beside the CUDA-core body (the "before").  Then
+   the f32 rows at M = 64 and 4096 for q/o, k/v, gate/up and down on the
+   f32 body, held to 1e-4 of max(1, max |y|), timed beside the CUDA-core
+   body (one call at 4096), the plain version and a dense f32
+   ``torch.matmul`` (TF32 off; a yardstick only), bound at the f32 rate;
+   ``[f32-layer]`` sums a layer's seven matmuls per M and rung.  No phase
+   but this one launches the CUDA-core body (``timed_phase`` holds
+   ``dispatch.BODY_LAUNCHES``).  Then the prefill rows: bf16 at M = 64, 2200 (2 x 1100,
    ragged against the 256-row tile) and 4096 (2 x 2048) for q/o, k/v,
    gate/up and down, each launched on the tensor-core body the route
    picks (its counter must say so), held to 2e-2 of max(1, max |y|)
@@ -39,7 +48,8 @@ Phases (each raises on failure; the script then exits non-zero):
 3. Run the same requests through the plain versions (the scoped
    ``reference_pass``) with ``compute_dtype="float32"`` as the reference:
    the f32 kernel path within 1e-4 of it (logits relative to max |logit|)
-   with greedy tokens identical; the bf16 kernel path's prefill logits
+   with greedy tokens identical, its 32-row prefill's matmuls but the LM
+   head on the f32 body; the bf16 kernel path's prefill logits
    within 3e-2 of it and of the plain bf16 pass.  What a kernel that
    drops one delta stream would read is printed beside them, and must
    read above that limit.
@@ -133,7 +143,9 @@ Phases (each raises on failure; the script then exits non-zero):
    own pages at every rung (bit-exact against the plain version, error
    against the dense oracle shrinking with the rung), a profile of one long
    generate, the f32 long prefill within 1e-4 of its plain pass with
-   identical greedy tokens, and K6 on every weight slice of the served
+   identical greedy tokens (its 196 matmuls above M 8 on the f32 body, in
+   the prefill alone and in the generate's; K5 on its f32 body once a
+   layer), and K6 on every weight slice of the served
    tree equal to ``chain_recompose`` at rung 1.
 6. The MoE family at full width: dbrx-132b at its published widths (d
    6144, 48/8 heads of 128, d_ff 10752, 16 experts top-4, vocab 100352)
@@ -349,6 +361,10 @@ MID_MS = (16, 48, 63)
 # prefill rows (bf16): the route's threshold, the ragged 2 x 1100 prefill
 # and the long-context path's 2 x 2048
 PREFILL_MS = (64, 2 * 1100, 2 * 2048)
+# more f32 rows (every shape but the LM head): the f32 body at the short
+# prefill's next tile and at the long-context path's 2 x 2048
+F32_MS = (64, 2 * 2048)
+F32_SOURCE = "src/repro_torch/csrc/nest_matmul_f32.cu"
 L2_BYTES = 50e6
 KERNELS = {  # name -> (rung it serves, source, TPU kernel it replaces)
     "packed_matmul": (0, "src/repro_torch/csrc/nest_matmul.cu",
@@ -396,11 +412,19 @@ def log(msg: str) -> None:
 
 def timed_phase(tag, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall seconds kept in ``PHASE_S[tag]`` and
-    printed."""
+    printed.  No K1-K3 launch of the phase may reach the CUDA-core body
+    (``dispatch.BODY_LAUNCHES``, which no reset clears): only phase 1's
+    named "before" rows take it."""
+    from repro_torch.kernels import dispatch
+
+    cc = dispatch.BODY_LAUNCHES[dispatch.CUDA_CORE]
     t0 = time.time()
     out = fn(*args, **kw)
     PHASE_S[tag] = time.time() - t0
     log(f"[time] phase {tag} took {PHASE_S[tag]:.1f}s")
+    if tag != "1" and dispatch.BODY_LAUNCHES[dispatch.CUDA_CORE] != cc:
+        raise AssertionError(f"phase {tag}: {dispatch.BODY_LAUNCHES[dispatch.CUDA_CORE] - cc} "
+                             f"K1-K3 launches on the CUDA-core body")
     return out
 
 
@@ -515,12 +539,13 @@ def checked_launch(name, nt, x, copies, out_dtype, what, route=None):
                              f"not the {route} one")
     counter = dispatch.counter(name)
     seen = lambda: (counter.launches, counter.dec_launches, counter.tc_launches,  # noqa: E731
-                    counter.mid_launches)
+                    counter.mid_launches, counter.f32_launches)
     call = kernel_call(name, nt, x, copies, out_dtype)
     before = seen()
     got = call(0)
     if seen() != (before[0] + 1, before[1] + (body == dispatch.DECODE),
-                  before[2] + (body == dispatch.TENSOR_CORE), before[3] + (body == dispatch.MID)):
+                  before[2] + (body == dispatch.TENSOR_CORE), before[3] + (body == dispatch.MID),
+                  before[4] + (body == dispatch.F32)):
         raise AssertionError(f"{what}: not launched on the {body} body ({before} -> {counter})")
     with dispatch.reference_pass():
         ref = call(0)
@@ -642,6 +667,68 @@ def mid_layers(rows):
     return out
 
 
+def f32_rows(shape, K, N, uses, nt, streams, copies, gen):
+    """f32 rows at ``F32_MS`` (the M = 32 row is phase 1's own): each kernel
+    on the f32 body the route picks (:func:`checked_launch`, which holds it
+    against its plain version within 1e-4 of max(1, max |y|)), timed by
+    CUDA-graph replay beside the same call on the CUDA-core body (the
+    "before"; one call at M 4096), the plain version and a dense f32
+    ``torch.matmul`` of the same shape (TF32 off: a yardstick only, the
+    port never calls it); bound by operations at the f32 rate."""
+    from repro_torch.kernels import dispatch
+
+    dense = [torch.randn(K, N, generator=gen, device=DEVICE)
+             for _ in range(max(1, min(64, math.ceil(2 * L2_BYTES / (K * N * 4)))))]
+    rows = []
+    for M in F32_MS:
+        x = torch.randn(M, K, generator=gen, device=DEVICE)
+        small = M <= dispatch.TC_MIN_M
+        for name, (rung, _, _) in KERNELS.items():
+            call, route, err, peak = checked_launch(name, nt, x, copies, torch.float32,
+                                                    f"{name} {shape} M={M} f32", dispatch.F32)
+            ms = time_graph_ms(call, 20 if small else 3, reps=5 if small else 2)
+            before = kernel_call(name, nt, x, copies, torch.float32, route=dispatch.CUDA_CORE)
+            cc_ms = time_graph_ms(before, 10, reps=3) if small else time_ms(before, 1)
+            with dispatch.reference_pass():
+                plain_ms = time_ms(call, 1)
+            dense_ms = time_graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]),
+                                     20 if small else 3, reps=5 if small else 2)
+            rows.append(_row(name, shape, M, "float32", err, ms, plain_ms,
+                             *matmul_cost(x, streams[:rung + 1], N, torch.float32),
+                             PEAK_FLOPS[torch.float32], None, K=K, N=N, route=route,
+                             uses_per_forward=uses, max_abs_ref=peak, cuda_core_ms=cc_ms,
+                             dense_f32_matmul_ms=dense_ms))
+            log(f"[f32] {name:13s} {shape:8s} M={M:4d} f32 err={err:.2e} f32 ms={ms:.4f} "
+                f"cuda-core ms={cc_ms:.4f} ({cc_ms / ms:.1f}x) plain={plain_ms:.3f} "
+                f"dense_f32={dense_ms:.4f} bound={rows[-1]['bound_ms']:.4f}")
+    del dense
+    return rows
+
+
+def f32_layers(rows):
+    """Per M (32 and ``F32_MS``) and rung, one qwen2-1.5b layer's seven f32
+    matmuls (q, k, v, o, gate, up, down) on the f32 body, on the CUDA-core
+    body, as dense f32 ``torch.matmul`` (M 64 and 4096) and at the f32
+    operations bound, from phase 1's rows."""
+    out = {}
+    per_layer = {"q/o": 2, "k/v": 2, "gate/up": 2, "down": 1}
+    for M in sorted({r["M"] for r in rows if r.get("route") == "f32"}):
+        for rung, name in enumerate(KERNELS):
+            sel = [r for r in rows if r["kernel"] == name and r["M"] == M
+                   and r["dtype"] == "float32" and r["shape"] in per_layer]
+            if len(sel) != len(per_layer):
+                continue
+            by = {key: sum(r[key] * per_layer[r["shape"]] for r in sel)
+                  for key in ("ms", "cuda_core_ms", "dense_f32_matmul_ms", "bound_ms")
+                  if all(r.get(key) is not None for r in sel)}
+            out[f"M={M} rung {rung}"] = by
+            log(f"[f32-layer] M={M:4d} rung {rung}: a layer's seven f32 matmuls "
+                + " ".join(f"{k[:-3] if k != 'ms' else 'f32'}={v:.4f}" for k, v in by.items())
+                + f" ms ({by['cuda_core_ms'] / by['ms']:.1f}x faster than the CUDA-core body, "
+                f"{by['ms'] / by['bound_ms']:.2f}x the bound)")
+    return out
+
+
 def phase_kernels(cfg, gen, during=None):
     """Phase 1's rows; the kernels build first, and ``during`` (no
     arguments) runs in this process while nvcc's processes do."""
@@ -700,6 +787,7 @@ def phase_kernels(cfg, gen, during=None):
         if not out_f32:           # a prefill's LM head sees only the last token
             rows += mid_rows(shape, K, N, uses, nt, streams, copies, gen)
             rows += prefill_rows(shape, K, N, uses, nt, streams, copies, dense, gen)
+            rows += f32_rows(shape, K, N, uses, nt, streams, copies, gen)
         del copies, dense, nt, streams
         torch.cuda.empty_cache()
     return rows
@@ -824,7 +912,8 @@ def phase_serve(cfg):
 
 
 K1_K3_BODIES = (("decode", ("stream_matmul_dec<",)), ("tensor_core", ("stream_matmul_tc<",)),
-                ("mid", ("stream_matmul_mid<",)), ("cuda_core", ("stream_matmul<",)),
+                ("mid", ("stream_matmul_mid<",)), ("f32", ("stream_matmul_f32<",)),
+                ("cuda_core", ("stream_matmul<",)),
                 ("reduce_partials", ("reduce_partials",)))
 
 
@@ -941,6 +1030,7 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
     out, failures = {}, []
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    f32_launches = dict.fromkeys(KERNELS, 0)
     for phase, rung in enumerate(SERVE_SCHEDULE[:3]):
         budget = budget_for(store, rung)
         # fresh engines, switched through ensure_mode: an engine caches the
@@ -953,7 +1043,13 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
         toks = prompt_tokens(make_requests(phase, cfg.vocab_size), store.device)
         with moe.record_groups() as klog:
             k16, _ = e16.model.prefill(params, toks)
+        seen = lambda: {n: (dispatch.counter(n).launches, dispatch.counter(n).dec_launches,  # noqa: E731
+                            dispatch.counter(n).f32_launches) for n in KERNELS}
+        before = seen()
         k32, _ = e32.model.prefill(params, toks)
+        # (launches, decode body, f32 body) of the f32 prefill
+        f32_now = {n: tuple(a - b for a, b in zip(v, before[n])) for n, v in seen().items()}
+        f32_launches = {n: f32_launches[n] + f32_now[n][2] for n in KERNELS}
         choices = [g.expert_idx for g in klog]
         with dispatch.reference_pass():
             with moe.forced_routing(choices):
@@ -968,14 +1064,21 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
                 p32f = p32
         # greedy tokens in f32 only: bf16's are held by their logits above
         t = {plain: _generate(e32, budget, phase, plain) for plain in (False, True)}
-        r = {"f32_kernel_vs_plain": _rel(k32, p32),
+        # the f32 prefill's launches on the rung's kernel, every one but
+        # those at M <= 8 (the LM head; small expert groups) on the f32 body
+        name = next(n for n, v in KERNELS.items() if v[0] == min(rung, 2))
+        f32_ok = (f32_now[name][2] > 0 and f32_now[name][2] == f32_now[name][0] - f32_now[name][1]
+                  and not any(any(f32_now[n]) for n in KERNELS if n != name))
+        r = {"f32_body_launches": f32_now[name][2], "f32_body_ok": f32_ok,
+             "f32_kernel_vs_plain": _rel(k32, p32),
              "bf16_kernel_vs_f32_plain": _rel(k16, p32f),
              "bf16_plain_vs_f32_plain": _rel(p16, p32f),
              "bf16_kernel_vs_bf16_plain": _rel(k16, p16),
              "f32_tokens_identical": bool((t[False] == t[True]).all()),
              "max_abs_logit": p32.abs().max().item(), "bf16_tol": bf16_tol}
         finite = all(bool(x.isfinite().all()) for x in (k16, k32, p16, p32, p32f))
-        r["ok"] = (finite and r["f32_kernel_vs_plain"] <= 1e-4 and r["f32_tokens_identical"]
+        r["ok"] = (finite and f32_ok and r["f32_kernel_vs_plain"] <= 1e-4
+                   and r["f32_tokens_identical"]
                    and r["bf16_kernel_vs_f32_plain"] <= bf16_tol
                    and r["bf16_kernel_vs_bf16_plain"] <= bf16_tol)
         out[f"rung{rung}"] = r
@@ -999,7 +1102,9 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
                 f"{r['bf16_one_stream_short_vs_f32_plain']:.3e} against the f32 plain pass "
                 f"(must exceed {bf16_tol:.1e})")
         log(f"[{tag}] rung {rung}: f32 kernel vs plain {r['f32_kernel_vs_plain']:.3e} "
-            f"(tol 1e-4), tokens identical {r['f32_tokens_identical']}; bf16 kernel vs "
+            f"(tol 1e-4; the f32 prefill's {name} launches (all, decode, f32 body) "
+            f"{f32_now[name]}), "
+            f"tokens identical {r['f32_tokens_identical']}; bf16 kernel vs "
             f"f32 plain {r['bf16_kernel_vs_f32_plain']:.3e}, bf16 kernel vs bf16 plain "
             f"{r['bf16_kernel_vs_bf16_plain']:.3e} (tol {bf16_tol:.1e} each), bf16 "
             f"plain vs f32 plain {r['bf16_plain_vs_f32_plain']:.3e}")
@@ -1008,6 +1113,7 @@ def phase_reference(cfg, store, tag="reference", bf16_tol=BF16_E2E_TOL):
         del e16, e32
     if failures:
         raise AssertionError(f"{tag} pass failed at rungs {failures}: {out}")
+    out["f32_launches"] = f32_launches
     return out
 
 
@@ -1480,10 +1586,18 @@ def spec_serve(cfg, store, per_forward):
             want[names[draft]] = (per_forward * prof.draft_steps,) * 2
             want["ladder_matmul"] = (per_forward * (1 + groups * prof.verify_passes),
                                      1 + per_forward * groups * prof.verify_passes)
-            if got != want or any(dispatch.counter(n).plain_launches
-                                  or dispatch.counter(n).tc_launches for n in names):
+            # the prefill's matmuls but the LM head: the short-prefill body in
+            # bf16, the f32 body in f32
+            ladder = dispatch.counter("ladder_matmul")
+            pre = ladder.f32_launches if dtype == "float32" else ladder.mid_launches
+            if got != want or pre != per_forward - 1 or any(
+                    dispatch.counter(n).plain_launches or dispatch.counter(n).tc_launches
+                    for n in names):
                 raise AssertionError(f"speculative {dtype} k={k} draft={draft}: launches "
-                                     f"{got}, want {want} and no plain or tensor-core launch")
+                                     f"{got}, want {want}, the prefill's {pre} on the "
+                                     f"{'f32' if dtype == 'float32' else 'short-prefill'} "
+                                     f"body (want {per_forward - 1}) and no plain or "
+                                     f"tensor-core launch")
             res[f"k{k}_draft{draft}"] = {
                 "wall_s": wall, "rounds": prof.verify_passes, "draft_steps": prof.draft_steps,
                 "acceptance": prof.acceptance, "launches": got, "device_busy_ms": busy}
@@ -2408,7 +2522,11 @@ def phase_long_f32(cfg, store):
     ek, ep = long_engine(cfg32, store), long_engine(cfg32, store)
     params = store.params()
     toks = prompt_tokens(long_requests(50, cfg.vocab_size), store.device)
+    name = next(n for n, v in KERNELS.items() if v[0] == min(store.rung, 2))
+    dispatch.reset_counters()                      # this path starts here
     kern, _ = ek.model.prefill(params, toks)
+    torch.cuda.synchronize()
+    f32_prefill = {n: dispatch.counter(n).f32_launches for n in KERNELS}
     with dispatch.reference_pass():
         plain, _ = ep.model.prefill(params, toks)
     rel = _rel(kern, plain)
@@ -2417,13 +2535,25 @@ def phase_long_f32(cfg, store):
     with dispatch.reference_pass():
         ep.generate(rp, queue_depth=0)
     same = [r.out_tokens for r in rk] == [r.out_tokens for r in rp]
-    ok = (bool(kern.isfinite().all()) and rel <= 1e-4 and same
+    # each prefill's 196 matmuls but the LM head (M = 2: the decode body) on
+    # the f32 body, K5 once a layer, in the prefill alone and in the generate
+    per_forward = packed_linears_per_forward(store)
+    f32 = {n: dispatch.counter(n).f32_launches for n in KERNELS}
+    k5 = dispatch.counter("flash_attention").launches
+    want = {n: per_forward - 1 if n == name else 0 for n in KERNELS}
+    launches_ok = (f32_prefill == want and sum(f32.values()) == 2 * (per_forward - 1)
+                   and k5 == 2 * cfg.num_layers)
+    ok = (bool(kern.isfinite().all()) and rel <= 1e-4 and same and launches_ok
           and ek.kv.rung == ep.kv.rung == 2)
     log(f"[long-f32] prefill logits kernel vs plain {rel:.3e} (tol 1e-4); greedy tokens "
-        f"identical {same} at kv rung {ek.kv.rung}")
+        f"identical {same} at kv rung {ek.kv.rung}; f32-body launches of the prefill "
+        f"{f32_prefill} (want {want}), with the generate's {f32} (want "
+        f"{2 * (per_forward - 1)} in all), K5 {k5} (want {2 * cfg.num_layers})")
     if not ok:
-        raise AssertionError(f"long f32 check failed: rel {rel}, tokens identical {same}")
-    return {"prefill_rel": rel, "tokens_identical": same}
+        raise AssertionError(f"long f32 check failed: rel {rel}, tokens identical {same}, "
+                             f"f32-body launches {f32_prefill} / {f32}, K5 {k5}")
+    return {"prefill_rel": rel, "tokens_identical": same, "f32_launches": f32,
+            "k5_launches": k5}
 
 
 def phase_long_profile(engine, cfg):
@@ -2573,21 +2703,23 @@ def moe_config():
 
 
 def _k_counts():
-    """(launches, decode-body, tensor-core, plain, short-prefill) of every
-    wrapper."""
+    """(launches, decode-body, tensor-core, plain, short-prefill, f32-body)
+    of every wrapper."""
     from repro_torch.kernels import dispatch
-    return {n: (c.launches, c.dec_launches, c.tc_launches, c.plain_launches, c.mid_launches)
+    return {n: (c.launches, c.dec_launches, c.tc_launches, c.plain_launches, c.mid_launches,
+                c.f32_launches)
             for n, c in dispatch.COUNTERS.items()}
 
 
 def _k_delta(before):
-    return {n: tuple(a - b for a, b in zip(v, before.get(n, (0, 0, 0, 0, 0))))
+    return {n: tuple(a - b for a, b in zip(v, before.get(n, (0,) * 6)))
             for n, v in _k_counts().items()}
 
 
 def moe_want(glog, L, batch, dtype, attn=4):
-    """K1-K3 (launches, decode-body, tensor-core, plain, short-prefill) per
-    kernel that the routing ``moe.record_groups`` recorded implies.  Each forward (L
+    """K1-K3 (launches, decode-body, tensor-core, plain, short-prefill,
+    f32-body) per kernel that the routing ``moe.record_groups`` recorded
+    implies.  Each forward (L
     consecutive entries, one route and one rung) runs ``attn`` nested
     attention matmuls per layer at M = T (all 4 at full width), 3 matmuls
     per (layer, expert) group at its rows, and the LM head (M = T on the
@@ -2597,7 +2729,7 @@ def moe_want(glog, L, batch, dtype, attn=4):
     ``matmul_route`` picks for M."""
     from repro_torch.kernels import dispatch
 
-    want = {n: [0, 0, 0, 0, 0] for n in KERNELS}
+    want = {n: [0] * 6 for n in KERNELS}
 
     def add(name, M, route, times):
         body = route or dispatch.matmul_route(M, dtype, DEVICE)
@@ -2606,6 +2738,7 @@ def moe_want(glog, L, batch, dtype, attn=4):
         want[name][1] += k * (body == dispatch.DECODE)
         want[name][2] += k * (body == dispatch.TENSOR_CORE)
         want[name][4] += k * (body == dispatch.MID)
+        want[name][5] += k * (body == dispatch.F32)
 
     if not glog or len(glog) % L:
         raise AssertionError(f"{len(glog)} MoE calls recorded, not whole {L}-layer forwards")
@@ -2629,10 +2762,10 @@ def _moe_check(glog, L, batch, dtype, delta, what, flash=0, attn=4):
     want = moe_want(glog, L, batch, dtype, attn)
     got = {n: delta[n] for n in KERNELS}
     others = {n: v for n, v in delta.items() if n not in KERNELS and any(v)}
-    want_others = {"flash_attention": (flash, 0, 0, 0, 0)} if flash else {}
+    want_others = {"flash_attention": (flash, 0, 0, 0, 0, 0)} if flash else {}
     if got != want or others != want_others:
         raise AssertionError(f"{what}: launches (all, decode, tensor core, plain, short "
-                             f"prefill) {got} "
+                             f"prefill, f32) {got} "
                              f"{others}, the recorded routing implies {want} {want_others}")
     return {n: v[:3] for n, v in got.items()}
 
@@ -2975,11 +3108,12 @@ def ssm_want(cfg, batch, prompt, new, rung, flash=0):
     name = next(n for n, v in KERNELS.items() if v[0] == min(rung, 2))
     body = dispatch.matmul_route(batch * prompt, torch_dtype(cfg.compute_dtype), DEVICE)
     pre = per - 1
-    want = {n: (0, 0, 0, 0, 0) for n in dispatch.COUNTERS}
+    want = {n: (0,) * 6 for n in dispatch.COUNTERS}
     want[name] = (per * (1 + new), per * new + 1 + pre * (body == dispatch.DECODE),
-                  pre * (body == dispatch.TENSOR_CORE), 0, pre * (body == dispatch.MID))
+                  pre * (body == dispatch.TENSOR_CORE), 0, pre * (body == dispatch.MID),
+                  pre * (body == dispatch.F32))
     if flash:
-        want["flash_attention"] = (flash, 0, 0, 0, 0)
+        want["flash_attention"] = (flash, 0, 0, 0, 0, 0)
     return want
 
 
@@ -2996,7 +3130,7 @@ def _ssm_generate(engine, reqs, what, budget=None, queue_depth=None, flash=0):
                     max(r.max_new_tokens for r in reqs), engine.store.rung, flash)
     if delta != want:
         raise AssertionError(f"{what}: launches (all, decode, tensor core, plain, short "
-                             f"prefill) {delta}, want {want}")
+                             f"prefill, f32) {delta}, want {want}")
     for r in reqs:
         if len(r.out_tokens) != r.max_new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.out_tokens):
@@ -4389,7 +4523,7 @@ def control_loss(plan, mesh, key, control):
 def _k_totals():
     from repro_torch.kernels import dispatch
     return {n: {"launches": c.launches, "plain": c.plain_launches, "dec": c.dec_launches,
-                "tc": c.tc_launches, "mid": c.mid_launches}
+                "tc": c.tc_launches, "mid": c.mid_launches, "f32": c.f32_launches}
             for n, c in dispatch.COUNTERS.items()}
 
 
@@ -4693,10 +4827,12 @@ def check_serve_runs(tag, serve, part, per_fwd, k5_per_run=0):
                                      f"{run['gap']:.3e}: within the limit")
             continue
         name = kernel_of[int(rung)]
-        c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0, "mid": 0})
+        c = run["counts"].get(name, {"launches": 0, "plain": 0, "dec": 0, "tc": 0, "mid": 0,
+                                     "f32": 0})
         want = {"launches": per_fwd * (1 + part["new"]), "plain": 0,
                 "dec": 1 + per_fwd * part["new"],
-                "tc": (per_fwd - 1) if dt == "bfloat16" else 0, "mid": 0}
+                "tc": (per_fwd - 1) if dt == "bfloat16" else 0, "mid": 0,
+                "f32": (per_fwd - 1) if dt == "float32" else 0}
         got = {k: c[k] for k in want}
         others = sum(v["launches"] + v["plain"] for n, v in run["counts"].items()
                      if n != name and n in kernel_of.values())
@@ -5110,8 +5246,8 @@ def dry_serve(plan, key, dtype, rung, device, rank=0):
 
 def _dry_totals(parts):
     """(per collective [calls, payload], per kernel [launches, decode body,
-    tensor cores, short-prefill body]) of ``parts``: (StepCosts, calls)
-    pairs summed."""
+    tensor cores, short-prefill body, f32 body]) of ``parts``: (StepCosts,
+    calls) pairs summed."""
     comm, kern = {}, {}
     for costs, n in parts:
         for op, calls in costs.num_collectives.items():
@@ -5119,8 +5255,8 @@ def _dry_totals(parts):
             c[0] += n * calls
             c[1] += n * costs.payload_bytes[op]
         for name, k in costs.kernels.items():
-            c = kern.setdefault(name, [0, 0, 0, 0])
-            for i, f in enumerate(("dry_launches", "decode", "tensor_core", "mid")):
+            c = kern.setdefault(name, [0, 0, 0, 0, 0])
+            for i, f in enumerate(("dry_launches", "decode", "tensor_core", "mid", "f32")):
                 c[i] += n * k[f]
     return comm, kern
 
@@ -5129,7 +5265,8 @@ def _measured_totals(comm_counts, k_totals):
     """The same of a rank's measured ``comm.counts()`` and ``_k_totals()``."""
     comm = {op: [c["calls"], c["payload_bytes"]] for op, c in comm_counts.items()
             if c["calls"]}
-    kern = {n: [c["launches"], c["dec"], c["tc"], c["mid"]] for n, c in k_totals.items()
+    kern = {n: [c["launches"], c["dec"], c["tc"], c["mid"], c["f32"]]
+            for n, c in k_totals.items()
             if c["launches"]}
     return comm, kern
 
@@ -5449,15 +5586,38 @@ def short_prefill_summary(rows, name, mid_launches):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
 
 
-def kernel_summary(rows, launches, tc_launches, mid_launches, moe_info, ssm_info, train_info,
-                   M=4, dtype="bfloat16"):
+def f32_prefill_summary(rows, name, f32_launches):
+    """K1-K3's ``f32_prefill`` entry: one long f32 prefill's 196 launches at
+    M = 4096 on the f32 body (every main-path shape but the LM head times
+    its uses per forward), beside the same launches on the CUDA-core body
+    (the "before"), the plain version and the dense f32 yardstick;
+    ``launches`` those of phases 3 and 5-f32 on the f32 body."""
+    M = F32_MS[-1]
+    sel = [r for r in rows if r["kernel"] == name and r["M"] == M and r["route"] == "f32"]
+    tot = lambda key: sum(r[key] * r["uses_per_forward"] for r in sel)  # noqa: E731
+    t_bytes = tot("bytes") / HBM_BYTES_PER_S * 1e3
+    t_ops = tot("ops") / PEAK_FLOPS[torch.float32] * 1e3
+    return {"route": "cuda", "source": F32_SOURCE, "replaces": KERNELS[name][2],
+            "body": "f32", "launches": f32_launches,
+            "per": f"one long f32 prefill: {sum(r['uses_per_forward'] for r in sel)} launches "
+                   f"at M={M} f32",
+            "max_abs_err": max(r["max_abs_err"] for r in sel), "ms": tot("ms"),
+            "cuda_core_ms": tot("cuda_core_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "yardstick_dense_f32_matmul_ms": tot("dense_f32_matmul_ms")}
+
+
+def kernel_summary(rows, launches, tc_launches, mid_launches, f32_launches, moe_info,
+                   ssm_info, train_info, M=4, dtype="bfloat16"):
     """One entry per kernel: one decode step at batch M in ``dtype``
     (every main-path shape times its uses per forward) on the decode body,
     the same launches on the CUDA-core body beside it (``cuda_core_ms``);
     ``launches`` the main paths' (all bodies; phases 6 and 7 included),
     ``decode_launches`` those on the decode body; the long prefill's
     tensor-core launches as its ``prefill`` entry, the short prefill's
-    short-prefill launches as its ``short_prefill`` entry; phase 6's (all, decode
+    short-prefill launches as its ``short_prefill`` entry, the long f32
+    prefill's f32-body launches as its ``f32_prefill`` entry; phase 6's (all, decode
     body, tensor cores) as ``moe_launches``, phase 7's per model as
     ``ssm_launches``, phase 8's scoring (all, decode body, tensor cores) as
     ``score_launches``."""
@@ -5481,17 +5641,20 @@ def kernel_summary(rows, launches, tc_launches, mid_launches, moe_info, ssm_info
                    f"launches at M={M} {dtype}, decode body",
             "prefill": prefill_summary(rows, name, tc_launches[name]),
             "short_prefill": short_prefill_summary(rows, name, mid_launches[name]),
+            "f32_prefill": f32_prefill_summary(rows, name, f32_launches[name]),
             "moe_launches": moe_info["launches"][name] + (moe_info["tc_launches"][name],),
             "ssm_launches": {arch: m["launches"][name] for arch, m in ssm_info.items()},
             "score_launches": train_info["launches"][name]})
     return out
 
 
-def kv_kernel_summary(rows, launches, moe_flash, ssm_flash, train):
+def kv_kernel_summary(rows, launches, moe_flash, ssm_flash, train, f32_launches):
     """K4-K6 entries of the kernels line, each at its main-path shape: K4 on
     the served cache (rung 2 of (4, 6, 8), one decode token's G = 6 query
     heads per kv head), K5 one long prefill's attention (S = 2048, bf16,
-    per layer; ``moe_flash`` its check at phase 6's shape), K6 one page-in
+    per layer; ``moe_flash`` its check at phase 6's shape; the f32 body's
+    launch at the same shape as its ``f32`` entry, ``f32_launches`` phase
+    5-f32's), K6 one page-in
     of every weight slice of the tree at (n, h) = (6, 4)."""
     decode_m = min(r["M"] for r in rows if r["kernel"] == "nested_qk")
     floor_ms = next(r["ms"] for r in rows if r["kernel"] == "launch_floor")
@@ -5530,6 +5693,13 @@ def kv_kernel_summary(rows, launches, moe_flash, ssm_flash, train):
             out[-1].update(moe_check=moe_flash, ssm_check=ssm_flash,
                            train_launches=train["k5_launches"],
                            with_stats=sel[0]["with_stats"])
+            r32 = next(r for r in rows if r["kernel"] == "flash_attention"
+                       and r["S"] == PROMPT_LONG and r["dtype"] == "float32")
+            out[-1]["f32"] = {
+                "per": "one launch: B=2, S=2048, 12/2 heads of 128, f32 (the f32 body)",
+                "launches": f32_launches,
+                **{key: r32[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}}
             offset = [r for r in rows if r["kernel"] == "flash_attention_offset"
                       and r["dtype"] == "bfloat16"]
             last = max(offset, key=lambda r: r["q_offset"])
@@ -5577,6 +5747,7 @@ def main() -> int:
     profile_info = timed_phase("2-profile", phase_profile, engine, store, cfg,
                                packed_linears_per_forward(store))
     reference = timed_phase("3", phase_reference, cfg, store)
+    f32_launches = reference.pop("f32_launches")
     del engine
     artifact = timed_phase("3b", phase_artifact, cfg, store, phases,
                            packed_linears_per_forward(store))
@@ -5600,6 +5771,7 @@ def main() -> int:
     long_profile = timed_phase("5-profile", phase_long_profile, long_engine_, cfg)
     del long_engine_
     long_f32 = timed_phase("5-f32", phase_long_f32, cfg, store)
+    f32_launches = {n: f32_launches[n] + long_f32["f32_launches"][n] for n in KERNELS}
     served_recompose = timed_phase("5-k6", phase_served_recompose, store)
     del store
     torch.cuda.empty_cache()
@@ -5639,10 +5811,11 @@ def main() -> int:
                                        + train_info["k5_launches"]),
                    "nested_qk": served_kv["launches"],
                    "nest_recompose": served_recompose["launches"]}
-    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], mid_launches, moe_info,
-                              ssm_info, train_info)
+    kernels = (kernel_summary(rows, launches, long_info["tc_launches"], mid_launches,
+                              f32_launches, moe_info, ssm_info, train_info)
                + kv_kernel_summary(kv_rows, kv_launches, moe_info["flash_check"],
-                                   ssm_info["zamba2-2.7b"]["flash_check"], train_info))
+                                   ssm_info["zamba2-2.7b"]["flash_check"], train_info,
+                                   long_f32["k5_launches"]))
     for k in kernels:          # phases 9 and 10, summed over their rank processes
         if k["name"] in sharded["launches"]:
             k["sharded_launches"] = sharded["launches"][k["name"]]
@@ -5657,6 +5830,7 @@ def main() -> int:
             f"{n} {v['ms']:.3f} ms (cuda-core {v['cuda_core_ms']:.3f}, dense bf16 "
             f"{v['dense_bf16_matmul_ms']:.3f}, bound {v['bound_ms']:.3f})" for n, v in by.items()))
     layers = mid_layers(rows)
+    layers32 = f32_layers(rows)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "rows": rows, "kv_rows": kv_rows, "serve": phases, "profile": profile_info,
               "reference": reference, "artifact": artifact, "spec_faults": spec,
@@ -5666,7 +5840,7 @@ def main() -> int:
               "served_recompose": served_recompose, "moe": moe_info, "ssm": ssm_info,
               "train": train_info, "sharded": sharded, "seq_ssm": seq_ssm, "dryrun": dry,
               "kernels": kernels, "decode_steps": steps, "phase_s": PHASE_S,
-              "mid_layers": layers,
+              "mid_layers": layers, "f32_layers": layers32,
               "peak_mem_bytes": max(peak_before_train, train_info["peak_mem_bytes"]),
               "wall_s": time.time() - t_start}
     args.report.parent.mkdir(parents=True, exist_ok=True)

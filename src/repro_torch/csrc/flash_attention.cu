@@ -59,17 +59,39 @@
 //   cannot reach wgmma's rate, and the softmax's exp and shuffles run
 //   between the two products.
 //
-// f32 (flash_fwd, unchanged from the first port): CUDA-core FMAs on f32
-// copies in shared memory (no TF32 anywhere):
-//   * one CTA of 256 threads per (64-row query tile, query head, batch);
-//   * the query tile and ONE key-or-value tile of 64 rows live in shared
-//     memory as f32, rows padded by one word so the column reads of the
-//     score product fall in distinct banks.  K is staged, the 64 x 64
-//     score tile computed, then V is staged into the same buffer: ~83 KB
-//     of dynamic shared memory at hd = 128, two CTAs per SM;
-//   * each thread owns 4 query rows x 4 key columns of the score tile and
-//     4 rows x hd/16 output columns of the accumulator; the row max and
-//     row sum are reduced over the 16 threads of a row with shuffles.
+// f32 (flash_fwd): CUDA-core FMAs on f32 tiles in shared memory (no TF32
+// anywhere: the f32 path is the port's exactness reference).  At S 2048,
+// hd 128, 12/2 heads, B 2 the causal half is 25.8 GFLOP, 0.385 ms at the
+// 67 TFLOP/s f32 rate; the bytes are far below it, so the FMAs bound it.
+// The first port staged K and then V through one shared buffer by plain
+// loads (four __syncthreads per key tile, no copy overlapping a product)
+// and read one 4-byte shared word for every two FMAs.  The design:
+//   * one CTA of 256 threads (16 row groups x 16 column threads) per
+//     (64-row query tile, query head, batch), heaviest tiles first; row
+//     group g owns rows g + 16 i (i < 4), column thread c keys c and c + 16
+//     of each 32-key tile for the scores, and hd columns 4 c .. 4 c + 3
+//     (and 64 + 4 c .. + 3 at hd > 64) for the output: registers hold 4 x 2
+//     scores and 4 x 8 output sums a thread, and the row max and row sum
+//     are reduced over the half-warp of a row with four xor shuffles (8
+//     rows a thread and 128 threads give each warp more reuse but leave an
+//     SM 8 warps, and ran slower on the card);
+//   * Q (64 rows), K and V (32 rows each, separate buffers, double
+//     buffered) in shared memory as f32, rows padded by 4 floats; K and V
+//     of tile t + 1 are copied by cp.async (16-byte chunks, zero-filled
+//     past S and past hd) while tile t is multiplied: two __syncthreads per
+//     key tile (the tile landed; P complete);
+//   * Q K^T reads Q and K rows as float4 along hd (6 16-byte reads per 32
+//     FMAs); P goes through a (64, 48) shared tile and P V reads it as
+//     float4 along the keys and V as float4 along hd (12 reads per 128
+//     FMAs).  Warps read Q and P two rows at a time (broadcast) and K and
+//     V 16 rows at a time: no bank conflicts;
+//   * hd is padded in shared memory to 64 or 128 (two instantiations);
+//     the zero columns add nothing to Q K^T and are never stored.
+//   Shared memory: (64 + 4 x 32) rows x (hd_pad + 4) + 64 x 48 floats =
+//   111.0 KB at hd 128 (two CTAs, 16 warps, per SM), 63.0 KB at hd 64.
+//   What still bounds it (PERF.md): the FMAs at the f32 rate, with the
+//   softmax's exp and shuffles and the shared reads in the same issue
+//   slots, and 16 warps per SM to hide the shared-memory latency.
 //
 // Both: key tiles wholly above the diagonal are skipped (their masked
 // contribution is exactly 0); within the diagonal tile and past a ragged
@@ -101,19 +123,9 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
+constexpr int kBK = 64;        // key rows per tile of the bf16 body
 constexpr int kMaxHd = 128;
-constexpr int kOutCols = kMaxHd / 16;  // accumulator columns per thread
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// p rounded to v's dtype (p.astype(v.dtype) in the TPU kernel)
-__device__ __forceinline__ float round_as(float p, const float*) { return p; }
-
-__device__ __forceinline__ void store(float* o, size_t i, float v) { o[i] = v; }
 
 struct Args {
   const void* q;
@@ -344,157 +356,205 @@ int launch_tc(const Args& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // f32: CUDA-core body
 // ---------------------------------------------------------------------------
-// rows [r0, r0 + 64) of one head of a (B, S, H, hd) tensor -> smem (64, hd + 1)
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0, int h,
-                                      int H, int S, const Args& a) {
-  const int hdp = a.hd + 1;
-  for (int i = threadIdx.x; i < kBK * a.hd; i += kThreads) {
-    const int r = i / a.hd;
-    const int d = i - r * a.hd;
-    float val = 0.f;
-    if (r0 + r < S) {
-      val = to_f32(src[((static_cast<size_t>(b) * S + r0 + r) * H + h) * a.hd + d]);
-    }
-    dst[r * hdp + d] = val;
-  }
+constexpr int kF32BQ = 64;              // query rows per CTA
+constexpr int kF32BKV = 32;             // key rows per tile
+constexpr int kF32Threads = 256;        // row groups x 16 column threads
+constexpr int kF32Groups = kF32Threads / 16;  // row group g owns rows g + kF32Groups i
+constexpr int kF32Rows = kF32BQ / kF32Groups;  // query rows per thread
+constexpr int kF32LDP = kF32BKV + 16;   // probability tile row stride (floats)
+
+template <int HDP>  // head dim padded in shared memory: 64 or 128
+constexpr size_t f32_smem_bytes() {
+  return (static_cast<size_t>(kF32BQ + 4 * kF32BKV) * (HDP + 4) + kF32BQ * kF32LDP) *
+         sizeof(float);
 }
 
-template <typename T, bool OFFSET>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const Args a) {
-  extern __shared__ float smem[];
-  const int hdp = a.hd + 1;
-  float* qs = smem;                 // (64, hd + 1) query tile
-  float* kv = qs + kBQ * hdp;       // (64, hd + 1) key, then value tile
-  float* ps = kv + kBK * hdp;       // (64, 65) probabilities
+// OFFSET false: the whole sequence (q_off = 0, Skv = Sq known at compile
+// time), as for the bf16 body
+template <int HDP, bool OFFSET>
+__global__ void __launch_bounds__(kF32Threads, 2) flash_fwd(const Args a) {
+  constexpr int LD = HDP + 4;    // row stride (floats): 16 bytes of padding
+  constexpr int CH = HDP / 4;    // 16-byte chunks per row
+  constexpr int OC = HDP / 64;   // output chunks per thread: 4 (cl + 16 c) .. + 3
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                // (64, LD)
+  float* ks = qs + kF32BQ * LD;                    // 2 x (32, LD)
+  float* vs = ks + 2 * kF32BKV * LD;               // 2 x (32, LD)
+  float* ps = vs + 2 * kF32BKV * LD;               // (64, LDP) probabilities
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = qt * kBQ;
-  const int ty = threadIdx.x >> 4;  // row group: rows ty * 4 .. + 4
-  const int tx = threadIdx.x & 15;  // column lane
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const int q0 = qt * kF32BQ;
+  const int lane = threadIdx.x & 31;
+  const int rg = ((threadIdx.x >> 5) << 1) + (lane >> 4);   // rows rg + kF32Groups i
+  const int cl = lane & 15;                                  // keys cl + 16 u (u < 2)
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
   const int q_off = OFFSET ? a.q_off : 0;
   const int Skv = OFFSET ? a.Skv : a.Sq;
 
-  stage(qs, q, b, q0, h, a.Hq, a.Sq, a);
+  // rows [r0, r0 + rows) of head hh of a (B, S, H, hd) tensor -> (rows,
+  // LD); rows past S and columns past hd are zero-filled
+  auto load_tile = [&](float* dst, const float* src, int r0, int rows, int hh, int H, int S) {
+    for (int i = threadIdx.x; i < rows * CH; i += kF32Threads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 4;
+      const bool ok = r0 + r < S && c < a.hd;
+      const float* p = ok ? src + ((static_cast<size_t>(b) * S + r0 + r) * H + hh) * a.hd + c
+                          : src;
+      nq_tc::cp_async<16>(nq_tc::smem_u32(dst + r * LD + c), p, ok);
+    }
+  };
 
-  float m[4], l[4], acc[4][kOutCols];
+  const int last_q = q_off + min(q0 + kF32BQ, a.Sq) - 1;  // as a key position
+  const int n_tiles = last_q / kF32BKV + 1;  // tiles with a key <= the last query
+  load_tile(qs, q, q0, kF32BQ, h, a.Hq, a.Sq);
+  load_tile(ks, k, 0, kF32BKV, hk, a.Hkv, Skv);
+  load_tile(vs, v, 0, kF32BKV, hk, a.Hkv, Skv);
+  nq_tc::cp_async_commit();
+
+  float m[kF32Rows], l[kF32Rows], acc[kF32Rows][4 * OC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kF32Rows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kOutCols; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * OC; ++j) acc[i][j] = 0.f;
   }
 
-  const int last_q = q_off + min(q0 + kBQ, a.Sq) - 1;  // as a key position
-  const int n_tiles = last_q / kBK + 1;  // tiles with a key <= the last query
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                 // the previous V tile is consumed
-    stage(kv, k, b, k0, hk, a.Hkv, Skv, a);
-    __syncthreads();
+    nq_tc::cp_async_wait_all();
+    __syncthreads();                   // tile kt landed; tile kt - 1 and its P consumed
+    if (kt + 1 < n_tiles) {            // prefetch tile kt + 1 into the other buffers
+      const int nb = (kt + 1) & 1;
+      load_tile(ks + nb * kF32BKV * LD, k, (kt + 1) * kF32BKV, kF32BKV, hk, a.Hkv, Skv);
+      load_tile(vs + nb * kF32BKV * LD, v, (kt + 1) * kF32BKV, kF32BKV, hk, a.Hkv, Skv);
+      nq_tc::cp_async_commit();
+    }
+    const float* kb = ks + (kt & 1) * kF32BKV * LD;
+    const float* vb = vs + (kt & 1) * kF32BKV * LD;
+    const int k0 = kt * kF32BKV;
 
-    float s[4][4];
+    // S = Q K^T: kF32Rows rows x 2 keys per thread, float4 along hd
+    float s[kF32Rows][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kF32Rows; ++i) s[i][0] = s[i][1] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < a.hd; ++d) {
-      float qv[4], kvv[4];
+    for (int d = 0; d < HDP; d += 4) {
+      const float4 k0v = *reinterpret_cast<const float4*>(kb + cl * LD + d);
+      const float4 k1v = *reinterpret_cast<const float4*>(kb + (cl + 16) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty * 4 + i) * hdp + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kvv[j] = kv[(tx + 16 * j) * hdp + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kvv[j], s[i][j]);
+      for (int i = 0; i < kF32Rows; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + (rg + kF32Groups * i) * LD + d);
+        s[i][0] = fmaf(qv.x, k0v.x, s[i][0]);
+        s[i][0] = fmaf(qv.y, k0v.y, s[i][0]);
+        s[i][0] = fmaf(qv.z, k0v.z, s[i][0]);
+        s[i][0] = fmaf(qv.w, k0v.w, s[i][0]);
+        s[i][1] = fmaf(qv.x, k1v.x, s[i][1]);
+        s[i][1] = fmaf(qv.y, k1v.y, s[i][1]);
+        s[i][1] = fmaf(qv.z, k1v.z, s[i][1]);
+        s[i][1] = fmaf(qv.w, k1v.w, s[i][1]);
+      }
     }
 
+    // online softmax over this tile: scale, mask, row max / sum over the
+    // 16 column threads of a row (one half-warp)
+    const bool masked = k0 + kF32BKV - 1 > q_off + q0 || k0 + kF32BKV > Skv;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_off + q0 + ty * 4 + i;
+    for (int i = 0; i < kF32Rows; ++i) {
+      const int qpos = q_off + q0 + rg + kF32Groups * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        s[i][j] = (kpos <= qpos && kpos < Skv) ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int u = 0; u < 2; ++u) {
+        float val = s[i][u] * a.scale;
+        if (masked) {
+          const int kpos = k0 + cl + 16 * u;
+          if (kpos > qpos || kpos >= Skv) val = kNegInf;
+        }
+        s[i][u] = val;
+        mx = fmaxf(mx, val);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       const float corr = __expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty * 4 + i) * (kBK + 1) + tx + 16 * j] = round_as(p, v);
-      }
+      const float p0 = __expf(s[i][0] - m_new);
+      const float p1 = __expf(s[i][1] - m_new);
+      ps[(rg + kF32Groups * i) * kF32LDP + cl] = p0;   // p.astype(v.dtype): f32 as it is
+      ps[(rg + kF32Groups * i) * kF32LDP + cl + 16] = p1;
+      float sum = p0 + p1;
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < kOutCols; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < 4 * OC; ++j) acc[i][j] *= corr;
     }
+    __syncthreads();                   // P complete
 
-    __syncthreads();                 // scores read K; now V takes its place
-    stage(kv, v, b, k0, hk, a.Hkv, Skv, a);
-    __syncthreads();
-
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
+    // O += P V: kF32Rows rows x 4 * OC columns per thread, float4 along the keys
+    // (P) and along hd (V)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * (kBK + 1) + c];
+    for (int j = 0; j < kF32BKV; j += 4) {
+      float4 vv[4][OC];
 #pragma unroll
-      for (int j = 0; j < kOutCols; ++j) {
-        const int col = tx + 16 * j;
-        if (col < a.hd) {
-          const float vv = kv[c * hdp + col];
+      for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int c = 0; c < OC; ++c) {
+          vv[jj][c] = *reinterpret_cast<const float4*>(vb + (j + jj) * LD + 4 * (cl + 16 * c));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const float4 pv =
+            *reinterpret_cast<const float4*>(ps + (rg + kF32Groups * i) * kF32LDP + j);
+        const float pj[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int c = 0; c < OC; ++c) {
+            acc[i][4 * c] = fmaf(pj[jj], vv[jj][c].x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(pj[jj], vv[jj][c].y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(pj[jj], vv[jj][c].z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(pj[jj], vv[jj][c].w, acc[i][4 * c + 3]);
+          }
         }
       }
     }
   }
 
-  T* o = static_cast<T*>(a.o);
+  float* o = static_cast<float*>(a.o);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;      // this block's row
+  for (int i = 0; i < kF32Rows; ++i) {
+    const int qpos = q0 + rg + kF32Groups * i;   // this block's row
     if (qpos >= a.Sq) continue;
-    if (a.stats != nullptr && tx == 0) store_stats(a, b, h, qpos, m[i], l[i]);
+    if (a.stats != nullptr && cl == 0) store_stats(a, b, h, qpos, m[i], l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = o + ((static_cast<size_t>(b) * a.Sq + qpos) * a.Hq + h) * a.hd;
 #pragma unroll
-    for (int j = 0; j < kOutCols; ++j) {
-      const int col = tx + 16 * j;
+    for (int c = 0; c < OC; ++c) {
+      const int col = 4 * (cl + 16 * c);
       if (col < a.hd) {
-        store(o, ((static_cast<size_t>(b) * a.Sq + qpos) * a.Hq + h) * a.hd + col,
-              acc[i][j] * inv);
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
+                        acc[i][4 * c + 3] * inv);
       }
     }
   }
 }
 
-template <typename T, bool OFFSET>
-int launch_t(const Args& a, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(kBQ) * (a.hd + 1) + kBQ * (kBK + 1)) *
-                      sizeof(float);
-  // opt in to the largest tile once (hd = 128), before any graph capture
-  static cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_fwd<T, OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>((2 * kBQ * (kMaxHd + 1) + kBQ * (kBK + 1)) * sizeof(float)));
+template <int HDP, bool OFFSET>
+int launch_f32(const Args& a, cudaStream_t stream) {
+  // opt in above 48 KB once, before any graph capture
+  static cudaError_t opt_in =
+      cudaFuncSetAttribute(flash_fwd<HDP, OFFSET>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(f32_smem_bytes<HDP>()));
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_fwd<T, OFFSET><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.Sq + kF32BQ - 1) / kF32BQ, a.Hq, a.B);
+  flash_fwd<HDP, OFFSET><<<grid, kF32Threads, f32_smem_bytes<HDP>(), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -516,10 +576,10 @@ int nq_flash_attention(const void* q, const void* k, const void* v, void* o, flo
   const Args a = {q, k, v, o, stats, B, Sq, Skv, q_off, Hq, Hkv, hd, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_off == 0 && Sq == Skv) {  // the whole sequence
-    if (!is_bf16) return launch_t<float, false>(a, s);
+    if (!is_bf16) return hd <= 64 ? launch_f32<64, false>(a, s) : launch_f32<128, false>(a, s);
     return hd <= 64 ? launch_tc<64, false>(a, s) : launch_tc<128, false>(a, s);
   }
-  if (!is_bf16) return launch_t<float, true>(a, s);
+  if (!is_bf16) return hd <= 64 ? launch_f32<64, true>(a, s) : launch_f32<128, true>(a, s);
   return hd <= 64 ? launch_tc<64, true>(a, s) : launch_tc<128, true>(a, s);
 }
 

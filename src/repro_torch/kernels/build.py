@@ -26,12 +26,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
-# flags of one source: nest_matmul.cu's 33 kernels are the build's long
-# pole, so nvcc optimizes them in parallel on every core it finds (each
-# kernel keeps its registers and spills; the other sources, which build
-# several times faster beside it, keep one thread: the flag changes
-# nest_recompose.cu's register counts)
-SOURCE_FLAGS: Dict[str, List[str]] = {"nest_matmul.cu": ["--split-compile=0"]}
+# flags of one source: nest_matmul.cu's 33 kernels and nest_matmul_f32.cu's
+# 20 are the build's long poles, so nvcc optimizes their kernels in
+# parallel on every core it finds (each kernel keeps its registers and
+# spills; the other sources, which build several times faster beside them,
+# keep one thread: the flag changes nest_recompose.cu's register counts)
+SOURCE_FLAGS: Dict[str, List[str]] = {"nest_matmul.cu": ["--split-compile=0"],
+                                      "nest_matmul_f32.cu": ["--split-compile=0"]}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # exported C entry points of each source: name -> argtypes (all return int:
@@ -51,6 +52,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "nq_mid_matmul": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
                           _I, _I, _I, _I, _P],
         "nq_mid_workspace": [_P, _I, _I, _I, _I, _P],
+    },
+    "nest_matmul_f32.cu": {
+        "nq_f32_matmul": [_P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I,
+                          _I, _I, _I, _I, _P],
+        "nq_f32_workspace": [_P, _I, _I, _I, _I, _I, _P],
     },
     "flash_attention.cu": {
         "nq_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -189,9 +195,12 @@ def dec_counters(device, tiles: int, stream=None):
     return buf
 
 
-# the C entry points' ``body`` of the short-prefill body (``dispatch.BODY``),
-# whose kernel lives in its own source and entry point (``nq_mid_matmul``)
-MID_BODY = 3
+# the C entry points' ``body`` of the short-prefill and f32 bodies
+# (``dispatch.BODY``), whose kernels live in sources and entry points of
+# their own, taking the streams as an array: body -> (source, entry point)
+MID_BODY, F32_BODY = 3, 4
+STREAMS_ENTRY = {MID_BODY: ("nest_matmul_mid.cu", "nq_mid_matmul"),
+                 F32_BODY: ("nest_matmul_f32.cu", "nq_f32_matmul")}
 # the short-prefill body's plan constants (csrc/nest_matmul_mid.cu): the
 # ring stage (a chunk's words and its x at 64 token rows), the items per SM
 # the plan aims for and the CTAs per SM it takes at most
@@ -252,18 +261,70 @@ def mid_plan(device, bits, N: int, K: int, block: int):
     return _mid_plans[key]
 
 
+# the f32 body's plan constants (csrc/nest_matmul_f32.cu): CTAs per SM its
+# split plan counts on, K steps (32 codes each) a split run takes at least,
+# and a tile's split slots at most (bytes)
+F32_CTAS_PER_SM, F32_MIN_STEPS, F32_SLOT_BYTES = 2, 4, 512 * 1024
+
+
+def f32_workspace(M: int, N: int, K: int, block: int, sms: int):
+    """(f32 partials, output tiles) of an f32-body launch of M rows on a card
+    of ``sms`` SMs: ``f32_bn``, ``f32_runs`` and ``f32_workspace`` of
+    ``csrc/nest_matmul_f32.cu`` in Python (a gpu test holds the two equal).
+    BM x BN tiles: BN 128, or 32 where 128-wide tiles would fill fewer
+    than a quarter of the SMs and 32-wide ones leave a CTA at most 3x the K
+    steps; BM 32 to M 32, 64 to M 64 and at BN 32, else 128.  Where the
+    tiles fill fewer than the SMs, K (block / 32 steps a pack block) is
+    split into runs of at least ``F32_MIN_STEPS`` steps, as many as keep
+    the CTAs within ``F32_CTAS_PER_SM`` per SM and a tile's slots within
+    ``F32_SLOT_BYTES``, each run a (M, N) slot; none otherwise."""
+    nsteps = -(-K // block) * (block // 32)
+
+    def bm(bn):
+        return 32 if M <= 32 else 64 if M <= 64 or bn == 32 else 128
+
+    def tiles(bn):
+        return -(-M // bm(bn)) * -(-N // bn)
+
+    def runs(bn):
+        if tiles(bn) >= sms:
+            return 1
+        return max(1, min(F32_CTAS_PER_SM * sms // tiles(bn), nsteps // F32_MIN_STEPS,
+                          F32_SLOT_BYTES // (4 * bm(bn) * bn)))
+    bn = 128
+    if 4 * tiles(128) <= sms and -(-nsteps // runs(32)) <= 3 * -(-nsteps // runs(128)):
+        bn = 32
+    splits = runs(bn)
+    return (splits * M * N if splits > 1 else 0), tiles(bn)
+
+
+_sms: Dict[int, int] = {}
+
+
+def device_sms(device) -> int:
+    """SMs of a CUDA device (132 on an H100 SXM), read once per device."""
+    import torch
+
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device.index]
+
+
 def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, bits,
                           out=None):
     """Output (``out`` where the caller gives one: a row slice of a larger
     output), f32 partials, arrival counters and the current stream handle
     for one stream-matmul launch on ``body`` (0 CUDA cores, 1 tensor cores,
-    2 decode, 3 short prefill; ``dispatch.BODY``).  The CUDA-core body
-    splits K over every pack block: (nk, M, N) partials added by a second
-    pass.  The decode and short-prefill bodies' CTAs each take an equal run
-    of (pack block, column tile, chunk) items: one partial row per run of
-    one tile, added by the tile's last CTA; they share the stream's arrival
-    counters.  The tensor-core body takes no workspace (None).  The kernel
-    allocates nothing itself."""
+    2 decode, 3 short prefill, 4 f32; ``dispatch.BODY``).  The CUDA-core
+    body splits K over every pack block: (nk, M, N) partials added by a
+    second pass.  The decode and short-prefill bodies' CTAs each take an
+    equal run of (pack block, column tile, chunk) items: one partial row
+    per run of one tile, added by the tile's last CTA.  The f32 body splits
+    K into runs of steps where its tiles fill fewer than the SMs: one (M,
+    N) slot per run, added by the tile's last run (``f32_workspace``).
+    The three share the stream's arrival counters.  The tensor-core body
+    (and the f32 body where it does not split K) takes no workspace
+    (None).  The kernel allocates nothing itself."""
     import torch
 
     M = x.shape[0]
@@ -279,22 +340,29 @@ def stream_matmul_buffers(x, N: int, K: int, block: int, out_dtype, body: int, b
         per_row, tiles = plan(x.device, bits, N, K, block)
         partial = torch.empty(per_row * M, dtype=torch.float32, device=x.device)
         counters = dec_counters(x.device, tiles, stream)
+    elif body == F32_BODY:
+        floats, tiles = f32_workspace(M, N, K, block, device_sms(x.device))
+        if floats:
+            partial = torch.empty(floats, dtype=torch.float32, device=x.device)
+            counters = dec_counters(x.device, tiles, stream)
     return out, partial, counters, stream
 
 
-def mid_matmul(x, streams, bits, scale, *, K: int, block: int, out_dtype, out=None,
-               what: str = "mid_matmul"):
-    """One launch of the short-prefill body (``nq_mid_matmul``; body 3) on
-    bf16 ``x`` (M <= 64, K) and the word streams of ascending ``bits``: the
-    launch K1, K2 and K3 make on that body."""
+def streams_matmul(x, streams, bits, scale, *, K: int, block: int, out_dtype, body: int,
+                   out=None, what: str = "streams_matmul"):
+    """One launch of the short-prefill body (``nq_mid_matmul``, body 3:
+    bf16 ``x``, M <= 64) or the f32 body (``nq_f32_matmul``, body 4: f32
+    ``x``) on the word streams of ascending ``bits``: the launch K1, K2 and
+    K3 make on that body."""
     import torch
 
     N = streams[0].shape[1]
-    out, partial, counters, stream = stream_matmul_buffers(x, N, K, block, out_dtype,
-                                                           MID_BODY, bits, out)
+    out, partial, counters, stream = stream_matmul_buffers(x, N, K, block, out_dtype, body,
+                                                           bits, out)
     ptrs = (ctypes.c_void_p * len(streams))(*[s.data_ptr() for s in streams])
     bit_arr = (ctypes.c_int * len(bits))(*bits)
-    err = library("nest_matmul_mid.cu").nq_mid_matmul(
+    source, entry = STREAMS_ENTRY[body]
+    err = getattr(library(source), entry)(
         ptr(x), ctypes.addressof(ptrs), ctypes.addressof(bit_arr), len(streams), ptr(scale),
         ptr(out), int(out_dtype == torch.float32), ptr(partial), numel(partial),
         ptr(counters), numel(counters), x.shape[0], N, K, block, stream)

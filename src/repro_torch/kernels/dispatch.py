@@ -26,13 +26,14 @@ workspace with ``torch.empty`` and counts the launch it would make in
 (:func:`count_abstract`).  There is no build and no ctypes call on that
 route, and ``launches`` and ``plain_launches`` do not move.
 
-The weight matmuls (K1-K3) have four kernel bodies.  Which one a CUDA
+The weight matmuls (K1-K3) have five kernel bodies.  Which one a CUDA
 tensor takes is :func:`matmul_route`, a function of M and the dtype alone,
 decided before the launch: M <= ``DEC_MAX_M`` (decode) takes the decode
 body in bf16 and f32, bf16 with M >= ``TC_MIN_M`` the tensor-core body,
 bf16 in between (the short prefill) the short-prefill body, and f32 above
-M 8 the CUDA-core body.  A launch that the chosen body refuses raises; it
-never runs another body.
+M 8 the f32 body.  The fifth, the CUDA-core body, is reached only by name
+(``route="cuda_core"``: the "before" of the chip check's rows).  A launch
+that the chosen body refuses raises; it never runs another body.
 
 The decode phase names its route instead (``DECODE``, the wrappers'
 ``route=``), whatever M: a named decode route launches the decode body
@@ -65,12 +66,14 @@ class LaunchCounter:
     tc_launches: int = 0       # of ``launches``: those on the tensor-core body
     dec_launches: int = 0      # of ``launches``: those on the decode body
     mid_launches: int = 0      # of ``launches``: those on the short-prefill body
+    f32_launches: int = 0      # of ``launches``: those on the f32 body
     # launches on abstract tensors, split by body like ``launches``, and
     # their work (``costs.py``)
     dry_launches: int = 0
     dry_tc_launches: int = 0
     dry_dec_launches: int = 0
     dry_mid_launches: int = 0
+    dry_f32_launches: int = 0
     dry_flops: float = 0.0
     dry_bytes: float = 0.0
 
@@ -123,10 +126,11 @@ def takes_kernel(x: torch.Tensor) -> bool:
 
 
 PLAIN, CUDA_CORE, TENSOR_CORE, DECODE = "plain", "cuda_core", "tensor_core", "decode"
-MID = "mid"
+MID, F32 = "mid", "f32"
 # the C entry points' ``body`` argument of each kernel route (the
-# short-prefill body's is its own entry point, ``build.mid_matmul``)
-BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2, MID: 3}
+# short-prefill and f32 bodies have entry points of their own,
+# ``build.STREAMS_ENTRY``)
+BODY = {CUDA_CORE: 0, TENSOR_CORE: 1, DECODE: 2, MID: 3, F32: 4}
 # Largest M the K1-K3 decode body takes (bf16 and f32): one 8-row x tile
 # per CTA, each packed word unpacked once for all rows.
 DEC_MAX_M = 8
@@ -145,8 +149,8 @@ def matmul_route(M: int, dtype: torch.dtype, device) -> str:
     """The body a K1-K3 wrapper runs for an (M, K) activation of ``dtype``
     on ``device``: ``"plain"`` on the CPU, else ``"decode"`` for M <=
     ``DEC_MAX_M`` (bf16 or f32), ``"tensor_core"`` for bf16 with M >=
-    ``TC_MIN_M``, ``"mid"`` for bf16 in between and ``"cuda_core"`` for
-    f32 above ``DEC_MAX_M``."""
+    ``TC_MIN_M``, ``"mid"`` for bf16 in between and ``"f32"`` for f32
+    above ``DEC_MAX_M``.  Nothing routes to ``"cuda_core"`` unasked."""
     kind = torch.device(device).type
     if kind == "cpu":
         return PLAIN
@@ -156,7 +160,7 @@ def matmul_route(M: int, dtype: torch.dtype, device) -> str:
         return DECODE
     if dtype == torch.bfloat16:
         return TENSOR_CORE if M >= TC_MIN_M else MID
-    return CUDA_CORE
+    return F32
 
 
 def kernel_route(x: torch.Tensor, route) -> str:
@@ -165,24 +169,36 @@ def kernel_route(x: torch.Tensor, route) -> str:
     decode phase names ``DECODE``; the chip check and the tests compare
     the bodies at one shape), else :func:`matmul_route`.  A named
     tensor-core or short-prefill route takes bf16 only (the short-prefill
-    body at most ``MID_MAX_M`` rows); a named decode route takes any M, in
-    groups of at most ``DEC_MAX_M`` rows (:func:`launch_matmul`)."""
+    body at most ``MID_MAX_M`` rows), a named f32 route f32 only; a named
+    decode route takes any M, in groups of at most ``DEC_MAX_M`` rows
+    (:func:`launch_matmul`)."""
     if route is None:
         return matmul_route(x.shape[0], x.dtype, x.device)
     if route not in BODY:
         raise ValueError(f"route must be one of {sorted(BODY)}, got {route!r}")
     if route in (TENSOR_CORE, MID) and x.dtype != torch.bfloat16:
         raise TypeError(f"the {route} body takes bf16 activations, got {x.dtype}")
+    if route == F32 and x.dtype != torch.float32:
+        raise TypeError(f"the f32 body takes f32 activations, got {x.dtype}")
     if route == MID and x.shape[0] > MID_MAX_M:
         raise ValueError(f"the mid body takes at most {MID_MAX_M} rows, got {x.shape[0]}")
     return route
 
 
+# K1-K3 launches per body route in this process, over every wrapper:
+# ``reset_counters`` leaves them as they are, so a run can show that no
+# launch reached a body (the CUDA-core one, reached only by name) between
+# two readings, whatever was reset in between.
+BODY_LAUNCHES: Dict[str, int] = dict.fromkeys(BODY, 0)
+
+
 def count_launch(counter: LaunchCounter, route: str) -> None:
+    BODY_LAUNCHES[route] += 1
     counter.launches += 1
     counter.tc_launches += int(route == TENSOR_CORE)
     counter.dec_launches += int(route == DECODE)
     counter.mid_launches += int(route == MID)
+    counter.f32_launches += int(route == F32)
 
 
 def count_abstract(counter: LaunchCounter, route: str, cost) -> None:
@@ -192,6 +208,7 @@ def count_abstract(counter: LaunchCounter, route: str, cost) -> None:
     counter.dry_tc_launches += int(route == TENSOR_CORE)
     counter.dry_dec_launches += int(route == DECODE)
     counter.dry_mid_launches += int(route == MID)
+    counter.dry_f32_launches += int(route == F32)
     counter.dry_bytes += cost[0]
     counter.dry_flops += cost[1]
 
@@ -241,9 +258,10 @@ def launch_matmul(x: torch.Tensor, N: int, out_dtype, route: str,
 def launch_abstract(x: torch.Tensor, N: int, out_dtype, route: str,
                     counter: LaunchCounter, streams, bits, block: int) -> torch.Tensor:
     """:func:`launch_matmul` on an abstract x: the (M, N) output and, per
-    launch, the CUDA-core body's (nk, rows, N) and the short-prefill body's
-    (``build.mid_workspace`` on an H100's ``costs.SMS``) f32 partials as
-    ``build.stream_matmul_buffers`` allocates them (the decode body's
+    launch, the CUDA-core body's (nk, rows, N), the short-prefill body's
+    (``build.mid_workspace``) and the f32 body's (``build.f32_workspace``,
+    none where it does not split K) f32 partials, both on an H100's
+    ``costs.SMS``, as the wrappers allocate them (the decode body's
     partials are sized by the library from the card's occupancy, and are
     left out), each launch counted with :func:`costs.matmul_cost`."""
     from . import build
@@ -259,6 +277,9 @@ def launch_abstract(x: torch.Tensor, N: int, out_dtype, route: str,
             shape = (nk, rows.shape[0], N)
         elif route == MID:
             shape = (build.mid_workspace(bits, N, K, block, costs.SMS)[0] * rows.shape[0],)
+        elif route == F32:
+            floats = build.f32_workspace(rows.shape[0], N, K, block, costs.SMS)[0]
+            shape = (floats,) if floats else None
         if shape is not None:
             partial = torch.empty(shape, dtype=torch.float32, device=x.device)
             del partial

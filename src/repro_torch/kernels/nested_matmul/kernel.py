@@ -5,10 +5,11 @@
 * ``nq_ladder_matmul`` replaces ``repro/kernels/nested_matmul/kernel.py:125
   ladder_matmul`` (base + R resident deltas, 2..4 streams in all).
 
-Four bodies, picked by the caller (``body``, ``dispatch.BODY``): the
+Five bodies, picked by the caller (``body``, ``dispatch.BODY``): the
 decode body (M <= 8), the short-prefill body (bf16 at M 9-63,
-``csrc/nest_matmul_mid.cu``), the tensor-core body (bf16 at prefill M) and
-the CUDA-core body (f32 above M 8); what bounds each and what its design
+``csrc/nest_matmul_mid.cu``), the tensor-core body (bf16 at prefill M),
+the f32 body (f32 above M 8, ``csrc/nest_matmul_f32.cu``) and the
+CUDA-core body (reached only by name); what bounds each and what its design
 does about it is in the note at the top of each CUDA source.  Operands
 are checked by the wrappers in ``ops.py``.
 """
@@ -25,10 +26,10 @@ SOURCE = "nest_matmul.cu"
 
 def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
                   block_k: int, out_dtype, body: int, out=None) -> torch.Tensor:
-    if body == build.MID_BODY:
-        return build.mid_matmul(x, (words_high, words_low), (h, n), scale, K=K,
-                                block=block_k, out_dtype=out_dtype, out=out,
-                                what="nested_matmul")
+    if body in build.STREAMS_ENTRY:
+        return build.streams_matmul(x, (words_high, words_low), (h, n), scale, K=K,
+                                    block=block_k, out_dtype=out_dtype, body=body, out=out,
+                                    what="nested_matmul")
     N = words_high.shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
         x, N, K, block_k, out_dtype, body, (h, n), out)
@@ -43,9 +44,10 @@ def nested_matmul(x, words_high, words_low, scale, *, n: int, h: int, K: int,
 
 def ladder_matmul(x, streams, scale, *, bits, K: int, block_k: int,
                   out_dtype, body: int, out=None) -> torch.Tensor:
-    if body == build.MID_BODY:
-        return build.mid_matmul(x, streams, bits, scale, K=K, block=block_k,
-                                out_dtype=out_dtype, out=out, what="ladder_matmul")
+    if body in build.STREAMS_ENTRY:
+        return build.streams_matmul(x, streams, bits, scale, K=K, block=block_k,
+                                    out_dtype=out_dtype, body=body, out=out,
+                                    what="ladder_matmul")
     N = streams[0].shape[1]
     out, partial, counters, stream = build.stream_matmul_buffers(
         x, N, K, block_k, out_dtype, body, bits, out)

@@ -211,7 +211,8 @@ def tensors(obj):
 
 def _dry_counts():
     return {name: (c.dry_launches, c.dry_dec_launches, c.dry_tc_launches, c.dry_mid_launches,
-                   c.dry_flops, c.dry_bytes) for name, c in dispatch.COUNTERS.items()}
+                   c.dry_f32_launches, c.dry_flops, c.dry_bytes)
+            for name, c in dispatch.COUNTERS.items()}
 
 
 def _real_counts():
@@ -270,13 +271,13 @@ def analyze(step, args, mesh, device, memory: bool = True) -> StepCosts:
     out.aten_bytes = sum(v for (kind, _, _), v in tally.items() if kind == "bytes")
     out.transfer_bytes = sum(v for (kind, _, _), v in tally.items() if kind == "transfer")
     for name, now in _dry_counts().items():
-        was = before.get(name, (0, 0, 0, 0, 0.0, 0.0))
+        was = before.get(name, (0, 0, 0, 0, 0, 0.0, 0.0))
         d = [a - b for a, b in zip(now, was)]
         if d[0]:
             out.kernels[name] = {"dry_launches": d[0], "decode": d[1], "tensor_core": d[2],
-                                 "mid": d[3], "flops": d[4], "bytes": d[5]}
-            tally[("flops", f"kernel:{name}", "")] += d[4]
-            tally[("bytes", f"kernel:{name}", "")] += d[5]
+                                 "mid": d[3], "f32": d[4], "flops": d[5], "bytes": d[6]}
+            tally[("flops", f"kernel:{name}", "")] += d[5]
+            tally[("bytes", f"kernel:{name}", "")] += d[6]
     out.kernel_flops = sum(k["flops"] for k in out.kernels.values())
     out.kernel_bytes = sum(k["bytes"] for k in out.kernels.values())
     out.flops = out.aten_flops + out.kernel_flops

@@ -121,7 +121,8 @@ def _matmul(name, nt, route):
     (20, torch.float32, dispatch.DECODE, 3, dispatch.DECODE),       # one per 8 rows
     (32, torch.bfloat16, None, 1, dispatch.MID),
     (64, torch.bfloat16, None, 1, dispatch.TENSOR_CORE),
-    (64, torch.float32, None, 1, dispatch.CUDA_CORE),
+    (64, torch.float32, None, 1, dispatch.F32),
+    (4096, torch.float32, None, 1, dispatch.F32),
 ])
 def test_matmul_wrappers_count_the_cards_launches_on_fake_tensors(name, M, dtype, route,
                                                                    launches, body):
@@ -140,6 +141,7 @@ def test_matmul_wrappers_count_the_cards_launches_on_fake_tensors(name, M, dtype
     assert c.dry_dec_launches == launches * (body == dispatch.DECODE)
     assert c.dry_tc_launches == launches * (body == dispatch.TENSOR_CORE)
     assert c.dry_mid_launches == launches * (body == dispatch.MID)
+    assert c.dry_f32_launches == launches * (body == dispatch.F32)
     step = dispatch.DEC_MAX_M if body == dispatch.DECODE else M
     work = [costs.matmul_cost(x[g:g + step], streams, nt.w_base.shape[1], dtype)
             for g in range(0, M, step)]
@@ -166,6 +168,31 @@ def test_mid_route_dry_launch_and_its_partials(M, route):
     per_row, tiles = build.mid_workspace(nt.bits[:3], 256, nt.K, nt.block, costs.SMS)
     assert tiles == 16 and per_row == (16 + 192) * 16
     held = got.argument_bytes + M * 256 * 2 + per_row * M * 4
+    assert held <= got.peak_bytes <= held + 4 * 1024
+
+
+@pytest.mark.parametrize("M,N,splits", [(9, 256, 12), (63, 1536, 5), (4096, 256, 4),
+                                         (2200, 1536, 1)])
+def test_f32_route_dry_launch_and_its_partials(M, N, splits):
+    """f32 above M 8 dry-runs one launch on the f32 body, and the call's
+    peak holds the f32 partials that launch allocates on the card (one
+    (M, N) slot per run of K steps, ``build.f32_workspace`` on an H100's
+    132 SMs; none where the tiles fill the SMs) beside its arguments and
+    output."""
+    from repro_torch.kernels import build
+
+    nt = _nested((4, 6, 8), K=1536, N=N)
+    call, streams, scale = _matmul("ladder_matmul", nt, None)
+    x = torch.randn(M, nt.K, generator=torch.Generator().manual_seed(M))
+    dispatch.reset_counters()
+    got = step_analysis.analyze(call, (x, streams, scale), shape_only((1, 1)), "cpu")
+    c = dispatch.counter("ladder_matmul")
+    assert (c.dry_launches, c.dry_f32_launches, c.dry_mid_launches, c.dry_dec_launches,
+            c.dry_tc_launches, c.launches) == (1, 1, 0, 0, 0, 0)
+    assert got.kernels["ladder_matmul"]["f32"] == 1
+    floats, _ = build.f32_workspace(M, N, nt.K, nt.block, costs.SMS)
+    assert floats == (splits * M * N if splits > 1 else 0)
+    held = got.argument_bytes + M * N * 4 + floats * 4
     assert held <= got.peak_bytes <= held + 4 * 1024
 
 

@@ -1,7 +1,8 @@
 """K1-K6 on the card: each CUDA kernel against its plain PyTorch version at
-the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their four
-bodies - decode at M <= 8, the short prefill at bf16 M 9-63, CUDA cores at
-f32 above M 8, tensor cores at bf16 prefill M - the nested KV
+the shapes qwen2-1.5b gives it (the weight matmuls K1-K3 on their five
+bodies - decode at M <= 8, the short prefill at bf16 M 9-63, the f32 body
+above M 8, tensor cores at bf16 prefill M, the CUDA-core body by name -
+the nested KV
 cache's integer QK^T K4, long-prefill flash attention K5 and the page-in
 recompose K6), the kernel routes' refusals, artifact fetches onto the card,
 a serve after ``ServeEngine.warmup`` that builds nothing, the decode route's
@@ -191,31 +192,35 @@ def test_tensor_core_body_f32_output(cuda):
 
 def test_route_counter_shows_which_body_ran(cuda):
     """M <= DEC_MAX_M takes the decode body in bf16 and f32; bf16 at M 9-63
-    the short-prefill body; f32 above M 8 the CUDA-core body; bf16 at
-    TC_MIN_M the tensor-core one; a named route is honoured."""
+    the short-prefill body; f32 above M 8 the f32 body; bf16 at TC_MIN_M
+    the tensor-core one; a named route is honoured (the CUDA-core body is
+    reached only so)."""
     g = torch.Generator(device=cuda).manual_seed(7)
     nt = nest_quantize(torch.randn(512, 256, generator=g, device=cuda), bits=(8, 6, 4),
                        rounding="rtn")
-    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0, 0, 1),
-             (dispatch.DEC_MAX_M + 1, torch.bfloat16, None, 0, 0, 1),
-             (dispatch.TC_MIN_M, torch.bfloat16, None, 1, 0, 0),
-             (dispatch.TC_MIN_M, torch.float32, None, 0, 0, 0),
-             (dispatch.DEC_MAX_M + 1, torch.float32, None, 0, 0, 0),
-             (4, torch.bfloat16, None, 0, 1, 0),
-             (dispatch.DEC_MAX_M, torch.float32, None, 0, 1, 0),
-             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1, 0, 0),
-             (4, torch.bfloat16, dispatch.MID, 0, 0, 1),
-             (dispatch.TC_MIN_M, torch.bfloat16, dispatch.MID, 0, 0, 1),
-             (4, torch.float32, dispatch.CUDA_CORE, 0, 0, 0),
-             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0, 0, 0)]
-    for M, dtype, route, tc, dec, mid in cases:
+    cases = [(dispatch.TC_MIN_M - 1, torch.bfloat16, None, 0, 0, 1, 0),
+             (dispatch.DEC_MAX_M + 1, torch.bfloat16, None, 0, 0, 1, 0),
+             (dispatch.TC_MIN_M, torch.bfloat16, None, 1, 0, 0, 0),
+             (dispatch.TC_MIN_M, torch.float32, None, 0, 0, 0, 1),
+             (dispatch.DEC_MAX_M + 1, torch.float32, None, 0, 0, 0, 1),
+             (4, torch.bfloat16, None, 0, 1, 0, 0),
+             (dispatch.DEC_MAX_M, torch.float32, None, 0, 1, 0, 0),
+             (4, torch.bfloat16, dispatch.TENSOR_CORE, 1, 0, 0, 0),
+             (4, torch.bfloat16, dispatch.MID, 0, 0, 1, 0),
+             (dispatch.TC_MIN_M, torch.bfloat16, dispatch.MID, 0, 0, 1, 0),
+             (4, torch.float32, dispatch.F32, 0, 0, 0, 1),
+             (4, torch.float32, dispatch.CUDA_CORE, 0, 0, 0, 0),
+             (dispatch.TC_MIN_M, torch.float32, dispatch.CUDA_CORE, 0, 0, 0, 0),
+             (4096, torch.bfloat16, dispatch.CUDA_CORE, 0, 0, 0, 0)]
+    for M, dtype, route, tc, dec, mid, f32 in cases:
         x = torch.randn(M, 512, generator=g, device=cuda).to(dtype)
         for rung, counter in enumerate(COUNTERS.values()):
             seen = lambda: (counter.launches, counter.tc_launches,  # noqa: E731
-                            counter.dec_launches, counter.mid_launches)
+                            counter.dec_launches, counter.mid_launches, counter.f32_launches)
             before = seen()
             got, _ = _run_rung(nt, rung, x, route=route)
-            assert seen() == (before[0] + 1, before[1] + tc, before[2] + dec, before[3] + mid)
+            assert seen() == (before[0] + 1, before[1] + tc, before[2] + dec, before[3] + mid,
+                              before[4] + f32)
             with dispatch.reference_pass():
                 want = _run_rung(nt, rung, x)[0]
             err = (got.float() - want.float()).abs().max().item()
@@ -361,6 +366,160 @@ def test_mid_plan_mirror_is_the_library_s(cuda, bits, N, K, block):
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert build.mid_plan(cuda, bits, N, K, block) == build.mid_workspace(bits, N, K, block, sms)
+
+
+# ---------------------------------------------------------------------------
+# K1-K3 f32 body (f32 above M 8)
+# ---------------------------------------------------------------------------
+def _check_f32_rungs(nt, x, rungs=None, out_dtype=None, streams=None):
+    """Rungs of ``nt`` (every one by default) on the f32 body, chosen by the
+    route: counted as one launch on it, within 1e-4 of max(1, max |y|) of
+    the plain version, and bit-identical over two launches.  ``streams``
+    replaces the leaf's own word streams."""
+    assert dispatch.matmul_route(x.shape[0], x.dtype, x.device) == dispatch.F32
+    for rung in range(len(nt.bits)) if rungs is None else rungs:
+        src = nt if streams is None else nt._replace(w_base=streams[0],
+                                                     deltas=tuple(streams[1:]))
+        counter = COUNTERS[("packed_matmul", "nested_matmul", "ladder_matmul")[min(rung, 2)]]
+        before = (counter.launches, counter.f32_launches)
+        got, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        again, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        assert (counter.launches, counter.f32_launches) == (before[0] + 2, before[1] + 2)
+        with dispatch.reference_pass():
+            want, _ = _run_rung(src, rung, x, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == (out_dtype or x.dtype) and got.shape == want.shape
+        assert torch.equal(got, again), (nt.bits, rung, "two launches differ")
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, peak), (nt.bits, rung, x.shape, err, peak)
+
+
+# (K, N): q/o, k/v, gate/up, down and lm_head of the reduced qwen2-1.5b
+REDUCED_SHAPES = [(64, 64), (64, 32), (64, 128), (128, 64), (64, 256)]
+
+
+@pytest.mark.parametrize("bits", [(8, 6, 4), (3, 5, 6, 8)])
+@pytest.mark.parametrize("K,N", SHAPES[:4])
+def test_f32_body_matches_plain_at_every_rung(cuda, K, N, bits):
+    """qwen2-1.5b's q/o, k/v, gate/up and down in f32 above M 8: the short
+    prefill (K split into runs), either side of the 32-, 64- and 128-row
+    tiles, the ragged 2 x 1100 prefill and the 2 x 2048 one; 1-4 streams
+    (every rung of each ladder)."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + len(bits))
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn")
+    for M in (9, 32, 33, 63, 64, 65, 130, 2200, 4096):
+        _check_f32_rungs(nt, torch.randn(M, K, generator=g, device=cuda))
+
+
+@pytest.mark.parametrize("K,N", REDUCED_SHAPES)
+def test_f32_body_at_the_reduced_model_s_shapes(cuda, K, N):
+    """The reduced qwen2-1.5b's five shapes (its pack blocks 64 and 128, N
+    32 to 256) at the f32 prefill rows the CPU tests serve."""
+    g = torch.Generator(device=cuda).manual_seed(K * N)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=(8, 6, 4), rounding="rtn")
+    for M in (9, 16, 64, 130):
+        _check_f32_rungs(nt, torch.randn(M, K, generator=g, device=cuda))
+
+
+def test_f32_body_the_lm_head(cuda):
+    """The LM head (N 151936, f32 out) at a prefill's last rows."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    nt = nest_quantize(torch.randn(1536, 151936, generator=g, device=cuda) / 40,
+                       bits=(8, 6, 4), rounding="rtn")
+    for M in (9, 32):
+        _check_f32_rungs(nt, torch.randn(M, 1536, generator=g, device=cuda),
+                         out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("K,N,block,bits", [
+    (2560, 6448, 512, (8, 6, 4)),    # mamba2's in_proj: N no multiple of a tile
+    (1000, 200, 64, (12, 16)),       # codes over 9 bits: the general path
+    (96, 100, 32, (2, 4, 6, 8)),     # block 32: one step a block, too few to split
+    (999, 130, 96, (3, 5, 6, 8)),    # block 96, odd K: 4-byte x copies
+    (520, 33, 64, (4, 8)),           # odd N: 4-byte word copies, scalar stores
+    (8960, 256, 256, (8, 6, 4)),     # block 256, k/v's width
+    (1536, 1536, 512, (2, 5, 9, 16)),  # a 16-bit top code, four streams
+])
+def test_f32_body_ragged_shapes_blocks_and_wide_codes(cuda, K, N, block, bits):
+    g = torch.Generator(device=cuda).manual_seed(K + N + block)
+    nt = nest_quantize(torch.randn(K, N, generator=g, device=cuda) / math.sqrt(K),
+                       bits=bits, rounding="rtn", block=block)
+    for M in (9, 40, 100, 300):
+        _check_f32_rungs(nt, torch.randn(M, K, generator=g, device=cuda))
+
+
+def test_f32_body_16_bit_stream_and_misaligned_views(cuda):
+    """K1 on one 16-bit stream (two codes a word: ``prepare(..., "full")``
+    of a (12, 16) ladder), pack blocks 32 and 512, streams that start 4 or
+    8 bytes past a 16-byte boundary and an x 4 bytes past one (narrower
+    copies)."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    for block in (32, 512):
+        nt = nest_quantize(torch.randn(1024, 130, generator=g, device=cuda) / 30,
+                           bits=(12, 16), rounding="rtn", block=block)
+        words, scale, k, _ = pops.prepare(nt, "full", block_k=block)
+        for M in (9, 40, 200):
+            x = torch.randn(M, 1024, generator=g, device=cuda)
+            before = pops.COUNTER.f32_launches
+            got = pops.packed_matmul(x, words, scale.contiguous(), k=k, K=1024, block_k=block)
+            assert pops.COUNTER.f32_launches == before + 1
+            with dispatch.reference_pass():
+                want = pops.packed_matmul(x, words, scale.contiguous(), k=k, K=1024,
+                                          block_k=block)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[torch.float32] * max(1.0, want.float().abs().max().item())
+    nt = nest_quantize(torch.randn(1536, 256, generator=g, device=cuda) / 40, bits=(8, 6, 4),
+                       rounding="rtn")
+    for shift in (1, 2):
+        views = []
+        for s in (nt.w_base,) + nt.deltas:
+            buf = torch.empty(s.numel() + shift, dtype=s.dtype, device=cuda)
+            v = buf[shift:].view(s.shape)
+            v.copy_(s)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4 * shift
+        xbuf = torch.randn(70 * 1536 + 1, generator=g, device=cuda)
+        x = xbuf[1:].view(70, 1536)
+        assert x.data_ptr() % 16 == 4
+        _check_f32_rungs(nt, x, streams=views)
+
+
+def test_f32_route_raises_on_what_it_refuses(cuda):
+    """A named f32 route takes f32 only: a bf16 activation raises TypeError
+    before any launch (no other body runs, nothing is counted)."""
+    nt = nest_quantize(torch.randn(512, 256, device=cuda), bits=(8, 6, 4), rounding="rtn")
+    before = {n: (c.launches, c.f32_launches, c.plain_launches) for n, c in COUNTERS.items()}
+    for rung in range(3):
+        with pytest.raises(TypeError):
+            _run_rung(nt, rung, torch.randn(32, 512, device=cuda).bfloat16(),
+                      route=dispatch.F32)
+    assert {n: (c.launches, c.f32_launches, c.plain_launches)
+            for n, c in COUNTERS.items()} == before
+
+
+@pytest.mark.parametrize("bits,M,N,K,block", [
+    ((4,), 32, 1536, 1536, 512), ((4, 6, 8), 63, 256, 1536, 512),
+    ((4, 6, 8), 64, 8960, 1536, 512), ((4, 6, 8), 64, 1536, 8960, 256),
+    ((4, 6, 8), 4096, 256, 1536, 512), ((4, 6, 8), 4096, 1536, 1536, 512),
+    ((2, 4, 6, 8), 20, 100, 96, 32), ((16,), 40, 130, 999, 64), ((12, 16), 9, 151936, 1536, 512),
+])
+def test_f32_plan_mirror_is_the_library_s(cuda, bits, M, N, K, block):
+    """The Python mirror of the f32 plan (``build.f32_workspace``, which the
+    wrapper and the dry run size the partials with) gives the library's
+    partials and tiles (``nq_f32_workspace``) on this card's SM count."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    arr = (ctypes.c_int * len(bits))(*bits)
+    tiles = ctypes.c_int(0)
+    floats = build.library("nest_matmul_f32.cu").nq_f32_workspace(
+        ctypes.addressof(arr), len(bits), M, N, K, block, ctypes.byref(tiles))
+    assert (floats, tiles.value) == build.f32_workspace(M, N, K, block, sms)
 
 
 # ---------------------------------------------------------------------------
@@ -613,6 +772,43 @@ def test_flash_attention_tensor_core_body_bf16(cuda, S, hd, groups):
     assert err <= tol * want.float().abs().max().item(), err
     rows = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
     assert rows.max().item() <= tol, rows.max().item()
+
+
+@pytest.mark.parametrize("groups", [1, 6])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("S,start", [(1, 0), (31, 0), (33, 0), (65, 0), (1100, 0),
+                                     (2048, 0), (2048, 1792), (1100, 300)])
+def test_flash_attention_f32_body(cuda, S, start, hd, groups):
+    """K5's f32 body (CUDA-core FMAs, 64-row query tiles, 32-key K and V
+    tiles double-buffered) against the plain blockwise version at ragged
+    and tile-multiple S, the padded head widths 64 / 80 / 128, GQA groups 1
+    and 6 and query blocks at an offset: within 1e-4 of max |o| and of
+    every output row's own norm, its row statistics within 1e-5 of the
+    plain forward's, and two launches bit-identical."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.attention import _flash_fwd_inner
+
+    g = torch.Generator(device=cuda).manual_seed(S + start + hd + groups)
+    B, Hkv = 2, 2
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda)
+               for h in (Hkv * groups, Hkv, Hkv))
+    q = q[:, start:].contiguous()
+    before = fa.COUNTER.launches
+    got = fa.flash_attention(q, k, v, q_offset=start)
+    o, m, l = fa.flash_attention_stats(q, k, v, q_offset=start)
+    assert fa.COUNTER.launches == before + 2
+    with dispatch.reference_pass():
+        want = fa.flash_attention(q, k, v, q_offset=start)
+    _, want_m, want_l = _flash_fwd_inner(q, k, v, True, S, start)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape and torch.equal(o, got)
+    tol = TOL[torch.float32]
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+    rows = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert rows.max().item() <= tol, rows.max().item()
+    assert ((m - want_m).abs() / want_m.abs().clamp_min(1.0)).max().item() <= 1e-5
+    assert ((l - want_l).abs() / want_l).max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

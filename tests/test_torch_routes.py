@@ -1,7 +1,8 @@
-"""The K1-K3 route choice (plain, decode body, short-prefill body,
-CUDA-core body or tensor-core body) as a pure function of M, dtype and
-device; the decode route in row groups; the per-route launch counters;
-the short-prefill body's plan mirror; and
+"""The K1-K3 route choice (plain, decode body, short-prefill body, f32
+body or tensor-core body; the CUDA-core body only by name) as a pure
+function of M, dtype and device; the decode route in row groups; the
+per-route launch counters; the short-prefill and f32 bodies' plan
+mirrors; and
 the plain route at prefill-like M against the JAX package (its Pallas
 kernels in interpret mode, its flash op at a ragged S)."""
 import jax.numpy as jnp
@@ -17,7 +18,7 @@ from repro_torch.kernels.nested_matmul import ops
 from torch_parity import activations, assert_close, flash_inputs, j2n, stream_operands, t2n
 
 TC, CC, PLAIN = dispatch.TENSOR_CORE, dispatch.CUDA_CORE, dispatch.PLAIN
-DEC, MID = dispatch.DECODE, dispatch.MID
+DEC, MID, F32 = dispatch.DECODE, dispatch.MID, dispatch.F32
 
 
 @pytest.mark.parametrize("M,dtype,device,want", [
@@ -28,12 +29,16 @@ DEC, MID = dispatch.DECODE, dispatch.MID
     (4, torch.float32, "cuda:0", DEC),
     (dispatch.DEC_MAX_M, torch.float32, "cuda", DEC),
     (dispatch.DEC_MAX_M + 1, torch.bfloat16, "cuda", MID),  # M 9-63 in bf16
-    (dispatch.DEC_MAX_M + 1, torch.float32, "cuda", CC),   # f32 above M 8
+    (dispatch.DEC_MAX_M + 1, torch.float32, "cuda", F32),  # f32 above M 8
     (32, torch.bfloat16, "cuda", MID),                     # the short prefill
     (dispatch.TC_MIN_M - 1, torch.bfloat16, "cuda", MID),
     (dispatch.TC_MIN_M, torch.bfloat16, "cuda", TC),
     (4096, torch.bfloat16, "cuda:0", TC),                   # the long prefill
-    (4096, torch.float32, "cuda", CC),                      # f32: no TF32, CUDA cores
+    (4096, torch.float32, "cuda", F32),                     # f32: no TF32, CUDA cores
+    (63, torch.float32, "cuda", F32),                       # either side of BM 64
+    (dispatch.TC_MIN_M, torch.float32, "cuda", F32),
+    (65, torch.float32, "cuda:0", F32),
+    (2200, torch.float32, "cuda", F32),                     # ragged against BM 128
     (4096, torch.bfloat16, "cpu", PLAIN),
     (1, torch.float32, "cpu", PLAIN),
     (4, torch.bfloat16, "cpu", PLAIN),
@@ -85,13 +90,16 @@ def test_launch_counts_per_route_and_reset():
 
 
 def test_body_has_an_entry_per_kernel_route():
-    """Four bodies, numbered as the C entry points take them; the
-    short-prefill body's number is the one its binding dispatches on."""
+    """Five bodies, numbered as the C entry points take them; the
+    short-prefill and f32 bodies' numbers are the ones their bindings
+    dispatch on."""
     from repro_torch.kernels import build
 
-    assert dispatch.BODY == {CC: 0, TC: 1, DEC: 2, MID: 3}
+    assert dispatch.BODY == {CC: 0, TC: 1, DEC: 2, MID: 3, F32: 4}
     assert dispatch.BODY[MID] == build.MID_BODY
-    assert set(build.SIGNATURES) >= {"nest_matmul.cu", "nest_matmul_mid.cu"}
+    assert dispatch.BODY[F32] == build.F32_BODY
+    assert set(build.SIGNATURES) >= {"nest_matmul.cu", "nest_matmul_mid.cu",
+                                     "nest_matmul_f32.cu"}
 
 
 def test_mid_route_refuses_f32_and_counts_its_launches():
@@ -114,6 +122,74 @@ def test_mid_route_refuses_f32_and_counts_its_launches():
     dispatch.reset_counters()
     assert (probe.launches, probe.mid_launches) == (0, 0)
     del dispatch.COUNTERS["mid_probe"]
+
+
+def test_f32_route_refuses_bf16_and_counts_its_launches():
+    """A named f32 route takes f32 only, at any M (TypeError on bf16, never
+    another body); its launches count in ``f32_launches`` and reset with
+    the rest; ``BODY_LAUNCHES`` counts every launch by body and no reset
+    clears it."""
+    for M in (1, dispatch.DEC_MAX_M + 1, 64, 4096):
+        assert dispatch.kernel_route(torch.zeros(M, 8), F32) == F32
+        with pytest.raises(TypeError):
+            dispatch.kernel_route(torch.zeros(M, 8, dtype=torch.bfloat16), F32)
+    bodies = dict(dispatch.BODY_LAUNCHES)
+    probe = dispatch.counter("f32_probe")
+    dispatch.count_launch(probe, F32)
+    dispatch.count_launch(probe, F32)
+    dispatch.count_launch(probe, CC)
+    dispatch.count_launch(probe, DEC)
+    assert (probe.launches, probe.f32_launches, probe.dec_launches, probe.mid_launches,
+            probe.tc_launches) == (4, 2, 1, 0, 0)
+    dispatch.reset_counters()
+    assert (probe.launches, probe.f32_launches) == (0, 0)
+    assert dispatch.BODY_LAUNCHES == {**bodies, F32: bodies[F32] + 2, CC: bodies[CC] + 1,
+                                      DEC: bodies[DEC] + 1}
+    del dispatch.COUNTERS["f32_probe"]
+
+
+def test_cuda_core_body_is_reached_only_by_name():
+    """No M or dtype routes to the CUDA-core body; named, it is taken as
+    named in both dtypes (the chip check's "before" rows)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert {dispatch.matmul_route(M, dtype, "cuda") for M in range(1, 5000)} <= \
+            {DEC, MID, TC, F32}
+        for M in (4, 32, 4096):
+            assert dispatch.kernel_route(torch.zeros(M, 8, dtype=dtype), CC) == CC
+
+
+@pytest.mark.parametrize("M,N,K,block,want", [
+    # qwen2-1.5b q/o, k/v, gate/up, down (blocks 512 and 256): BM 32 / 64 /
+    # 128 x 128-column tiles, 32-column ones (BM 32 or 64) where 128-wide
+    # tiles cover under a quarter of 132 SMs and a CTA keeps at most 3x the
+    # steps; K split into runs of >= 4 steps of 32 codes where the tiles
+    # fill fewer than the SMs, at most 2 x 132 CTAs and 512 KB of slots a
+    # tile
+    (32, 1536, 1536, 512, (5 * 32 * 1536, 48)),       # 48 32-column tiles
+    (63, 256, 1536, 512, (12 * 63 * 256, 8)),         # 48 steps: 12 runs
+    (64, 8960, 1536, 512, (3 * 64 * 8960, 70)),       # 264 // 70 = 3 runs
+    (64, 1536, 8960, 256, (16 * 64 * 1536, 12)),      # 32 columns: 56 steps a CTA;
+    #                                                   16 slots of 32 KB: 512 KB
+    (65, 256, 1536, 512, (12 * 65 * 256, 16)),        # k/v above M 64: 64 x 32 tiles
+    (256, 256, 1536, 512, (8 * 256 * 256, 32)),
+    (65, 1536, 1536, 512, (8 * 65 * 1536, 12)),       # 8 slots of 64 KB: 512 KB
+    (16, 1536, 1536, 512, (5 * 16 * 1536, 48)),
+    (4096, 256, 1536, 512, (4 * 4096 * 256, 64)),     # k/v at the long prefill
+    (4096, 1536, 1536, 512, (0, 384)),                # enough tiles: no split
+    (4096, 8960, 1536, 512, (0, 2240)),
+    (2200, 1536, 8960, 256, (0, 216)),
+    (9, 151936, 1536, 512, (0, 1187)),                # the LM head
+    (20, 100, 96, 32, (0, 4)),                        # 3 steps: too few to split
+    (40, 130, 999, 64, (8 * 40 * 130, 5)),            # 32 steps: 8 runs
+])
+def test_f32_workspace_mirror_of_the_plan(M, N, K, block, want):
+    """The f32 body's partials and output tiles, as the Python mirror of its
+    plan computes them on an H100's 132 SMs (a gpu test holds the mirror
+    equal to the library): one (M, N) slot per run of K steps where K is
+    split, none where the tiles fill the SMs."""
+    from repro_torch.kernels import build, costs
+
+    assert build.f32_workspace(M, N, K, block, costs.SMS) == want
 
 
 @pytest.mark.parametrize("bits,N,K,block,want", [
